@@ -6,9 +6,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. build   — compile every CUDA kernel of lightgbm_tpu_torch/csrc/ (one
              nvcc per source, in parallel) and print the seconds taken.
-2. kernels — each kernel against its plain PyTorch version on the card,
-             on seeded inputs at the main path's shapes: K1 (int8
-             histogram, int32 and int8-stored bins, bitwise) and K2
+2. kernels — each dense-store kernel against its plain PyTorch version on
+             the card, on seeded inputs at the main path's shapes: K1
+             (int8 histogram, int32 and int8-stored bins, bitwise) and K2
              (float32 histogram, tolerance below) on a gathered pass and
              on a tree's root pass (masked feed, one slot, every row;
              dyadic values, so K2 is bitwise there too), K3 (lookup fused
@@ -22,15 +22,49 @@ Phases (any failure exits non-zero and prints no result line):
 3. main    — lightgbm_tpu_torch.train on synth_higgs(2_000_000) x 28
              (255 leaves, max_bin 255, int8 histograms, a 200k-row valid
              set scored with AUC each iteration; 2 warm-up and 10 timed
-             iterations, timed as the difference of a 12- and a
-             2-iteration train), then Booster.predict; launch counts are
+             iterations of one train, timed by the host clock between
+             device synchronisations at the end of iteration 2 and of
+             iteration 12, from a training callback), then
+             Booster.predict; launch counts are
              zeroed before and read after, and every kernel of the path
              must have launched.  The float32-histogram path is driven
              the same way (1 warm-up, 2 timed) so that K2 launches.
-4. card vs CPU — 5 iterations on synth_higgs(50_000) on the CPU (plain
-             versions) and on the card (kernels): the first trees must be
-             identical unless their first differing split is an f32 gain
-             tie, and the valid AUCs must agree within 1e-4.
+4. ctr set-up — synth_ctr(500_000) x 50,000 hashed-count features at
+             density 0.01 (scipy CSR, 20-row queries) through
+             lightgbm_tpu_torch.Dataset with CTR_PARAMS (sparse_store=csr):
+             host seconds of the binning and of the ELL store build; a
+             valid set synth_ctr(4_080, seed=7) given as a dense ndarray,
+             sparsified against its reference.
+5. sparse kernels — K7 (int8) and K8 (float32) stored-entry histograms
+             against their plain version on the ctr store itself (N=500k
+             rows, its ELL width R, K=31 slots, Cp=its columns, B=128),
+             K7 and K8 on dyadic gradients bitwise, K8 on real ones within
+             n * 2^-23 * sum|x| in every cell (n float additions in any
+             order lie within n * 2^-24 * sum|x| of the exact sum, and
+             the plain version's index_add_ reorders too), K7 also through
+             the whole pass with the zero bins; times of kernel, plain version
+             and one index_add_ over the flattened (slot, column,
+             channel, bin) indices of the stored entries.  Then the
+             learner's own passes: one tree per dtype on the ctr store
+             with the kernel's wrapper recording each pass's inputs, and
+             each recorded pass checked (as above) and timed, with its
+             bound.
+6. ctr main — lightgbm_tpu_torch.train with CTR_PARAMS on the phase-4
+             datasets, float32 then int8 histograms (2 warm-up and 10
+             timed iterations each, timed as in phase 3), NDCG@1..5 on
+             the valid set every iteration; fails unless hist_sparse_f32,
+             hist_sparse_int8 and table_lookup launched, no sparse store
+             was densified (train or valid), NDCG@5 is finite and no lower
+             after the last iteration than after the first, and the
+             device-scored valid set agrees with Booster.predict(
+             raw_score=True) within 1e-4.
+7. card vs CPU — the same training on the CPU (plain versions) and on the
+             card (kernels), first trees identical unless their first
+             differing split is an f32 gain tie: 5 iterations of the
+             phase-3 configuration on synth_higgs(50_000) (valid AUCs
+             within 1e-4), and 3 iterations of CTR_PARAMS on
+             synth_ctr(4_000, 2_048, 0.01), float32 and int8 (valid
+             NDCG@5 within 1e-4).
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and last {"ok": true, "device": {...}}.  Exits with 2 and no result when
@@ -38,6 +72,7 @@ no CUDA device is visible.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -63,6 +98,15 @@ HIST_ROWS = 1_312_512
 MAIN_ROWS = 2_000_000
 VALID_ROWS = 200_000
 COMPARE_ROWS = 50_000
+# the ctr configuration (scripts/run_chip_queue.sh bench_ctr): rows,
+# hashed features, density; its valid set; the card-vs-CPU shape
+CTR_ROWS = 500_000
+CTR_FEATURES = 50_000
+CTR_DENSITY = 0.01
+CTR_VALID_ROWS = 4_080
+CTR_COMPARE = (4_000, 2_048)
+# slots of the sparse-kernel phase: the ctr tree's 31 leaves
+CTR_SLOTS = 31
 GPU = "cuda"
 
 
@@ -91,6 +135,59 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / SCALAR_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def steady_window(torch, warmup: int, total: int, marks: list):
+    """After-iteration callback of lightgbm_tpu_torch.train: at the end of
+    iteration `warmup` and of iteration `total` (counted from 1) it
+    synchronises the device and appends the host clock to `marks`, so
+    s/iter = (marks[1] - marks[0]) / (total - warmup) is a steady window
+    inside one train."""
+    def cb(env):
+        if env.iteration + 1 in (warmup, total):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+    return cb
+
+
+def sparse_bound(torch, cols, srow, vals, K: int, Cp: int, B: int):
+    """(bound ms, basis, rows, entries) of one K7/K8 pass: the stored
+    entries (column and bin, 8 B) of the rows in a slot that carry a
+    value, the slot of every row and the three value lanes of the rows
+    in a slot, read once; the [K, Cp, 3, B] output written once; three
+    adds per entry."""
+    N = cols.shape[0]
+    slotted = srow < K
+    active = slotted & (vals != 0).any(dim=0)
+    n_slotted = int(slotted.sum())
+    entries = int(((cols >= 0) & (cols < Cp) & active[:, None]).sum())
+    nbytes = entries * 8 + N * 4 + n_slotted * 12 + K * Cp * 3 * B * 4
+    return bound_ms(nbytes, 3.0 * entries) + (n_slotted, entries)
+
+
+def sparse_check(torch, H, name, cols, binsv, srow, v, K, Cp, B,
+                 exact: bool) -> float:
+    """K7/K8 against their plain version on one pass's inputs: bitwise
+    when `exact`, else every cell within n * 2^-23 * sum|x| (n f32
+    additions in any order lie within n * 2^-24 * sum|x| of the exact
+    sum, and the plain version's index_add_ reorders too).  Returns the
+    max |diff|."""
+    got = H._sparse_hist_cuda(cols, binsv, srow, v, K, Cp, B)
+    ref = H._sparse_hist_plain(cols, binsv, srow, v, K, Cp, B)
+    torch.cuda.synchronize()
+    err = (got.double() - ref.double()).abs().max().item()
+    if exact and not torch.equal(got, ref):
+        fail(f"{name} differs from its plain version: max |diff| {err}")
+    if not exact:
+        absv = torch.stack([v[0].abs(), v[1].abs(), v[2]])
+        cnt = H._sparse_hist_plain(cols, binsv, srow, absv, K, Cp, B)
+        n = cnt[:, :, 2:3, :].expand(-1, -1, 3, -1)
+        tol = n.double() * 2.0 ** -23 * cnt.double()
+        bad = ((got.double() - ref.double()).abs() > tol).sum().item()
+        if bad:
+            fail(f"{name}: {bad} cells beyond n*2^-23*sum|x| (max |diff| "
+                 f"{err})")
+    return err
 
 
 def phase_kernels(torch, kernels, H, LK, P):
@@ -284,35 +381,259 @@ def phase_kernels(torch, kernels, H, LK, P):
     return rows
 
 
+def phase_ctr_setup(lt, rows):
+    """The ctr training and valid Datasets, built once (phase 4)."""
+    from lightgbm_tpu_torch.synth import CTR_PARAMS, synth_ctr
+    params = dict(CTR_PARAMS, device_type=GPU)
+    t0 = time.perf_counter()
+    X, y, g = synth_ctr(rows, CTR_FEATURES, CTR_DENSITY)
+    Xv, yv, gv = synth_ctr(CTR_VALID_ROWS, CTR_FEATURES, CTR_DENSITY,
+                           seed=7)
+    Xv = Xv.toarray()
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, y, group=g, params=params).construct()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vs = lt.Dataset(Xv, yv, group=gv, reference=ds,
+                    params=params).construct()
+    valid_s = time.perf_counter() - t0
+    sp = ds._inner.sparse
+    if sp is None or vs._inner.sparse is None:
+        fail("the ctr datasets did not build the sparse store")
+    st = dict(rows=len(y), features=CTR_FEATURES,
+              store_columns=sp.num_columns, nnz=sp.nnz,
+              ell_width=sp.nnz_capacity, synth_s=synth_s,
+              setup_binning_s=ds._inner.setup_seconds["binning"],
+              setup_store_s=ds._inner.setup_seconds["store"],
+              setup_train_total_s=train_s, setup_valid_s=valid_s)
+    print(f"[ctr setup] {json.dumps(st)}", flush=True)
+    del X
+    return params, ds, vs, Xv, st
+
+
+def phase_sparse_kernels(torch, H, ds):
+    """K7 / K8 against their plain version on the ctr store (phase 5)."""
+    dev = torch.device(GPU)
+    sp = ds._inner.sparse
+    N, R = sp.cols.shape
+    Cp, B, K = sp.num_columns, 128, CTR_SLOTS
+    rng = np.random.RandomState(11)
+    cols, binsv, zb = ds._inner.sparse_triple(dev)
+    lid_np = rng.randint(0, 40, N).astype(np.int32)     # 9 leaves unslotted
+    sl_np = np.arange(K, dtype=np.int32)
+    sl_np[[7, 19]] = -1                                 # empty slots
+    lid = torch.as_tensor(lid_np, device=dev)
+    sl = torch.as_tensor(sl_np, device=dev)
+    srow = H._slot_of_rows(lid, sl)
+    m = (rng.rand(N) > 0.05).astype(np.float32)
+    dy = np.stack([np.round(rng.randn(N) * 8) / 8 * m,
+                   np.round(rng.rand(N) * 16) / 32 * m, m])
+    real = np.stack([rng.randn(N) * m, rng.rand(N) * m, m])
+    gh_dy = torch.as_tensor(dy.astype(np.float32), device=dev)
+    gh = torch.as_tensor(real.astype(np.float32), device=dev)
+    ghq, _, _ = H._quantize_gh(gh)
+    nnz = sp.nnz
+    rr = torch.nonzero((cols < Cp) & (srow < K)[:, None], as_tuple=True)
+    rows = []
+    for name, vals, replaces in (
+            ("hist_sparse_int8", ghq, "lightgbm_tpu/ops/histogram.py:1180"),
+            ("hist_sparse_f32", gh, "lightgbm_tpu/ops/histogram.py:1133")):
+        quant = name == "hist_sparse_int8"
+        checks = [(vals, True)] if quant else [(gh_dy, True), (vals, False)]
+        errs = [sparse_check(torch, H, name, cols, binsv, srow, v, K, Cp,
+                             B, exact) for v, exact in checks]
+        gc.collect()
+        torch.cuda.empty_cache()
+        if quant:
+            # the whole pass (zero bins, one dequantize) is integer-exact
+            full = H.hist_sparse_multileaf((cols, binsv, zb), lid, gh, sl,
+                                           num_columns_padded=Cp,
+                                           num_bins_padded=B,
+                                           input_dtype="int8")
+            plain_full = H.hist_sparse_xla(cols, binsv, zb, lid, gh, sl,
+                                           num_columns_padded=Cp,
+                                           num_bins_padded=B,
+                                           input_dtype="int8")
+            if not torch.equal(full, plain_full):
+                fail("hist_sparse_multileaf (int8) differs from "
+                     "hist_sparse_xla on the card")
+            del full, plain_full
+        ms = time_ms(torch, lambda: H._sparse_hist_cuda(
+            cols, binsv, srow, vals, K, Cp, B), 10)
+        plain = time_ms(torch, lambda: H._sparse_hist_plain(
+            cols, binsv, srow, vals, K, Cp, B), 2, 1)
+        # one index_add_ over the stored entries' flattened (slot, col,
+        # channel, bin) indices, built beforehand
+        acc = vals.dtype
+        r0, j0 = rr
+        base = ((srow[r0].long() * Cp + cols[r0, j0].long()) * (3 * B)
+                + binsv[r0, j0].long().clamp(max=B - 1))
+        idx = torch.cat([base + ch * B for ch in range(3)])
+        v = torch.cat([vals[ch, r0] for ch in range(3)]).to(acc)
+        out = torch.zeros(K * Cp * 3 * B, dtype=acc, device=dev)
+        del base
+        lib = time_ms(torch, lambda: out.zero_().index_add_(0, idx, v), 5, 1)
+        del idx, v, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        bms, by, _, entries = sparse_bound(torch, cols, srow, vals, K, Cp,
+                                           B)
+        rows.append(dict(name=name, route="cuda",
+                         source="lightgbm_tpu_torch/csrc/hist_sparse.cu",
+                         replaces=replaces, max_abs_err=max(errs), ms=ms,
+                         plain_ms=plain, bound_ms=bms, bound_by=by,
+                         library_ms=lib))
+        print(f"[sparse kernels] {name}: N={N} R={R} nnz={nnz} "
+              f"(of rows in a slot, with a value: {entries}) K={K} Cp={Cp} "
+              f"B={B} "
+              f"max_abs_err={max(errs):.3g} ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} "
+              f"bound_ms={bms:.4f} ({by})", flush=True)
+    del cols, binsv, zb, rr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_learner_passes(torch, lt, H, params, ds):
+    """K7 / K8 at the pass shapes the learner makes (end of phase 5): one
+    tree per dtype on the ctr store, with the kernel's wrapper recording
+    each pass's inputs; every recorded pass is then held against the
+    plain version (int8 bitwise, float32 within n * 2^-23 * sum|x|) and
+    timed, and their sums over the tree are printed."""
+    real = H._sparse_hist_cuda
+    for dtype, name in (("float32", "hist_sparse_f32"),
+                        ("int8", "hist_sparse_int8")):
+        passes = []
+
+        def record(cols, binsv, srow, vals, K, Cp, B):
+            passes.append((cols, binsv, srow.clone(), vals.clone(), K, Cp,
+                           B))
+            return real(cols, binsv, srow, vals, K, Cp, B)
+        H._sparse_hist_cuda = record
+        try:
+            lt.train(dict(params, histogram_dtype=dtype), ds, 1)
+        finally:
+            H._sparse_hist_cuda = real
+        per = []
+        for i, (cols, binsv, srow, vals, K, Cp, B) in enumerate(passes):
+            err = sparse_check(torch, H, name, cols, binsv, srow, vals, K,
+                               Cp, B, name == "hist_sparse_int8")
+            ms = time_ms(torch, lambda: real(cols, binsv, srow, vals, K, Cp,
+                                             B), 10)
+            plain = time_ms(torch, lambda: H._sparse_hist_plain(
+                cols, binsv, srow, vals, K, Cp, B), 2, 1)
+            bms, by, n_slotted, entries = sparse_bound(torch, cols, srow,
+                                                       vals, K, Cp, B)
+            per.append(dict(K=K, rows=n_slotted, entries=entries,
+                            max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=bms, bound_by=by))
+            print(f"[learner passes] {name} pass {i}: K={K} rows in a slot "
+                  f"{n_slotted} entries {entries} max_abs_err={err:.3g} "
+                  f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.4f} "
+                  f"({by})", flush=True)
+        del passes
+        gc.collect()
+        torch.cuda.empty_cache()
+        tree = dict(passes=len(per),
+                    ms_per_tree=sum(p["ms"] for p in per),
+                    plain_ms_per_tree=sum(p["plain_ms"] for p in per),
+                    bound_ms_per_tree=sum(p["bound_ms"] for p in per),
+                    largest=max(per, key=lambda p: p["ms"]))
+        print(f"[learner passes] {name} per tree: {json.dumps(tree)}",
+              flush=True)
+
+
+def drive_ctr(torch, lt, kernels, dataset_mod, params, ds, vs, Xv,
+              warmup, timed):
+    """lightgbm_tpu_torch.train on the built ctr Datasets, NDCG@1..5 of
+    the valid set every iteration; counts zeroed before, read after.
+    s/iter as in `drive`."""
+    gc.collect()
+    kernels.reset_launches()
+    dataset_mod.reset_sparse_fallbacks()
+    n, res, marks = warmup + timed, {}, []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bst = lt.train(params, ds, n, valid_sets=[vs], evals_result=res,
+                   callbacks=[steady_window(torch, warmup, n, marks)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if bst.num_trees() != n:
+        fail(f"ctr training stopped early: {bst.num_trees()} of {n}")
+    launches = dict(kernels.LAUNCHES)
+    fallbacks = dataset_mod.sparse_fallbacks()
+    nd5 = res["valid_0"]["ndcg@5"]
+    dev_raw = bst._gbdt.valid_sets[0][2].score[0].double().cpu().numpy()
+    t = time.perf_counter()
+    host_raw = bst.predict(Xv, raw_score=True)
+    predict_s = time.perf_counter() - t
+    st = dict(s_per_iter=(marks[1] - marks[0]) / timed, train_wall_s=wall,
+              ndcg={k: [v[0], v[-1]] for k, v in res["valid_0"].items()},
+              syncs_per_tree=statistics.mean(bst._gbdt.host_syncs_per_tree),
+              launches=launches,
+              launches_per_tree={k: v / n for k, v in launches.items() if v},
+              sparse_fallbacks=fallbacks,
+              valid_walk_vs_host=float(np.abs(dev_raw - host_raw).max()),
+              predict_s=predict_s,
+              peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if not (math.isfinite(nd5[0]) and math.isfinite(nd5[-1])
+            and nd5[-1] >= nd5[0]):
+        fail(f"valid NDCG@5 went {nd5[0]} -> {nd5[-1]}")
+    if fallbacks:
+        fail(f"a sparse store was densified {fallbacks} times")
+    if st["valid_walk_vs_host"] > 1e-4:
+        fail("device valid scores disagree with the host walk: "
+             f"{st['valid_walk_vs_host']}")
+    return bst, st
+
+
+def phase_ctr_main(torch, lt, kernels, dataset_mod, params, ds, vs, Xv):
+    out = {}
+    for dtype, name in (("float32", "hist_sparse_f32"),
+                        ("int8", "hist_sparse_int8")):
+        torch.cuda.reset_peak_memory_stats()
+        _, st = drive_ctr(torch, lt, kernels, dataset_mod,
+                          dict(params, histogram_dtype=dtype), ds, vs, Xv,
+                          2, 10)
+        print(f"[ctr main] {dtype}: {json.dumps(st)}", flush=True)
+        for k in (name, "table_lookup"):
+            if st["launches"][k] <= 0:
+                fail(f"ctr main path ({dtype}) never launched {k}")
+        out[dtype] = st
+    return out
+
+
 def drive(torch, lt, kernels, params, X, y, Xv, yv, warmup, timed):
     """Train through lightgbm_tpu_torch.train (the valid set's AUC each
     iteration) and predict with Booster.predict, with the launch counts
     zeroed before and read after.  s/iter excludes set-up and warm-up:
-    (wall of a warmup+timed-iteration train - wall of a warmup-iteration
-    train) / timed, both ending in a device synchronise."""
+    the host clock over iterations warmup+1 .. warmup+timed of one train,
+    between device synchronisations at the end of iteration warmup and of
+    the last (`steady_window`)."""
     kernels.reset_launches()
     t0 = time.perf_counter()
     ds = lt.Dataset(X, y, params=params).construct()
     vs = lt.Dataset(Xv, yv, reference=ds, params=params).construct()
     setup_s = time.perf_counter() - t0
-    walls, bst, res = [], None, None
-    for n in (warmup, warmup + timed):
-        res = {}
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        bst = lt.train(params, ds, n, valid_sets=[vs], evals_result=res)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-        if bst.num_trees() != n:
-            fail(f"training stopped early: {bst.num_trees()} of {n} trees")
+    n, res, marks = warmup + timed, {}, []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bst = lt.train(params, ds, n, valid_sets=[vs], evals_result=res,
+                   callbacks=[steady_window(torch, warmup, n, marks)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if bst.num_trees() != n:
+        fail(f"training stopped early: {bst.num_trees()} of {n} trees")
     t = time.perf_counter()
     pred = bst.predict(Xv)
     predict_s = time.perf_counter() - t
     launches = dict(kernels.LAUNCHES)
     syncs = bst._gbdt.host_syncs_per_tree
     return bst, dict(setup_s=setup_s,
-                     s_per_iter=(walls[1] - walls[0]) / timed,
-                     train_wall_s=walls, auc=res["valid_0"]["auc"][-1],
+                     s_per_iter=(marks[1] - marks[0]) / timed,
+                     train_wall_s=wall, auc=res["valid_0"]["auc"][-1],
                      syncs_per_tree=statistics.mean(syncs),
                      predict_s=predict_s, launches=launches), pred
 
@@ -350,8 +671,35 @@ def phase_main(torch, lt, kernels):
     return st, st32
 
 
+def compare_first_trees(label, tc, tg, m_c, m_g, metric):
+    """First trees of the CPU and card runs: identical, unless their
+    first differing split is an f32 gain tie; metrics within 1e-4."""
+    n = min(tc.num_leaves, tg.num_leaves) - 1
+    diff = [i for i in range(n)
+            if (tc.split_feature[i], tc.threshold_in_bin[i])
+            != (tg.split_feature[i], tg.threshold_in_bin[i])]
+    print(f"[card-vs-cpu] {label}: leaves cpu={tc.num_leaves} "
+          f"cuda={tg.num_leaves} differing splits={len(diff)} {metric} "
+          f"cpu={m_c} cuda={m_g}", flush=True)
+    if diff or tc.num_leaves != tg.num_leaves:
+        i = diff[0] if diff else n
+        gc_, gg = float(tc.split_gain[i]), float(tg.split_gain[i])
+        tie = (diff and abs(gc_ - gg) <= 1e-5 * max(abs(gc_), abs(gg)))
+        print(f"[card-vs-cpu] {label}: first differing split at node {i}: "
+              f"cpu (feature {tc.split_feature[i]}, bin "
+              f"{tc.threshold_in_bin[i]}, gain {gc_!r}) vs cuda (feature "
+              f"{tg.split_feature[i]}, bin {tg.threshold_in_bin[i]}, gain "
+              f"{gg!r}); f32 gain tie: {bool(tie)}", flush=True)
+        if not tie:
+            fail(f"card and CPU grew different first trees ({label})")
+    if not abs(m_c - m_g) <= 1e-4:
+        fail(f"card and CPU valid {metric} differ ({label}): {m_c} vs "
+             f"{m_g}")
+
+
 def phase_card_vs_cpu(lt):
-    from lightgbm_tpu_torch.synth import NORTH_STAR_PARAMS, synth_higgs
+    from lightgbm_tpu_torch.synth import (CTR_PARAMS, NORTH_STAR_PARAMS,
+                                          synth_ctr, synth_higgs)
     X, y = synth_higgs(COMPARE_ROWS)
     Xv, yv = synth_higgs(COMPARE_ROWS // 5, seed=7)
     out = {}
@@ -365,27 +713,25 @@ def phase_card_vs_cpu(lt):
                                                         reference=ds)],
                        evals_result=res)
         out[dev] = (bst._gbdt.models[0], res["valid_0"]["auc"][-1])
-    (tc, auc_c), (tg, auc_g) = out["cpu"], out[GPU]
-    n = min(tc.num_leaves, tg.num_leaves) - 1
-    diff = [i for i in range(n)
-            if (tc.split_feature[i], tc.threshold_in_bin[i])
-            != (tg.split_feature[i], tg.threshold_in_bin[i])]
-    print(f"[card-vs-cpu] leaves cpu={tc.num_leaves} cuda={tg.num_leaves} "
-          f"differing splits={len(diff)} auc cpu={auc_c} cuda={auc_g}",
-          flush=True)
-    if diff or tc.num_leaves != tg.num_leaves:
-        i = diff[0] if diff else n
-        gc, gg = float(tc.split_gain[i]), float(tg.split_gain[i])
-        tie = (diff and abs(gc - gg) <= 1e-5 * max(abs(gc), abs(gg)))
-        print(f"[card-vs-cpu] first differing split at node {i}: cpu "
-              f"(feature {tc.split_feature[i]}, bin "
-              f"{tc.threshold_in_bin[i]}, gain {gc!r}) vs cuda (feature "
-              f"{tg.split_feature[i]}, bin {tg.threshold_in_bin[i]}, gain "
-              f"{gg!r}); f32 gain tie: {bool(tie)}", flush=True)
-        if not tie:
-            fail("card and CPU grew different first trees")
-    if abs(auc_c - auc_g) > 1e-4:
-        fail(f"card and CPU valid AUC differ: {auc_c} vs {auc_g}")
+    compare_first_trees("higgs", out["cpu"][0], out[GPU][0], out["cpu"][1],
+                        out[GPU][1], "auc")
+    n, f = CTR_COMPARE
+    X, y, g = synth_ctr(n, f, CTR_DENSITY)
+    Xv, yv, gv = synth_ctr(n // 5, f, CTR_DENSITY, seed=7)
+    Xv = Xv.toarray()
+    for dtype in ("float32", "int8"):
+        out = {}
+        for dev in ("cpu", GPU):
+            p = dict(CTR_PARAMS, device_type=dev, histogram_dtype=dtype)
+            ds = lt.Dataset(X, y, group=g, params=p)
+            res = {}
+            bst = lt.train(p, ds, 3, valid_sets=[lt.Dataset(
+                Xv, yv, group=gv, reference=ds)], evals_result=res)
+            if bst._gbdt.train_set.sparse is None:
+                fail("the card-vs-CPU ctr run did not use the sparse store")
+            out[dev] = (bst._gbdt.models[0], res["valid_0"]["ndcg@5"][-1])
+        compare_first_trees(f"ctr {dtype}", out["cpu"][0], out[GPU][0],
+                            out["cpu"][1], out[GPU][1], "ndcg@5")
 
 
 def main() -> None:
@@ -394,11 +740,13 @@ def main() -> None:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         sys.exit(2)
     import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import dataset as dataset_mod
     from lightgbm_tpu_torch import kernels
     from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.ops import lookup as LK
     from lightgbm_tpu_torch.ops import partition as P
 
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     took = kernels.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s "
@@ -409,7 +757,27 @@ def main() -> None:
     for r in rows:
         src = st32 if r["name"] == "hist_masked_f32" else st
         r["launches"] = src["launches"][r["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    params, ds, vs, Xv, _ = phase_ctr_setup(lt, CTR_ROWS)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    sparse_rows = phase_sparse_kernels(torch, H, ds)
+    phase_learner_passes(torch, lt, H, params, ds)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    ctr = phase_ctr_main(torch, lt, kernels, dataset_mod, params, ds, vs,
+                         Xv)
+    for r in sparse_rows:
+        src = ctr["int8" if r["name"] == "hist_sparse_int8" else "float32"]
+        r["launches"] = src["launches"][r["name"]]
+    rows += sparse_rows
+    del ds, vs, Xv
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     phase_card_vs_cpu(lt)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,10 +1,12 @@
 """User-facing Dataset / Booster API.
 
 Port of lightgbm_tpu/basic.py for this slice: a `Dataset` over a dense
-numpy matrix with lazy construction and reference alignment for
-validation data, and a `Booster` with update, eval, host predict and the
-text model.  Pandas categoricals, scipy sparse input, refit and custom
-objectives are later slices (ROADMAP.md §A item 9).
+numpy matrix or a scipy sparse matrix (routed to `Dataset.from_csc`, so
+the dense [N, F] matrix never materializes), with query groups, lazy
+construction and reference alignment for validation data, and a
+`Booster` with update, eval, host predict and the text model.  Pandas
+categoricals, refit and custom objectives are later slices (ROADMAP.md
+§A item 9).
 """
 from __future__ import annotations
 
@@ -18,6 +20,14 @@ from .dataset import Dataset as _InnerDataset, Metadata
 from .log import LightGBMError  # noqa: F401  (canonical error type)
 
 
+def _is_scipy_sparse(data) -> bool:
+    try:
+        import scipy.sparse as spm
+    except ImportError:
+        return False
+    return spm.issparse(data)
+
+
 def _to_numpy(data) -> np.ndarray:
     if hasattr(data, "values"):  # pandas DataFrame/Series
         return np.asarray(data.values, dtype=np.float64)
@@ -28,7 +38,8 @@ class Dataset:
     """Training/validation dataset with lazy construction."""
 
     def __init__(self, data, label=None, max_bin=None, reference=None,
-                 weight=None, init_score=None, feature_name="auto",
+                 weight=None, group=None, init_score=None,
+                 feature_name="auto",
                  categorical_feature="auto", params=None):
         self.params: Dict[str, Any] = dict(params or {})
         if max_bin is not None:
@@ -37,6 +48,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -50,13 +62,13 @@ class Dataset:
         for k, v in (extra_params or {}).items():
             merged.setdefault(k, v)
         cfg = config_from_params(merged)
-        X = _to_numpy(self.data)
-        if X.ndim == 1:
-            X = X.reshape(-1, 1)
         y = None if self.label is None else _to_numpy(self.label).reshape(-1)
         md = Metadata()
         if self.weight is not None:
             md.weights = _to_numpy(self.weight).reshape(-1).astype(np.float32)
+        if self.group is not None:
+            md.set_query_from_sizes(
+                _to_numpy(self.group).reshape(-1).astype(np.int64))
         if self.init_score is not None:
             md.init_score = _to_numpy(self.init_score).reshape(-1)
         names = None
@@ -68,6 +80,14 @@ class Dataset:
                 else [int(c) for c in self.categorical_feature])
         ref_inner = (self.reference.construct(extra_params)._inner
                      if self.reference is not None else None)
+        if _is_scipy_sparse(self.data):
+            self._inner = _InnerDataset.from_csc(
+                self.data, y, cfg, metadata=md, feature_names=names,
+                categorical_feature=cats, reference=ref_inner)
+            return self
+        X = _to_numpy(self.data)
+        if X.ndim == 1:
+            X = X.reshape(-1, 1)
         self._inner = _InnerDataset(X, y, cfg, reference=ref_inner,
                                     metadata=md, feature_names=names,
                                     categorical_feature=cats)
@@ -127,7 +147,8 @@ class Booster:
 
     def predict(self, data, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:
-        X = _to_numpy(data)
+        X = (data.toarray() if _is_scipy_sparse(data)
+             else _to_numpy(data))
         if X.ndim == 1:
             X = X.reshape(1, -1)
         if raw_score:

@@ -4,9 +4,11 @@ Port of lightgbm_tpu/boosting/gbdt.py for this slice: boost-from-average,
 bagging through `np.random.RandomState` (the same draws as JAX), one tree
 per iteration from the rounds learner with the scores updated on the
 device (training rows by leaf id, valid sets by walking the device tree
-arrays — the JAX package's pipelined path, here with the tree fetched in
-the same iteration), eval, host prediction, and the LightGBM text model
-(save and load).  Checkpoint/resume, DART and GOSS are later slices.
+arrays over their dense store or their sparse ELL rows — the JAX
+package's pipelined path, here with the tree fetched in the same
+iteration), objectives and metrics initialised with the query metadata,
+eval, host prediction, and the LightGBM text model (save and load).
+Checkpoint/resume, DART and GOSS are later slices.
 """
 from __future__ import annotations
 
@@ -104,8 +106,12 @@ class GBDT:
                              and cfg.bagging_freq > 0)
 
     def add_valid(self, valid_set: Dataset, name: str) -> None:
-        bins_fn = torch.as_tensor(valid_set.bins.astype(np.int32),
-                                  device=self.device)
+        if valid_set.sparse is not None:
+            # the ELL triple: the walk probes row entries, never densifies
+            bins_fn = valid_set.sparse_triple(self.device)
+        else:
+            bins_fn = torch.as_tensor(valid_set.bins.astype(np.int32),
+                                      device=self.device)
         su = ScoreUpdater(bins_fn, valid_set.num_data, self.K, self.device,
                           valid_set.metadata.init_score)
         for t in self.models:

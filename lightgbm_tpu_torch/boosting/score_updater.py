@@ -1,10 +1,13 @@
 """Score updaters: raw model scores kept as [K, N] tensors on the device.
 
-Port of lightgbm_tpu/boosting/score_updater.py for the dense store:
-`_add_from_leaf` / `_add_leaf_to_row` (the leaf-partition score add,
-fused into kernel K3), `_walk_step` and `traverse_tree_device` (the
-valid-set walk: every row advances one tree level per step, per-node
-fields fetched by one table lookup), and `ScoreUpdater`.
+Port of lightgbm_tpu/boosting/score_updater.py: `_add_from_leaf` /
+`_add_leaf_to_row` (the leaf-partition score add, fused into kernel K3),
+`_walk_step` and `traverse_tree_device` (the valid-set walk: every row
+advances one tree level per step, per-node fields fetched by one table
+lookup), and `ScoreUpdater`.  A valid set's store is the dense [F, N]
+tensor or the sparse ELL triple (cols, bins, zero_bin), whose bin reads
+probe the row's stored entries (ops/predict.sparse_bin_lookup) so the
+store never densifies.  The training set adds by leaf id either way.
 """
 from __future__ import annotations
 
@@ -14,14 +17,24 @@ import numpy as np
 import torch
 
 from ..ops.lookup import select_bin_by_feature, table_lookup
+from ..ops.predict import sparse_bin_lookup
 
 
-def _walk_step(node: torch.Tensor, bins_fn: torch.Tensor,
+def _num_rows(bins_fn) -> int:
+    """Rows of a dense [F, N] store or a sparse (cols [N, R], ...) triple."""
+    if isinstance(bins_fn, (tuple, list)):
+        return bins_fn[0].shape[0]
+    return bins_fn.shape[1]
+
+
+def _walk_step(node: torch.Tensor, bins_fn,
                split_feature: torch.Tensor, threshold: torch.Tensor,
                decision: torch.Tensor, left_child: torch.Tensor,
                right_child: torch.Tensor) -> torch.Tensor:
-    """One tree level for every row at once (dense branch).  bins_fn is
-    the [F, N] store; child ids are exact in f32 (|v| < 2^24)."""
+    """One tree level for every row at once.  bins_fn is the [F, N]
+    store, or the sparse ELL triple (cols, bins, zero_bin), whose bin
+    read is `sparse_bin_lookup`; child ids are exact in f32 (|v| <
+    2^24)."""
     nd = torch.clamp(node, min=0)
     tbl = torch.stack([split_feature.to(torch.float32),
                        threshold.to(torch.float32),
@@ -32,22 +45,26 @@ def _walk_step(node: torch.Tensor, bins_fn: torch.Tensor,
     feat = r[0].to(torch.int32)
     t = r[1].to(torch.int32)
     d = r[2]
-    bv = select_bin_by_feature(bins_fn, feat)
+    if isinstance(bins_fn, (tuple, list)):
+        bv = sparse_bin_lookup(*bins_fn, feat)
+    else:
+        bv = select_bin_by_feature(bins_fn, feat)
     go_left = torch.where(d == 1, bv == t, bv <= t)
     nxt = torch.where(go_left, r[3], r[4]).to(torch.int32)
     return torch.where(node < 0, node, nxt)
 
 
-def traverse_tree_device(bins_fn: torch.Tensor, split_feature, threshold_bin,
+def traverse_tree_device(bins_fn, split_feature, threshold_bin,
                          is_cat, left_child, right_child, num_leaves: int,
                          depth: int) -> torch.Tensor:
     """Leaf index per row from device tree arrays.  The JAX version walked
     in a while_loop until every row parked at a leaf; here the host knows
     the tree's depth, so it walks exactly `depth` levels (rows parked at
     a leaf stay parked) and reads nothing back."""
-    N = bins_fn.shape[1]
+    N = _num_rows(bins_fn)
     n0 = -1 if num_leaves < 2 else 0       # stump: everything is leaf 0
-    node = torch.full((N,), n0, dtype=torch.int32, device=bins_fn.device)
+    node = torch.full((N,), n0, dtype=torch.int32,
+                      device=split_feature.device)
     for _ in range(depth if num_leaves >= 2 else 0):
         node = _walk_step(node, bins_fn, split_feature, threshold_bin,
                           is_cat, left_child, right_child)
@@ -80,11 +97,12 @@ def _add_leaf_to_row(score: torch.Tensor, leaf_id: torch.Tensor,
 class ScoreUpdater:
     """Holds [K, N] float32 raw scores for one dataset."""
 
-    def __init__(self, bins_fn: Optional[torch.Tensor], num_data: int,
+    def __init__(self, bins_fn, num_data: int,
                  K: int, device: torch.device,
                  init_score: Optional[np.ndarray] = None):
-        # bins_fn: [F, N] int32 store on `device` (None for the training
-        # set, which adds by leaf id)
+        # bins_fn: [F, N] int32 store or the sparse (cols, bins,
+        # zero_bin) triple on `device` (None for the training set, which
+        # adds by leaf id)
         self.bins_fn = bins_fn
         self.num_data = num_data
         self.K = K

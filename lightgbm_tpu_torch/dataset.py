@@ -1,22 +1,34 @@
-"""Binned Dataset: the dense [num_used_features, num_rows] bin store.
+"""Binned Dataset: the dense [F, N] bin store and the sparse CSR/ELL store.
 
-Port of the dense store of lightgbm_tpu/dataset.py: `Metadata`, and a
-`Dataset` that finds BinMappers on the host (binning.py), drops trivial
-features, and bins every used feature with `BinMapper.value_to_bin` (the
-NumPy path; the JAX package's native bulk binner is not used).
-Validation sets are binned with the training set's mappers.
+Port of lightgbm_tpu/dataset.py: `Metadata` (labels, weights, query
+boundaries), and a `Dataset` that finds BinMappers on the host
+(binning.py), drops trivial features, and bins every used feature with
+`BinMapper.value_to_bin` (the NumPy path; the JAX package's native bulk
+binner is not used).  Validation sets are binned with the training set's
+mappers.
 
-Not in this slice: the sparse CSR/ELL store and Exclusive Feature
-Bundling.  Where either would form, construction raises
-NotImplementedError naming the ROADMAP item that ports it.
+The sparse store (`SparseStore`, docs/Sparse.md of the JAX package)
+keeps, per row, up to R (store column, bin) entries for exactly the cells
+whose bin differs from the column's zero bin; the histogram kernels
+rebuild each column's zero bin from per-leaf totals.  `sparse_store=csr`
+(or `auto` on wide, mostly-zero data) builds it: straight from scipy CSC
+columns in `Dataset.from_csc`, or by sparsifying the dense store after
+binning.  Valid sets follow their reference's layout.  A consumer without
+a sparse path densifies lazily through `Dataset.bins`, and every such
+densification is counted in `SPARSE_FALLBACKS`.
+
+Not in this slice: Exclusive Feature Bundling.  Where a bundle would
+form, construction raises NotImplementedError naming the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import log
 from .binning import (BinMapper, BundlePlan, CATEGORICAL, find_bin_mappers,
                       plan_bundles)
 from .config import Config
@@ -24,16 +36,129 @@ from .config import Config
 # rows used to estimate pairwise feature conflicts when planning bundles
 BUNDLE_PLAN_SAMPLE_CNT = 50_000
 
+# densifications of a sparse store, by consumer site (the JAX package's
+# tree/sparse_fallbacks counter); a csr run reads 0 here
+SPARSE_FALLBACKS: Dict[str, int] = {}
+
+
+def sparse_fallbacks() -> int:
+    return sum(SPARSE_FALLBACKS.values())
+
+
+def reset_sparse_fallbacks() -> None:
+    SPARSE_FALLBACKS.clear()
+
+
+def nnz_capacity_tier(n: int, base: int = 4) -> int:
+    """Smallest power of two >= n (floor `base`): the ELL row width R of
+    a sparse store."""
+    cap = max(int(base), 1)
+    n = max(int(n), 1)
+    while cap < n:
+        cap <<= 1
+    return cap
+
+
+@dataclass
+class SparseStore:
+    """CSR/ELL-packed binned store: per row, up to R (store column, bin)
+    entries, front-packed in column order, for exactly the cells whose
+    bin differs from the column's zero bin (the bin a raw 0.0 maps to).
+    `densify()` reproduces the dense store bitwise."""
+    cols: np.ndarray      # [N, R] int32 store-column ids; C = empty slot
+    bins: np.ndarray      # [N, R] uint8/uint16 bin values
+    zero_bin: np.ndarray  # [C] int32 implicit-zero bin per store column
+    nnz: int = 0          # stored entries (excluding ELL padding)
+
+    @property
+    def num_columns(self) -> int:
+        return int(self.zero_bin.shape[0])
+
+    @property
+    def nnz_capacity(self) -> int:
+        return int(self.cols.shape[1])
+
+    def densify(self, dtype) -> np.ndarray:
+        """The dense [C, N] store (the fallback for consumers without a
+        sparse path; callers count it)."""
+        C = self.num_columns
+        n = self.cols.shape[0]
+        out = np.repeat(self.zero_bin.astype(dtype)[:, None], n, axis=1)
+        ri, sj = np.nonzero(self.cols < C)
+        out[self.cols[ri, sj], ri] = self.bins[ri, sj]
+        return out
+
+
+def _pack_ell(rows: np.ndarray, cols: np.ndarray, binvals: np.ndarray,
+              n: int, num_columns: int, zero_bin: np.ndarray,
+              dtype) -> SparseStore:
+    """Row-sorted COO entries -> ELL arrays at the nnz capacity tier."""
+    cnt = np.bincount(rows, minlength=n) if rows.size else \
+        np.zeros(n, np.int64)
+    R = nnz_capacity_tier(int(cnt.max(initial=1)))
+    ell_c = np.full((n, R), num_columns, np.int32)
+    ell_b = np.zeros((n, R), dtype)
+    if rows.size:
+        offs = np.concatenate([[0], np.cumsum(cnt)])
+        pos = np.arange(rows.size, dtype=np.int64) - offs[rows]
+        ell_c[rows, pos] = cols
+        ell_b[rows, pos] = binvals
+    return SparseStore(cols=ell_c, bins=ell_b,
+                       zero_bin=np.asarray(zero_bin, np.int32),
+                       nnz=int(rows.size))
+
+
+def store_zero_bins(mappers: List[BinMapper],
+                    used: Sequence[int]) -> np.ndarray:
+    """[C] int32 bin an implicit raw zero maps to, per store column: the
+    feature's default bin (the no-bundle form)."""
+    return np.asarray([mappers[i].default_bin for i in used], np.int32)
+
+
+def bin_feature_column(k: int, values: np.ndarray,
+                       mappers: Sequence[BinMapper],
+                       used_features: Sequence[int],
+                       out: np.ndarray) -> None:
+    """Bin one used feature's raw column into the [N] scratch row `out`
+    (lightgbm_tpu/quantize.py `bin_feature_column`, no-bundle form)."""
+    out[:] = mappers[used_features[k]].value_to_bin(values).astype(out.dtype)
+
 
 @dataclass
 class Metadata:
     label: np.ndarray = field(default_factory=lambda: np.zeros(0, np.float32))
     weights: Optional[np.ndarray] = None        # fp32 [N]
+    query_boundaries: Optional[np.ndarray] = None  # int32 [num_queries+1]
     init_score: Optional[np.ndarray] = None     # fp64 [N * num_tree_per_iter]
 
     @property
     def num_data(self) -> int:
         return int(self.label.shape[0])
+
+    @property
+    def num_queries(self) -> int:
+        return (0 if self.query_boundaries is None
+                else len(self.query_boundaries) - 1)
+
+    def set_query_from_sizes(self, sizes: np.ndarray) -> None:
+        """Group sizes -> query boundaries."""
+        sizes = np.asarray(sizes, dtype=np.int64)
+        self.query_boundaries = np.concatenate(
+            [[0], np.cumsum(sizes)]).astype(np.int32)
+
+    @property
+    def query_weights(self) -> Optional[np.ndarray]:
+        """Per-query weight = mean row weight over the query's rows, only
+        when both row weights and query boundaries exist (NDCG averages
+        per-query results by these)."""
+        if self.weights is None or self.query_boundaries is None:
+            return None
+        qb = self.query_boundaries.astype(np.int64)
+        sizes = np.diff(qb)
+        csum = np.concatenate([[0.0], np.cumsum(
+            self.weights.astype(np.float64))])
+        sums = csum[qb[1:]] - csum[qb[:-1]]
+        return (sums / np.maximum(sizes, 1)).astype(np.float32)
 
 
 def _plan_bundles_from_sample(sample: np.ndarray, mappers: List[BinMapper],
@@ -76,12 +201,34 @@ def resolve_sparse_store(cfg: Config, mappers: List[BinMapper],
     return float(np.mean(rates)) >= float(cfg.sparse_threshold)
 
 
+def _csc_row_sample(indptr: np.ndarray, indices: np.ndarray,
+                    data: np.ndarray, rows: np.ndarray,
+                    num_raw: int) -> np.ndarray:
+    """Dense [len(rows), num_raw] float64 sample of a CSC matrix's rows
+    (sorted `rows`), in column-major order so each column's values are
+    contiguous for FindBin.  Entries are written column by column in
+    storage order, so a duplicated (row, column) keeps its last value,
+    as the JAX package's per-column loop does."""
+    sample = np.zeros((len(rows), num_raw), np.float64, order="F")
+    if indices.size == 0 or len(rows) == 0:
+        return sample
+    colj = np.repeat(np.arange(num_raw, dtype=np.int64), np.diff(indptr))
+    pos = np.searchsorted(rows, indices)
+    hit = pos < len(rows)
+    hit[hit] = rows[pos[hit]] == indices[hit]
+    sample[pos[hit], colj[hit]] = np.asarray(data, np.float64)[hit]
+    return sample
+
+
 class Dataset:
     """Binned feature matrix + metadata.
 
     Attributes
     ----------
     bins : np.ndarray  [num_used_features, num_data] uint8/uint16 bin ids
+        (a sparse dataset densifies it lazily, counted in
+        SPARSE_FALLBACKS)
+    sparse : SparseStore or None — the CSR/ELL store
     num_bins : np.ndarray [num_used_features] int32 per-feature bin counts
     mappers : list[BinMapper], one per RAW feature
     used_features : list[int] raw indices of non-trivial features
@@ -98,51 +245,69 @@ class Dataset:
         if X.ndim != 2:
             raise ValueError("X must be 2-dimensional")
         n, num_raw = X.shape
-        self.num_data = n
-        self.num_total_features = num_raw
-        self.config = cfg
-        self.feature_names = (feature_names
-                              or [f"Column_{i}" for i in range(num_raw)])
         if reference is not None:
             if num_raw != reference.num_total_features:
                 raise ValueError("validation data has different #features")
-            self.mappers = reference.mappers
-            self.used_features = reference.used_features
+            mappers, used = reference.mappers, reference.used_features
         else:
-            if cfg.bin_find == "sketch":
-                raise NotImplementedError(
-                    "bin_find=sketch is not ported yet (ROADMAP.md §A "
-                    "item 12)")
-            self.mappers = find_bin_mappers(
-                X, cfg.max_bin, cfg.min_data_in_bin, cfg.min_data_in_leaf,
-                categorical=categorical_feature,
-                sample_cnt=cfg.bin_construct_sample_cnt,
-                seed=cfg.data_random_seed, bin_budget=cfg.bin_budget)
-            self.used_features = [i for i, m in enumerate(self.mappers)
-                                  if not m.is_trivial]
-            if _plan_bundles_from_sample(X, self.mappers,
-                                         self.used_features,
-                                         cfg) is not None:
-                raise NotImplementedError(
-                    "Exclusive Feature Bundling formed a bundle; bundled "
-                    "stores are not ported yet (ROADMAP.md §A item 10) — "
-                    "pass enable_bundle=false")
-            if resolve_sparse_store(cfg, self.mappers, self.used_features):
-                raise NotImplementedError(
-                    "the sparse (csr) store is not ported yet (ROADMAP.md "
-                    "§A item 11) — pass sparse_store=dense")
-        used = self.used_features
-        self.num_bins = np.array([self.mappers[i].num_bin for i in used],
+            mappers, used = self._find_mappers(X, cfg, categorical_feature)
+        self._init_store(cfg, mappers, used, n, num_raw, feature_names)
+        self._bins = np.empty((len(used), n), dtype=self._store_dtype)
+        for k, i in enumerate(used):
+            self._bins[k] = mappers[i].value_to_bin(X[:, i]).astype(
+                self._store_dtype)
+        # training sets by the resolver; valid sets follow their
+        # reference's layout (a csr valid set is scored from its ELL rows)
+        if ((reference is None or reference.sparse is not None)
+                and resolve_sparse_store(cfg, mappers, used)):
+            self._sparsify_store()
+        self._set_metadata(metadata, label)
+
+    @staticmethod
+    def _find_mappers(sample: np.ndarray, cfg: Config,
+                      categorical_feature: Sequence[int]):
+        """(mappers, used features) from a raw-valued row sample; refuses
+        what this slice cannot store (sketch bin finding, EFB bundles)."""
+        if cfg.bin_find == "sketch":
+            raise NotImplementedError(
+                "bin_find=sketch is not ported yet (ROADMAP.md §A item 12)")
+        mappers = find_bin_mappers(
+            sample, cfg.max_bin, cfg.min_data_in_bin, cfg.min_data_in_leaf,
+            categorical=categorical_feature,
+            sample_cnt=cfg.bin_construct_sample_cnt,
+            seed=cfg.data_random_seed, bin_budget=cfg.bin_budget)
+        used = [i for i, m in enumerate(mappers) if not m.is_trivial]
+        if _plan_bundles_from_sample(sample, mappers, used, cfg) is not None:
+            raise NotImplementedError(
+                "Exclusive Feature Bundling formed a bundle; bundled stores "
+                "are not ported yet (ROADMAP.md §A item 10) — pass "
+                "enable_bundle=false")
+        return mappers, used
+
+    def _init_store(self, cfg: Config, mappers: List[BinMapper],
+                    used: List[int], n: int, num_raw: int,
+                    feature_names: Optional[List[str]]) -> None:
+        """Per-feature metadata derived from the mappers; no store yet."""
+        self.config = cfg
+        self.num_data = n
+        self.num_total_features = num_raw
+        self.feature_names = (feature_names
+                              or [f"Column_{i}" for i in range(num_raw)])
+        self.mappers = mappers
+        self.used_features = used
+        self.num_bins = np.array([mappers[i].num_bin for i in used],
                                  dtype=np.int32)
         self.is_categorical = np.array(
-            [self.mappers[i].bin_type == CATEGORICAL for i in used],
-            dtype=bool)
+            [mappers[i].bin_type == CATEGORICAL for i in used], dtype=bool)
         self.max_num_bin = int(self.num_bins.max()) if len(used) else 1
-        dtype = np.uint8 if self.max_num_bin <= 256 else np.uint16
-        self.bins = np.empty((len(used), n), dtype=dtype)
-        for k, i in enumerate(used):
-            self.bins[k] = self.mappers[i].value_to_bin(X[:, i]).astype(dtype)
+        self._store_dtype = np.uint8 if self.max_num_bin <= 256 \
+            else np.uint16
+        self.sparse: Optional[SparseStore] = None
+        self._bins: Optional[np.ndarray] = None
 
+    def _set_metadata(self, metadata: Optional[Metadata],
+                      label: Optional[np.ndarray]) -> None:
+        n = self.num_data
         md = metadata or Metadata()
         if label is not None:
             md.label = np.asarray(label, dtype=np.float32).reshape(-1)
@@ -151,6 +316,151 @@ class Dataset:
         if md.label.size != n:
             raise ValueError("label length mismatch")
         self.metadata = md
+
+    @classmethod
+    def from_csc(cls, sp_matrix, label: Optional[np.ndarray],
+                 cfg: Config, metadata: Optional[Metadata] = None,
+                 feature_names: Optional[List[str]] = None,
+                 categorical_feature: Sequence[int] = (),
+                 reference: Optional["Dataset"] = None) -> "Dataset":
+        """Construct from a scipy sparse matrix: a row sample is densified
+        once for BinMapper construction; then, when `sparse_store`
+        resolves sparse, the CSR/ELL store is built straight from the CSC
+        columns.  Otherwise (and for a valid set, as in the JAX package)
+        each column is binned into the dense [C, N] store one at a time.
+        Neither route materializes the dense [N, F] float64 matrix.
+
+        `setup_seconds` records the host time of the two steps:
+        {"binning": sample + FindBin, "store": the store build}."""
+        import time
+        t0 = time.perf_counter()
+        sp = sp_matrix.tocsc()
+        n, num_raw = sp.shape
+        indptr = np.asarray(sp.indptr, np.int64)
+        indices, data = sp.indices, sp.data
+        if reference is not None:
+            if num_raw != reference.num_total_features:
+                raise ValueError("validation data has different #features")
+            mappers, used = reference.mappers, reference.used_features
+        else:
+            S = min(int(cfg.bin_construct_sample_cnt), n)
+            rng = np.random.RandomState(cfg.data_random_seed)
+            rows = (np.sort(rng.choice(n, S, replace=False)) if n > S
+                    else np.arange(n))
+            sample = _csc_row_sample(indptr, indices, data, rows, num_raw)
+            mappers, used = cls._find_mappers(sample, cfg,
+                                              categorical_feature)
+            del sample
+        ds = cls.__new__(cls)
+        ds._init_store(cfg, mappers, used, n, num_raw, feature_names)
+        t1 = time.perf_counter()
+        if reference is None and resolve_sparse_store(cfg, mappers, used):
+            ds._build_sparse_from_csc(indptr, indices, data,
+                                      bool(sp.has_canonical_format))
+        else:
+            ds._bins = np.empty((len(used), n), ds._store_dtype)
+            col = np.empty(n, np.float64)
+            for k, i in enumerate(used):
+                col[:] = 0.0
+                s, e = int(indptr[i]), int(indptr[i + 1])
+                col[indices[s:e]] = data[s:e]
+                bin_feature_column(k, col, mappers, used, ds._bins[k])
+        ds.setup_seconds = {"binning": t1 - t0,
+                            "store": time.perf_counter() - t1}
+        ds._set_metadata(metadata, label)
+        return ds
+
+    def _build_sparse_from_csc(self, indptr, indices, data,
+                               canonical: bool) -> None:
+        """The CSR/ELL store straight from scipy CSC arrays, entry for
+        entry the store the JAX package builds (`_build_sparse_from_csc`,
+        no-bundle form), without its dense [N] scratch per column:
+        value_to_bin is elementwise and a raw 0.0 maps to the column's
+        zero bin (its default bin), so a row without a stored value is
+        never an entry and only the stored values need binning.  A
+        non-canonical matrix keeps each duplicated (row, column)'s last
+        value, as the dense scratch write does.  Entries land in each
+        row front-packed in column order — the row-stable order of the
+        JAX package's sort."""
+        n = self.num_data
+        used = self.used_features
+        zb = store_zero_bins(self.mappers, used)
+        C = len(used)
+        per_col = []
+        cnt = np.zeros(n, np.int64)
+        for k, i in enumerate(used):
+            s, e = int(indptr[i]), int(indptr[i + 1])
+            r = np.asarray(indices[s:e], np.int64)
+            v = np.asarray(data[s:e], np.float64)
+            if not canonical and r.size:
+                o = np.argsort(r, kind="stable")
+                r, v = r[o], v[o]
+                last = np.concatenate([r[1:] != r[:-1], [True]])
+                r, v = r[last], v[last]
+            b = self.mappers[i].value_to_bin(v)
+            keep = b != zb[k]
+            r, b = r[keep], b[keep].astype(self._store_dtype)
+            per_col.append((r, b))
+            cnt[r] += 1
+        nnz = int(cnt.sum())
+        R = nnz_capacity_tier(int(cnt.max(initial=1)))
+        ell_c = np.full((n, R), C, np.int32)
+        ell_b = np.zeros((n, R), self._store_dtype)
+        fill = np.zeros(n, np.int64)
+        for k, (r, b) in enumerate(per_col):
+            if r.size:
+                pos = fill[r]
+                ell_c[r, pos] = k
+                ell_b[r, pos] = b
+                fill[r] += 1
+        self.sparse = SparseStore(cols=ell_c, bins=ell_b, zero_bin=zb,
+                                  nnz=nnz)
+        self._bins = None
+
+    def _sparsify_store(self) -> None:
+        """Convert the freshly binned dense store to the CSR/ELL layout
+        and drop the dense matrix; densify() reproduces it bitwise."""
+        zb = store_zero_bins(self.mappers, self.used_features)
+        dense = self._bins
+        nz = dense != zb[:, None].astype(dense.dtype)
+        nzr, nzc = np.nonzero(nz.T)          # row-major entry order
+        self.sparse = _pack_ell(nzr, nzc, dense[nzc, nzr], dense.shape[1],
+                                dense.shape[0], zb, self._store_dtype)
+        self._bins = None
+
+    # -- store access --------------------------------------------------------
+
+    @property
+    def bins(self) -> np.ndarray:
+        """[C, N] dense binned store; a sparse dataset materializes it on
+        first access, counted in SPARSE_FALLBACKS."""
+        return self.dense_bins()
+
+    def dense_bins(self, site: str = "unlabeled") -> np.ndarray:
+        """`bins` with the densifying consumer named in the count."""
+        if self._bins is None and self.sparse is not None:
+            SPARSE_FALLBACKS[site] = SPARSE_FALLBACKS.get(site, 0) + 1
+            log.warning(
+                f"sparse store materialized dense ({self.num_features} x "
+                f"{self.num_data} cells) for a consumer without a sparse "
+                f"path (site={site})")
+            self._bins = self.sparse.densify(self._store_dtype)
+        return self._bins
+
+    def sparse_triple(self, device):
+        """(cols [N, R] int32, bins [N, R] int32, zero_bin [C] int32) of
+        the sparse store as tensors on `device` — the feed of the rounds
+        learner's histograms and partition and of the valid-set walk
+        (ops/predict.sparse_bin_lookup).  None when dense."""
+        if self.sparse is None:
+            return None
+        import torch
+        sp = self.sparse
+        return (torch.as_tensor(np.ascontiguousarray(sp.cols, np.int32),
+                                device=device),
+                torch.as_tensor(sp.bins.astype(np.int32), device=device),
+                torch.as_tensor(sp.zero_bin.astype(np.int32),
+                                device=device))
 
     @property
     def num_features(self) -> int:

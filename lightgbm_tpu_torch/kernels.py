@@ -39,11 +39,14 @@ SIGNATURES = {
     "lookup": ("lgbt_table_lookup", [_P, _I, _I, _P, _L, _P, _P, _P]),
     "partition": ("lgbt_partition_rows", [_P, _I, _P, _I, _I, _L, _P, _P,
                                           _P]),
+    "hist_sparse": ("lgbt_hist_sparse", [_P, _P, _L, _I, _P, _P, _I, _I, _I,
+                                         _I, _P, _P]),
 }
 
 # launches per kernel, keyed by the names chip_smoke.py reports
 LAUNCHES: Dict[str, int] = {"hist_masked_int8": 0, "hist_masked_f32": 0,
-                            "table_lookup": 0, "partition_rows": 0}
+                            "table_lookup": 0, "partition_rows": 0,
+                            "hist_sparse_int8": 0, "hist_sparse_f32": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -1,13 +1,13 @@
 """Batched-rounds tree learner, single device.
 
 Port of lightgbm_tpu/learner/rounds.py (`build_tree_rounds`,
-`RoundsTreeLearner`) for one device and the dense store, with both row
-feeds (`hist_rows` masked and gathered).  Every round splits all
-splittable leaves at once (the top-gain leaves when the num_leaves cap
-binds), histograms the smaller children of all splits in multi-leaf
-passes of up to LEAVES_PER_BATCH slots, and takes the larger children
-from parent-histogram subtraction.  The arithmetic is the JAX learner's,
-step for step.
+`RoundsTreeLearner`) for one device, over the dense store or the sparse
+CSR/ELL store, with both row feeds (`hist_rows` masked and gathered).
+Every round splits all splittable leaves at once (the top-gain leaves
+when the num_leaves cap binds), histograms the smaller children of all
+splits in multi-leaf passes of up to LEAVES_PER_BATCH slots, and takes
+the larger children from parent-histogram subtraction.  The arithmetic
+is the JAX learner's, step for step.
 
 The JAX learner grew the whole tree inside one `lax.while_loop` with no
 host syncs.  Here the round loop runs on the host, and each round reads
@@ -17,6 +17,15 @@ choice of the gathered feed).  The final tree fetch is one more read.
 `build_tree_rounds` returns that count; the learner keeps it per tree in
 `last_host_syncs`.  Removing these reads (CUDA graphs, device-side
 control) is later work.
+
+With `sparse=True` (the dataset holds a SparseStore) `bins` is the ELL
+triple (cols [N, R], bins [N, R], zero_bin [F]): histogram passes
+iterate stored entries only (kernels K7/K8, ops/histogram.py
+`hist_sparse_multileaf`) and rebuild each column's zero bin from the
+slot totals, and the partition probes the row's entries
+(`partition_rows_sparse`); the store is never densified.  On CUDA the
+sparse store runs the masked row feed, as the JAX package does on its
+accelerator.
 
 Index arrays that JAX updated with `mode="drop"` scatters carry one
 trailing drop slot here, so inactive updates land in the slot that is
@@ -31,9 +40,11 @@ import numpy as np
 import torch
 
 from ..config import Config
+from .. import log
 from ..dataset import Dataset
-from ..ops.histogram import hist_multileaf_gathered, hist_multileaf_masked
-from ..ops.partition import partition_rows
+from ..ops.histogram import (hist_multileaf_gathered, hist_multileaf_masked,
+                             hist_sparse_gathered, hist_sparse_multileaf)
+from ..ops.partition import partition_rows, partition_rows_sparse
 from ..ops.split import best_split, bundle_predicate_params, maybe_unbundle
 from ..tree import Tree
 from .common import (device_memory_bytes, gather_capacity_tiers,
@@ -54,23 +65,31 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
                       min_sum_hessian_in_leaf: float,
                       input_dtype: str = "float32",
                       cache_parent_hist: bool = True,
-                      hist_rows: str = "masked"
+                      hist_rows: str = "masked", sparse: bool = False
                       ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree in batched rounds.
 
-    bins [F, N] int32 store (int8 = value-128); grad/hess/row_mask [N]
-    f32; num_bins [F] int, is_cat/fmask [F] bool — all on one device.
+    bins [F, N] int32 store (int8 = value-128), or with sparse=True the
+    ELL triple (cols [N, R] int32 with F as the empty-slot sentinel,
+    bins [N, R] int32, zero_bin [F] int32 with -1 on padded columns);
+    grad/hess/row_mask [N] f32; num_bins [F] int, is_cat/fmask [F]
+    bool — all on one device.
     Returns (TreeArrays on that device, leaf_id [N] int32, host reads
     made).  hist_rows="gathered" keeps the device-resident row
     permutation grouped by leaf with per-leaf (offset, count), stably
     compacted after every round's partition, and histograms only the
     segments a pass needs; "masked" streams all rows every pass."""
-    F, N = bins.shape
+    if sparse:
+        sp_cols, sp_bins, sp_zb = bins
+        F, N = sp_zb.shape[0], sp_cols.shape[0]
+        dev = sp_cols.device
+    else:
+        F, N = bins.shape
+        dev = bins.device
     L = num_leaves
     B = num_bins_padded
     K = LEAVES_PER_BATCH
     n_chunks = (L + K - 1) // K
-    dev = bins.device
     gathered = hist_rows == "gathered"
     if gathered:
         tiers_all = gather_capacity_tiers(N)
@@ -95,12 +114,22 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
                                 torch.full_like(g, NEG_INF))
         return rec
 
+    def hist_masked(lid_, sl_):
+        """One masked multi-leaf pass over the whole store, dense or
+        nonzero-iterating; both return [K, F, 3, B]."""
+        if sparse:
+            return hist_sparse_multileaf(
+                bins, lid_, gh8, sl_, num_columns_padded=F,
+                num_bins_padded=B, input_dtype=input_dtype)
+        return hist_multileaf_masked(bins, lid_, gh8, sl_,
+                                     num_bins_padded=B,
+                                     input_dtype=input_dtype)
+
     # ---- root --------------------------------------------------------------
     gh8 = torch.stack([grad * row_mask, hess * row_mask, row_mask])
     lid0 = torch.zeros(N, dtype=torch.int32, device=dev)
-    hist0 = hist_multileaf_masked(
-        bins, lid0, gh8, torch.zeros(1, dtype=torch.int32, device=dev),
-        num_bins_padded=B, input_dtype=input_dtype)[0]          # [F, 3, B]
+    hist0 = hist_masked(
+        lid0, torch.zeros(1, dtype=torch.int32, device=dev))[0]  # [F, 3, B]
     root_sums = torch.stack([hist0[0, 0, :].sum(), hist0[0, 1, :].sum(),
                              hist0[0, 2, :].sum()])
 
@@ -150,12 +179,15 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
         current row partition (leaf_id, or perm/leaf_off/leaf_cnt)."""
         if gathered:
             cap = next((t for t in tiers if total <= t), tiers[-1])
+            if sparse:
+                return hist_sparse_gathered(
+                    bins, gh8, perm, leaf_off[slots], leaf_cnt[slots],
+                    capacity=cap, num_columns_padded=F, num_bins_padded=B,
+                    input_dtype=input_dtype)
             return hist_multileaf_gathered(
                 bins, gh8, perm, leaf_off[slots], leaf_cnt[slots],
                 capacity=cap, num_bins_padded=B, input_dtype=input_dtype)
-        return hist_multileaf_masked(
-            bins, leaf_id, gh8, slots.to(torch.int32), num_bins_padded=B,
-            input_dtype=input_dtype)
+        return hist_masked(leaf_id, slots.to(torch.int32))
 
     rnd = 0
     while rnd < R and n_leaves < L:
@@ -195,7 +227,11 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
         # column L collects the non-splitting slots and is never read:
         # leaf ids are < L; zero it so the table stays a pure function
         tbl[:, L] = 0.0
-        leaf_id2 = partition_rows(bins, leaf_id, tbl)
+        if sparse:
+            leaf_id2 = partition_rows_sparse(sp_cols, sp_bins, sp_zb,
+                                             leaf_id, tbl)
+        else:
+            leaf_id2 = partition_rows(bins, leaf_id, tbl)
 
         # ---- stable row compaction (DataPartition::Split) -----------------
         if gathered:
@@ -341,16 +377,25 @@ class RoundsTreeLearner:
         self.N = dataset.num_data
         self.F = dataset.num_features
         self.B = padded_bin_count(dataset.max_num_bin)
-        store = dataset.bins                                   # [F, N]
-        if (self.device.type == "cuda" and dataset.max_num_bin <= 256
-                and 4.0 * store.size > 0.25 * device_memory_bytes(
-                    self.device)):
-            # int8 layout (value - 128) only under memory pressure: int32
-            # bins beyond a quarter of device memory
-            bins_np = (store.astype(np.int16) - 128).astype(np.int8)
+        self.sparse = dataset.sparse is not None
+        if self.sparse:
+            # the ELL triple as built: on one device no column is padded,
+            # so the empty-slot sentinel is the column count and no
+            # zero_bin is -1
+            self.bins_dev = dataset.sparse_triple(self.device)
+            bins_itemsize = 4
         else:
-            bins_np = store.astype(np.int32)
-        self.bins_dev = torch.as_tensor(bins_np, device=self.device)
+            store = dataset.dense_bins(site="rounds_feed")     # [F, N]
+            if (self.device.type == "cuda" and dataset.max_num_bin <= 256
+                    and 4.0 * store.size > 0.25 * device_memory_bytes(
+                        self.device)):
+                # int8 layout (value - 128) only under memory pressure:
+                # int32 bins beyond a quarter of device memory
+                bins_np = (store.astype(np.int16) - 128).astype(np.int8)
+            else:
+                bins_np = store.astype(np.int32)
+            self.bins_dev = torch.as_tensor(bins_np, device=self.device)
+            bins_itemsize = int(bins_np.dtype.itemsize)
         self.num_bins_dev = torch.as_tensor(
             dataset.num_bins.astype(np.int64), device=self.device)
         self.is_cat_dev = torch.as_tensor(dataset.is_categorical,
@@ -365,10 +410,21 @@ class RoundsTreeLearner:
         self._feat_rng = np.random.RandomState(cfg.feature_fraction_seed)
         self.cache_parent_hist = use_parent_hist_cache(cfg, self.F, self.B,
                                                        self.device)
-        self.hist_rows = resolve_hist_rows(
-            cfg, device=self.device, num_columns=self.F,
-            np_rows=max(1, self.N),
-            bins_itemsize=int(bins_np.dtype.itemsize))
+        if self.sparse:
+            # masked by default; a pinned gathered feed runs on the CPU
+            # (plain torch ops) and falls back to masked on CUDA, as the
+            # JAX package does on its accelerator
+            hr = getattr(cfg, "hist_rows", "auto")
+            if hr == "gathered" and self.device.type == "cuda":
+                log.warning("hist_rows=gathered over the sparse store "
+                            "runs the plain scatter path; using masked "
+                            "on CUDA")
+                hr = "masked"
+            self.hist_rows = "masked" if hr == "auto" else hr
+        else:
+            self.hist_rows = resolve_hist_rows(
+                cfg, device=self.device, num_columns=self.F,
+                np_rows=max(1, self.N), bins_itemsize=bins_itemsize)
         self.last_host_syncs = 0
         self._kw = dict(num_leaves=int(cfg.num_leaves),
                         num_bins_padded=self.B, split_kw=self.split_kw,
@@ -377,7 +433,7 @@ class RoundsTreeLearner:
                         min_sum_hessian_in_leaf=float(
                             cfg.min_sum_hessian_in_leaf),
                         cache_parent_hist=self.cache_parent_hist,
-                        hist_rows=self.hist_rows,
+                        hist_rows=self.hist_rows, sparse=self.sparse,
                         input_dtype=getattr(cfg, "histogram_dtype",
                                             "float32"))
 

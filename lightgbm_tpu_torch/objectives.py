@@ -1,9 +1,10 @@
-"""Objective functions: elementwise gradient/hessian on [K, N] tensors.
+"""Objective functions: gradient/hessian on [K, N] tensors.
 
-Port of lightgbm_tpu/objectives.py restricted to the binary objective
-(`Objective`, `BinaryLogloss`, `create_objective`,
-`objective_from_model_string`).  The f32 operation order follows JAX.
-The other objectives are later slices (ROADMAP.md §A item 10).
+Port of lightgbm_tpu/objectives.py restricted to the binary and the
+lambdarank objectives (`Objective`, `BinaryLogloss`, `LambdarankNDCG`,
+`create_objective`, `objective_from_model_string`).  The f32 operation
+order follows JAX.  The other objectives are later slices (ROADMAP.md §A
+item 10).
 """
 from __future__ import annotations
 
@@ -100,12 +101,125 @@ class BinaryLogloss(Objective):
         return f"binary sigmoid:{self.sigmoid:g}"
 
 
+class LambdarankNDCG(Objective):
+    """LambdaRank with NDCG deltas over query groups.  The per-query
+    pairwise loop is a padded [Q, D, D] masked computation, chunked over
+    queries (qc queries per chunk, as in JAX, so the f32 sums associate
+    alike).  Documents sort by score with a stable sort on -score, pad
+    slots at -inf — JAX's stable argsort."""
+    name = "lambdarank"
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        if metadata.query_boundaries is None:
+            raise ValueError("Lambdarank tasks require query information")
+        qb = np.asarray(metadata.query_boundaries, np.int64)
+        Q = len(qb) - 1
+        sizes = np.diff(qb)
+        D = int(sizes.max())
+        j = np.arange(D)
+        valid = j[None, :] < sizes[:, None]                     # [Q, D]
+        doc_idx = np.where(valid, qb[:-1, None] + j[None, :],
+                           num_data).astype(np.int64)
+        gains = self.config.label_gain
+        if not gains:
+            gains = tuple(float(2 ** i - 1) for i in range(31))
+        label_gain = np.asarray(gains, np.float64)
+        lab = np.asarray(metadata.label).astype(np.int32)
+        # inverse max DCG per query at max_position (labels sorted
+        # descending, as the reference's CalMaxDCG)
+        k = self.config.max_position
+        discount = 1.0 / np.log2(2.0 + np.arange(D))
+        lab_pad_np = np.concatenate([lab, [0]])
+        lab_mat = np.where(valid, lab_pad_np[doc_idx], -1)
+        lab_sorted = -np.sort(-lab_mat, axis=1)[:, :k]
+        g_sorted = np.where(lab_sorted >= 0,
+                            label_gain[np.maximum(lab_sorted, 0)], 0.0)
+        md = (g_sorted * discount[None, : g_sorted.shape[1]]).sum(axis=1)
+        inv_max_dcg = np.where(md > 0, 1.0 / np.maximum(md, 1e-300), 0.0)
+        qc = max(1, min(Q, (1 << 24) // max(D * D, 1)))
+        Qp = qc * ((Q + qc - 1) // qc)
+        if Qp > Q:
+            doc_idx = np.pad(doc_idx, ((0, Qp - Q), (0, 0)),
+                             constant_values=num_data)
+            inv_max_dcg = np.pad(inv_max_dcg, (0, Qp - Q))
+        self._q_chunk = qc
+        self._doc_idx = torch.as_tensor(doc_idx, device=device)
+        self._mask = self._doc_idx < num_data
+        self._inv_max_dcg = torch.as_tensor(
+            inv_max_dcg.astype(np.float32), device=device)
+        self._label_gain = torch.as_tensor(label_gain.astype(np.float32),
+                                           device=device)
+        self._n_gain = label_gain.size
+        self._discount = torch.as_tensor(discount.astype(np.float32),
+                                         device=device)
+        self._lab_pad = torch.as_tensor(lab_pad_np.astype(np.int64),
+                                        device=device)
+
+    def get_gradients(self, score):
+        sigmoid = float(self.config.sigmoid)
+        N = self.num_data
+        dev = score.device
+        s1 = score[0]
+        s_pad = torch.cat([s1, torch.zeros(1, dtype=s1.dtype, device=dev)])
+        # one slot past the sentinel doc N collects the pad slots' adds
+        g_flat = torch.zeros(N + 1, dtype=s1.dtype, device=dev)
+        h_flat = torch.zeros(N + 1, dtype=s1.dtype, device=dev)
+        neg_inf = torch.full((), -np.inf, dtype=s1.dtype, device=dev)
+        zero = torch.zeros((), dtype=s1.dtype, device=dev)
+        qc = self._q_chunk
+        for c0 in range(0, self._doc_idx.shape[0], qc):
+            didx = self._doc_idx[c0:c0 + qc]                    # [qc, D]
+            msk = self._mask[c0:c0 + qc]
+            imd = self._inv_max_dcg[c0:c0 + qc]
+            sc = torch.where(msk, s_pad[didx], neg_inf)
+            lb = self._lab_pad[didx]
+            # + 0.0: -0.0 ties +0.0 in CUDA's radix sort, as in JAX's
+            order = torch.argsort(-sc + 0.0, dim=1, stable=True)
+            sc_s = torch.gather(sc, 1, order)
+            lb_s = torch.gather(lb, 1, order)
+            msk_s = torch.gather(msk, 1, order)
+            gain_s = self._label_gain[torch.clamp(lb_s, 0,
+                                                  self._n_gain - 1)]
+            Dq = sc_s.shape[1]
+            best = sc_s[:, 0]
+            cnt = msk_s.sum(dim=1)
+            worst = torch.gather(sc_s, 1, torch.clamp(cnt - 1, min=0)[:, None]
+                                 )[:, 0]
+            ds = sc_s[:, :, None] - sc_s[:, None, :]
+            valid = (msk_s[:, :, None] & msk_s[:, None, :]
+                     & (lb_s[:, :, None] > lb_s[:, None, :]))
+            dcg_gap = gain_s[:, :, None] - gain_s[:, None, :]
+            disc = self._discount[:Dq]
+            paired_disc = torch.abs(disc[None, :, None] - disc[None, None, :])
+            delta = dcg_gap * paired_disc * imd[:, None, None]
+            norm = torch.where((best != worst)[:, None, None],
+                               0.01 + torch.abs(ds),
+                               torch.ones((), dtype=s1.dtype, device=dev))
+            delta = delta / norm
+            p_lambda = 2.0 / (1.0 + torch.exp(2.0 * sigmoid * ds))
+            p_hess = p_lambda * (2.0 - p_lambda)
+            p_lambda = torch.where(valid, -p_lambda * delta, zero)
+            p_hess = torch.where(valid, p_hess * 2.0 * delta, zero)
+            lam_s = p_lambda.sum(dim=2) - p_lambda.sum(dim=1)
+            hes_s = p_hess.sum(dim=2) + p_hess.sum(dim=1)
+            docs = torch.gather(didx, 1, order).reshape(-1)
+            g_flat.index_add_(0, docs, lam_s.reshape(-1))
+            h_flat.index_add_(0, docs, hes_s.reshape(-1))
+        g, h = g_flat[:N], h_flat[:N]
+        if self.weights is not None:
+            g = g * self.weights
+            h = h * self.weights
+        return g[None, :], h[None, :]
+
+
 def create_objective(config: Config) -> Objective:
-    if config.objective != "binary":
+    table = {"binary": BinaryLogloss, "lambdarank": LambdarankNDCG}
+    if config.objective not in table:
         raise NotImplementedError(
             f"objective {config.objective!r} is not ported yet; this slice "
-            "trains the binary objective (ROADMAP.md §A item 10)")
-    return BinaryLogloss(config)
+            "trains binary and lambdarank (ROADMAP.md §A item 10)")
+    return table[config.objective](config)
 
 
 def objective_from_model_string(s: str, config: Config) -> Objective:

@@ -1,9 +1,9 @@
-"""Device-side evaluation metrics: the binary log loss and AUC.
+"""Device-side evaluation metrics: the binary log loss, AUC and NDCG@k.
 
-Port of lightgbm_tpu/ops/eval.py `pointwise_loss` (binary_logloss kind)
-and `auc`.  The score stays on the device; each metric returns a 0-d
-tensor, and the boosting loop fetches all of an iteration's metrics in
-one transfer.
+Port of lightgbm_tpu/ops/eval.py `pointwise_loss` (binary_logloss kind),
+`auc` and `ndcg_at_k`.  The score stays on the device; each metric
+returns a 0-d tensor, and the boosting loop fetches all of an
+iteration's metrics in one transfer.
 """
 from __future__ import annotations
 
@@ -51,3 +51,54 @@ def auc(score: torch.Tensor, label: torch.Tensor,
     return torch.where((tot_pos > 0) & (tot_neg > 0),
                        acc / (tot_pos * tot_neg),
                        torch.ones((), dtype=torch.float32, device=s.device))
+
+
+def _stable_lexsort(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
+    """Order sorting by `major`, ties by `minor`, remaining ties by row
+    index (jnp.lexsort((minor, major)), a stable sort): two stable sorts.
+    Adding 0.0 turns -0.0 into +0.0, so a radix sort on the float bits
+    (CUDA) ties them as JAX's sort and the CPU's comparisons do."""
+    o1 = torch.argsort(minor + 0.0, stable=True)
+    o2 = torch.argsort(major[o1], stable=True)
+    return o1[o2]
+
+
+def ndcg_at_k(score: torch.Tensor, label_int: torch.Tensor,
+              query_id: torch.Tensor, query_start_of_row: torch.Tensor,
+              label_gain: torch.Tensor, discount_by_rank: torch.Tensor,
+              query_weight: Optional[torch.Tensor], ks: tuple,
+              num_queries: int) -> torch.Tensor:
+    """NDCG@k for every k in `ks`, averaged over queries (weighted by
+    query_weight when given).  One global sort of all rows keyed
+    (query, -score) and segment sums per query, as in JAX; queries whose
+    ideal DCG is 0 count as 1.  Returns [len(ks)] f32."""
+    s = score.to(torch.float32)
+    n = s.shape[0]
+    dev = s.device
+    gains = label_gain[label_int.long()]
+    order = _stable_lexsort(-s, query_id)
+    rank = torch.arange(n, dtype=torch.int32, device=dev) \
+        - query_start_of_row[order]
+    g_sorted = gains[order]
+    qid_sorted = query_id[order].long()
+    iorder = _stable_lexsort(-gains, query_id)
+    ig_sorted = gains[iorder]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    disc = discount_by_rank[torch.clamp(rank, max=n - 1).long()]
+    out = []
+    for k in ks:
+        within = rank < k
+        dcg = torch.zeros(num_queries, dtype=torch.float32,
+                          device=dev).index_add_(
+            0, qid_sorted, torch.where(within, g_sorted * disc, zero))
+        maxdcg = torch.zeros(num_queries, dtype=torch.float32,
+                             device=dev).index_add_(
+            0, qid_sorted, torch.where(within, ig_sorted * disc, zero))
+        nd = torch.where(maxdcg > 0, dcg / torch.clamp(maxdcg, min=1e-30),
+                         torch.ones((), dtype=torch.float32, device=dev))
+        if query_weight is None:
+            out.append(nd.mean())
+        else:
+            w = query_weight.to(torch.float32)
+            out.append(torch.sum(nd * w) / torch.sum(w))
+    return torch.stack(out)

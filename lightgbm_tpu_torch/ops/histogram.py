@@ -1,9 +1,12 @@
-"""K-leaf histograms of the batched-rounds learner (kernels K1 and K2).
+"""K-leaf histograms of the batched-rounds learner (kernels K1, K2, K7, K8).
 
-Port of the main-path part of lightgbm_tpu/ops/histogram.py:
+Port of the rounds learner's part of lightgbm_tpu/ops/histogram.py:
 `_quantize_gh`, `hist_multileaf_masked`, `gather_segments` and
-`hist_multileaf_gathered`.  Output layout is the JAX one: [K, F, 3, B]
-float32, channels (sum_grad, sum_hess, count) per slot, feature and bin.
+`hist_multileaf_gathered` over the dense store, and the sparse half
+(`hist_sparse_xla`, `hist_sparse_multileaf`, `hist_sparse_gathered` and
+their helpers) over the CSR/ELL store.  Output layout is the JAX one:
+[K, F, 3, B] float32, channels (sum_grad, sum_hess, count) per slot,
+feature (store column) and bin.
 
 The TPU kernels built one-hot matrices and contracted them on the MXU;
 the CUDA kernels (csrc/histogram.cu) scatter each row into a per-block
@@ -16,6 +19,14 @@ int8 quantization (`_quantize_gh`) and the dequantize stay outside the
 kernel, as plain torch ops, exactly as in JAX.  In the gathered row feed
 the kernel reads each scratch position's bins through the row index
 (`row_idx`) instead of materializing the gathered [F, capacity] copy.
+
+Over the sparse store the CUDA kernels K7 (int8) and K8 (float32) of
+csrc/hist_sparse.cu add the stored ELL entries only; the zero bin of
+every column is rebuilt around them, as plain torch ops, from each
+slot's totals (`_apply_zero_bin`).  The TPU's window streams
+(`sparse_window_streams`, `unscatter_slot_hist`) are layout machinery for
+its matmul formulation and are not ported: the kernels walk the ELL
+arrays directly.
 """
 from __future__ import annotations
 
@@ -203,3 +214,200 @@ def hist_multileaf_gathered(bins_fn: torch.Tensor, gh8: torch.Tensor,
     return hist_multileaf_masked(bins_fn, slot, ghg, sl,
                                  num_bins_padded=num_bins_padded,
                                  input_dtype=input_dtype, row_idx=idx)
+
+
+# ----------------------------------------------------------------------------
+# Sparse (CSR/ELL) store: nonzero-iterating multi-leaf histograms
+# ----------------------------------------------------------------------------
+
+def _slot_of_rows(lid: torch.Tensor, sl: torch.Tensor) -> torch.Tensor:
+    """[N] int32 slot index per row (first position of the row's leaf id
+    in `sl`), or K for rows whose leaf is not histogrammed this pass."""
+    K = sl.shape[0]
+    ar = torch.arange(K, dtype=torch.int32, device=lid.device)
+    eq = lid[:, None] == sl[None, :]                       # [N, K]
+    return torch.where(eq, ar[None, :], K).min(dim=1).values.to(torch.int32)
+
+
+def _slot_totals(srow: torch.Tensor, vals: torch.Tensor,
+                 K: int) -> torch.Tensor:
+    """[K, 3] per-slot (sum_grad, sum_hess, count) over all rows of each
+    slot — the zero-bin anchor; dtype follows vals [3, N] (int32 for the
+    quantized lanes, where the residual must stay an exact integer)."""
+    tot = torch.zeros((K + 1, 3), dtype=vals.dtype, device=vals.device)
+    return tot.index_add_(0, srow.long(), vals[:3].t())[:K]
+
+
+def _apply_zero_bin(hist: torch.Tensor, tot: torch.Tensor,
+                    zero_bin: torch.Tensor) -> torch.Tensor:
+    """Add each store column's implicit-zero bin in place: slot totals
+    minus the stored-entry sums, at the column's zero bin.  hist
+    [K, C, 3, B] (stored entries only), tot [K, 3], zero_bin [C] (-1 on
+    padded columns, which stay all-zero).  Exact in the int32 lanes."""
+    K, C, _, B = hist.shape
+    colsum = hist.sum(dim=3, dtype=hist.dtype)             # [K, C, 3]
+    resid = torch.where((zero_bin >= 0)[None, :, None],
+                        tot[:, None, :] - colsum,
+                        torch.zeros((), dtype=hist.dtype,
+                                    device=hist.device))
+    zb = torch.clamp(zero_bin, 0, B - 1).long()
+    ar = torch.arange(C, device=hist.device)
+    # the advanced axes (column, zero bin) move first: [C, K, 3]
+    hist[:, ar, :, zb] += resid.permute(1, 0, 2)
+    return hist
+
+
+def _sparse_quant_ok(input_dtype: str, num_rows: int) -> bool:
+    """int8 eligibility of a sparse pass: the int32-exactness bound of
+    the dense path, keyed on the row count (a (column, bin) cell takes at
+    most one entry per row)."""
+    if input_dtype != "int8":
+        return False
+    if num_rows > INT8_MAX_ROWS:
+        log.warning("histogram_dtype=int8 disabled for this sparse pass: "
+                    f"{num_rows} rows exceeds the int32-exactness bound "
+                    "(16M rows per device); using float32")
+        return False
+    return True
+
+
+def _sparse_hist_plain(cols: torch.Tensor, binsv: torch.Tensor,
+                       srow: torch.Tensor, vals: torch.Tensor, K: int,
+                       Cp: int, B: int) -> torch.Tensor:
+    """Plain version of both sparse kernels: [K, Cp, 3, B] sums of
+    vals [3, N] (int32 exactly, or float32) over the stored ELL entries
+    (0 <= col < Cp) of rows with srow < K, at [srow, col, ch,
+    min(bin, B-1)].  Zero bins are not included."""
+    dev = cols.device
+    acc = torch.int64 if not vals.is_floating_point() else torch.float32
+    out = torch.zeros(K * Cp * 3 * B, dtype=acc, device=dev)
+    ok = (cols >= 0) & (cols < Cp) & (srow < K)[:, None]
+    rr, jj = torch.nonzero(ok, as_tuple=True)
+    if rr.numel():
+        b = torch.clamp(binsv[rr, jj].long(), max=B - 1)
+        keep = b >= 0
+        rr, b = rr[keep], b[keep]
+        c = cols[rr, jj[keep]].long()
+        base = (srow[rr].long() * Cp + c) * (3 * B) + b
+        for ch in range(3):
+            out.index_add_(0, base + ch * B, vals[ch, rr].to(acc))
+    out = out.view(K, Cp, 3, B)
+    return out.to(torch.int32) if acc == torch.int64 else out
+
+
+def _sparse_hist_cuda(cols: torch.Tensor, binsv: torch.Tensor,
+                      srow: torch.Tensor, vals: torch.Tensor, K: int,
+                      Cp: int, B: int) -> torch.Tensor:
+    """Kernels K7 (int32 vals) and K8 (float32 vals), csrc/hist_sparse.cu,
+    with the plain version's contract."""
+    N, R = cols.shape
+    quant = not vals.is_floating_point()
+    if cols.dtype != torch.int32 or binsv.dtype != torch.int32 \
+            or binsv.shape != (N, R):
+        raise TypeError("sparse histogram kernel takes int32 [N, R] cols "
+                        "and bins")
+    if srow.dtype != torch.int32 or srow.shape != (N,):
+        raise TypeError("sparse histogram kernel takes int32 srow [N]")
+    if vals.dtype not in (torch.int32, torch.float32) \
+            or vals.shape != (3, N):
+        raise TypeError("sparse histogram kernel takes [3, N] int32 or "
+                        "float32 vals")
+    out = torch.zeros((K, Cp, 3, B), dtype=vals.dtype, device=cols.device)
+    if N == 0 or R == 0 or K == 0 or Cp == 0:
+        return out
+    cols = cols.contiguous()
+    binsv = binsv.contiguous()
+    srow = srow.contiguous()
+    vals = vals.contiguous()
+    kernels.call("hist_sparse", cols.data_ptr(), binsv.data_ptr(), N, R,
+                 srow.data_ptr(), vals.data_ptr(), int(quant), K, Cp, B,
+                 out.data_ptr())
+    kernels.LAUNCHES["hist_sparse_int8" if quant else "hist_sparse_f32"] += 1
+    return out
+
+
+def _hist_sparse(entries_fn, cols, binsv, zero_bin, lid, gh8, sl, Cp: int,
+                 B: int, input_dtype: str) -> torch.Tensor:
+    """The sparse pass around a stored-entry histogram `entries_fn`:
+    quantize (int8), slot of every row, slot totals, stored-entry sums,
+    zero-bin rebuild, one dequantize — the order of the JAX function."""
+    N = cols.shape[0]
+    K = sl.shape[0]
+    quant = _sparse_quant_ok(input_dtype, N)
+    if quant:
+        vals, sg, sh = _quantize_gh(gh8)                   # [3, N] int32
+    else:
+        vals = gh8[:3].to(torch.float32)
+    srow = _slot_of_rows(lid, sl)
+    tot = _slot_totals(srow, vals, K)
+    hist = entries_fn(cols, binsv, srow, vals, K, Cp, B)
+    hist = _apply_zero_bin(hist, tot, zero_bin)
+    if quant:
+        scale = torch.stack([sg, sh, torch.ones_like(sg)])
+        hist = hist.to(torch.float32) * scale[None, None, :, None]
+    return hist
+
+
+def hist_sparse_xla(cols: torch.Tensor, binsv: torch.Tensor,
+                    zero_bin: torch.Tensor, lid: torch.Tensor,
+                    gh8: torch.Tensor, sl: torch.Tensor, *,
+                    num_columns_padded: int, num_bins_padded: int,
+                    input_dtype: str = "float32") -> torch.Tensor:
+    """Nonzero-iterating multi-leaf histogram in plain torch ops — the
+    plain version of kernels K7 and K8 on any device.
+
+    cols/binsv [N, R] int32 ELL entries (col >= num_columns_padded marks
+    an empty slot); zero_bin [Cp] int32 (-1 = padded column); lid [N]
+    int32 leaf ids; gh8 [>=3, N] f32 (grad·rm, hess·rm, rm); sl [K]
+    int32 leaf ids to histogram (-1 = empty slot).  Returns
+    [K, Cp, 3, B] f32 — hist_multileaf_masked's contract over the sparse
+    store.  input_dtype "int8" quantizes per pass (`_quantize_gh`) and
+    keeps the stored sums, slot totals and zero-bin residual in int32,
+    with one dequantizing scale at the end."""
+    return _hist_sparse(_sparse_hist_plain, cols, binsv, zero_bin, lid,
+                        gh8, sl, num_columns_padded, num_bins_padded,
+                        input_dtype)
+
+
+def hist_sparse_multileaf(sp, lid: torch.Tensor, gh8: torch.Tensor,
+                          sl: torch.Tensor, *, num_columns_padded: int,
+                          num_bins_padded: int,
+                          input_dtype: str = "float32") -> torch.Tensor:
+    """hist_sparse_xla's contract over the sparse store triple
+    sp = (cols, binsv, zero_bin): a CUDA tensor launches kernel K7
+    (int8) or K8 (float32) for the stored-entry sums, a CPU tensor takes
+    the plain version."""
+    cols, binsv, zero_bin = sp[0], sp[1], sp[2]
+    fn = _sparse_hist_cuda if cols.is_cuda else _sparse_hist_plain
+    return _hist_sparse(fn, cols, binsv, zero_bin, lid, gh8, sl,
+                        num_columns_padded, num_bins_padded, input_dtype)
+
+
+def hist_sparse_gathered(sp, gh8: torch.Tensor, perm: torch.Tensor,
+                         seg_off: torch.Tensor, seg_cnt: torch.Tensor, *,
+                         capacity: int, num_columns_padded: int,
+                         num_bins_padded: int,
+                         input_dtype: str = "float32") -> torch.Tensor:
+    """Gathered sparse histogram, plain torch ops: compact the K
+    leaf-contiguous row segments of the row partition into a
+    [capacity] scratch, gather their ELL rows and histogram only those
+    (dead scratch positions get sentinel columns and zero values).  The
+    JAX package runs it off the TPU only when hist_rows=gathered is
+    pinned; the port's learner does the same on the CPU, and runs the
+    masked feed on CUDA.  Like the JAX function, it histograms in
+    float32 whatever `input_dtype` says."""
+    cols, binsv, zero_bin = sp[0], sp[1], sp[2]
+    K = seg_off.shape[0]
+    Cp = num_columns_padded
+    idx, slot, _ = gather_segments(perm, seg_off, seg_cnt,
+                                   capacity=capacity)
+    il = idx.long()
+    live = slot >= 0
+    cg = torch.where(live[:, None], cols[il],
+                     torch.full((), Cp, dtype=cols.dtype, device=cols.device))
+    bg = binsv[il]
+    ghg = gh8[:3][:, il] * live[None, :].to(torch.float32)
+    sl = torch.arange(K, dtype=torch.int32, device=cols.device)
+    return hist_sparse_xla(cg, bg, zero_bin, slot, ghg, sl,
+                           num_columns_padded=Cp,
+                           num_bins_padded=num_bins_padded)

@@ -1,8 +1,8 @@
-"""Row partition of one boosting round (kernel K4).
+"""Row partition of one boosting round (kernel K4, and the sparse store).
 
 Port of lightgbm_tpu/ops/partition.py `partition_rows` for the 7-row
 table the learner builds, with the contract of the JAX function's XLA
-branch.
+branch, and `partition_rows_sparse` over the CSR/ELL store.
 On the GPU the whole step — per-leaf table lookup, the row's bin of its
 split column, the left/right decision and the new leaf id — is one
 kernel, csrc/partition.cu, with the table decoded into shared memory
@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .lookup import _lookup_plain
+from .lookup import _lookup_plain, table_lookup
+from .predict import sparse_bin_lookup
 
 
 def _partition_plain(bins_fn: torch.Tensor, leaf_id: torch.Tensor,
@@ -76,3 +77,29 @@ def partition_rows(bins_fn: torch.Tensor, leaf_id: torch.Tensor,
     if bins_fn.is_cuda:
         return _partition_cuda(bins_fn, leaf_id, tbl)
     return _partition_plain(bins_fn, leaf_id, tbl)
+
+
+def partition_rows_sparse(cols: torch.Tensor, binsv: torch.Tensor,
+                          zero_bin: torch.Tensor, leaf_id: torch.Tensor,
+                          tbl: torch.Tensor) -> torch.Tensor:
+    """partition_rows over the CSR/ELL sparse store.
+
+    cols/binsv [N, R] int32 per-row (store column, bin) entries (a column
+    >= C marks an empty slot); zero_bin [C] int32.  The row's bin of its
+    leaf's split column is an ELL probe — R compares per row — falling
+    back to the column's zero bin when the row stores no entry there.
+    Table semantics match partition_rows exactly (new leaf 0 = stay).
+    In JAX this is XLA ops around a table lookup, not a TPU kernel; here
+    it is torch ops around kernel K3 (table_lookup)."""
+    r = table_lookup(tbl, leaf_id)
+    fi = r[0].to(torch.int32)
+    ti = r[1].to(torch.int32)
+    ci = r[2] > 0
+    nli = r[3].to(torch.int32)
+    lo = r[4].to(torch.int32)
+    hi1 = r[5].to(torch.int32)
+    dl = r[6] > 0
+    vi = sparse_bin_lookup(cols, binsv, zero_bin, fi)
+    gl = torch.where(ci, vi == ti, vi <= ti)
+    gl = torch.where((vi >= lo) & (vi <= hi1), gl, dl)
+    return torch.where((nli > 0) & ~gl, nli, leaf_id)

@@ -6,6 +6,14 @@ function (seed 0) so train and valid sets drawn with different seeds
 share it, and seeded features and label noise.  `NORTH_STAR_PARAMS` is
 the training configuration bench.py times on it, with the valid set
 scored by AUC; chip_smoke.py and trace_main.py both run it.
+
+`synth_ctr` is the JAX package's wide-sparse CTR/ranking shape (bench.py
+`synth_ctr`): hashed count features with power-law column popularity,
+lognormal values and 0/1 relevance in fixed-size queries, returned as a
+scipy CSR matrix.  `CTR_PARAMS` is the on-chip CTR configuration of the
+JAX package's chip queue (the bench_ctr stage: lambdarank over the
+sparse CSR/ELL store, 31 leaves, 63 bins, EFB off); chip_smoke.py and
+the sparse tests run it.
 """
 from __future__ import annotations
 
@@ -17,6 +25,15 @@ NORTH_STAR_PARAMS = {"objective": "binary", "metric": "auc",
                      "min_sum_hessian_in_leaf": 100.0,
                      "histogram_dtype": "int8", "verbose": -1}
 
+# scripts/run_chip_queue.sh bench_ctr / bench_ctr_int8 read through
+# bench.py: float32 histograms there, int8 in the second stage
+CTR_PARAMS = {"objective": "lambdarank", "metric": "ndcg",
+              "num_leaves": 31, "max_bin": 63, "learning_rate": 0.1,
+              "min_data_in_leaf": 1, "min_sum_hessian_in_leaf": 100.0,
+              "sparse_store": "csr", "enable_bundle": False,
+              "bin_construct_sample_cnt": 20_000,
+              "histogram_dtype": "float32", "verbose": -1}
+
 
 def synth_higgs(n: int, f: int = 28, seed: int = 42):
     w = np.random.RandomState(0).randn(f) / np.sqrt(f)
@@ -26,3 +43,27 @@ def synth_higgs(n: int, f: int = 28, seed: int = 42):
               - 0.3 * X[:, 2] * X[:, 3])
     y = (logits + rng.logistic(size=n) * 0.5 > 0).astype(np.float64)
     return X.astype(np.float64), y
+
+
+def synth_ctr(n: int, features: int = 50_000, density: float = 0.01,
+              seed: int = 42, query: int = 20):
+    """Hashed count features (power-law column draw, lognormal values),
+    0/1 relevance from a fixed (seed 0) labeling function, `query`-row
+    queries.  Returns (scipy CSR X [n', features], y [n'], group sizes),
+    n' = n rounded down to whole queries."""
+    import scipy.sparse as spm
+    rng = np.random.RandomState(seed)
+    n = max(query, (n // query) * query)
+    nnz = max(1, int(round(features * density)))
+    cols = (features * rng.rand(n * nnz) ** 3.0).astype(np.int64)
+    np.clip(cols, 0, features - 1, out=cols)
+    rows = np.repeat(np.arange(n), nnz)
+    vals = np.exp(rng.randn(n * nnz))
+    X = spm.csr_matrix((vals, (rows, cols)), shape=(n, features))
+    X.sum_duplicates()
+    w = np.random.RandomState(0).randn(features) / np.sqrt(nnz)
+    lin = np.asarray(X @ w).ravel()
+    logits = lin + 0.5 * np.sin(3.0 * lin)
+    y = (logits + rng.logistic(size=n) * 0.3 > 0).astype(np.float64)
+    group = np.full(n // query, query, np.int64)
+    return X, y, group

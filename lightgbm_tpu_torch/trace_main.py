@@ -1,15 +1,19 @@
 """Where the time of a boosting iteration goes, on the GPU.
 
-    python -m lightgbm_tpu_torch.trace_main [--rows N] [--trace PATH]
+    python -m lightgbm_tpu_torch.trace_main [--workload higgs|ctr]
+        [--rows N] [--trace PATH]
 
-Trains the north-star configuration that chip_smoke.py runs (binary,
-`synth_higgs(N)` x 28, 255 leaves, max_bin 255, int8 histograms, a
-valid set of N/10 rows scored with AUC each iteration) for 2 warm-up
-iterations, then traces 3 more with torch.profiler (CPU and CUDA
-activities).  Prints one JSON line: wall seconds per traced iteration,
-device busy seconds (union of the kernel intervals) and the idle share,
-kernel launches per iteration, the device time of this package's four
-kernels and of everything else, and the top device kernels and host ops.
+Trains a configuration that chip_smoke.py runs — the north-star one
+(binary, `synth_higgs(N)` x 28, 255 leaves, max_bin 255, int8
+histograms, a valid set of N/10 rows scored with AUC each iteration), or
+with `--workload ctr` the CTR one (lambdarank on `synth_ctr(N)` x 50,000
+over the sparse store, CTR_PARAMS, a 4,080-row valid set scored with
+NDCG) — for 2 warm-up iterations, then traces 3 more with torch.profiler
+(CPU and CUDA activities).  Prints one JSON line: wall seconds per
+traced iteration, device busy seconds (union of the kernel intervals)
+and the idle share, kernel launches per iteration, the device time of
+this package's kernels and of everything else, and the top device
+kernels and host ops.
 With --trace it also writes the Chrome trace.  Needs a CUDA device.
 """
 from __future__ import annotations
@@ -26,7 +30,8 @@ WARMUP = 2
 # the kernel symbols of csrc/, by the name chip_smoke.py reports
 OWN_KERNELS = {"hist_kernel": "hist_masked (K1/K2)",
                "lookup_kernel": "table_lookup (K3)",
-               "partition_kernel": "partition_rows (K4)"}
+               "partition_kernel": "partition_rows (K4)",
+               "hist_sparse_kernel": "hist_sparse (K7/K8)"}
 
 
 def _union_us(intervals) -> float:
@@ -43,7 +48,10 @@ def _union_us(intervals) -> float:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rows", type=int, default=2_000_000)
+    ap.add_argument("--workload", choices=("higgs", "ctr"),
+                    default="higgs")
+    ap.add_argument("--rows", type=int, default=0,
+                    help="training rows (default 2M higgs, 500k ctr)")
     ap.add_argument("--trace", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -53,14 +61,25 @@ def main(argv=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     import lightgbm_tpu_torch as lt
-    from lightgbm_tpu_torch.synth import NORTH_STAR_PARAMS, synth_higgs
+    from lightgbm_tpu_torch import synth
 
-    params = dict(NORTH_STAR_PARAMS)
-    X, y = synth_higgs(args.rows)
-    Xv, yv = synth_higgs(args.rows // 10, seed=7)
-    ds = lt.Dataset(X, y, params=params)
+    if args.workload == "ctr":
+        args.rows = args.rows or 500_000
+        params = dict(synth.CTR_PARAMS)
+        X, y, g = synth.synth_ctr(args.rows)
+        Xv, yv, gv = synth.synth_ctr(4_080, seed=7)
+        ds = lt.Dataset(X, y, group=g, params=params)
+        vs = lt.Dataset(Xv.toarray(), yv, group=gv, reference=ds,
+                        params=params)
+    else:
+        args.rows = args.rows or 2_000_000
+        params = dict(synth.NORTH_STAR_PARAMS)
+        X, y = synth.synth_higgs(args.rows)
+        Xv, yv = synth.synth_higgs(args.rows // 10, seed=7)
+        ds = lt.Dataset(X, y, params=params)
+        vs = lt.Dataset(Xv, yv, reference=ds, params=params)
     bst = lt.Booster(params=params, train_set=ds)
-    bst.add_valid(lt.Dataset(Xv, yv, reference=ds, params=params), "valid")
+    bst.add_valid(vs, "valid")
     for _ in range(WARMUP):
         bst.update()
         bst.eval_valid()
@@ -90,7 +109,8 @@ def main(argv=None) -> None:
                      key=lambda a: -a.self_device_time_total)[:12]
     top_cpu = sorted(avg, key=lambda a: -a.self_cpu_time_total)[:12]
     out = {
-        "device": torch.cuda.get_device_name(0), "rows": args.rows,
+        "device": torch.cuda.get_device_name(0),
+        "workload": args.workload, "rows": args.rows,
         "traced_iterations": TRACED,
         "wall_s_per_iter": wall / TRACED,
         "device_busy_s_per_iter": busy_s / TRACED,

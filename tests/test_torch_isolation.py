@@ -63,9 +63,11 @@ def test_unported_paths_raise_not_implemented():
     from lightgbm_tpu_torch.dataset import Dataset
     rng = np.random.RandomState(0)
     X = rng.randn(300, 4)
+    # the exact learner is still unported (the sparse store is ported)
+    import lightgbm_tpu_torch as lt
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Dataset(X, None, config_from_params({"sparse_store": "csr",
-                                              "device_type": "cpu"}))
+        lt.train({"tree_growth": "exact", "device_type": "cpu",
+                  "verbose": -1}, lt.Dataset(X, (X[:, 0] > 0) * 1.0), 1)
     # one-hot columns are mutually exclusive: EFB bundles them
     onehot = np.eye(4)[rng.randint(0, 4, size=300)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -8,11 +8,19 @@ imports no JAX, so it runs on a machine without it:
     python -m pytest -p no:cacheprovider --noconftest -m cuda \\
         tests/test_torch_kernels_cuda.py
 
-Tolerances: K1 (int8 histogram), K3 (lookup) and K4 (partition) are
-integer-exact or pure data movement and must be bitwise equal.  K2
-(float32 histogram) adds each cell's values with float atomics in a
-run-dependent order: n f32 additions reorder within n * 2^-24 * sum|x|,
-below 1e-3 for the ~15 rows of |x| <= 4 per cell here.
+Tolerances: K1 (int8 histogram), K3 (lookup), K4 (partition) and K7
+(int8 sparse histogram) are integer-exact or pure data movement and must
+be bitwise equal.  K2 (float32 histogram) adds each cell's values with
+float atomics in a run-dependent order: n f32 additions reorder within
+n * 2^-24 * sum|x|, below 1e-3 for the ~15 rows of |x| <= 4 per cell
+here.  K8 (float32 sparse histogram) is held to the rigorous bound of
+reordered float sums: n f32 additions in any order lie within
+n * 2^-24 * sum|x| of the exact sum, and both the kernel and its plain
+version reorder, so a stored cell agrees within n * 2^-23 * sum|x| of
+its own n entries; a zero bin (slot total minus the column's stored
+sums, each reordered on both sides) within n * 2^-22 * sum|x| of the
+slot's n rows.  With dyadic gradients every partial sum is exact and K8
+is bitwise.
 """
 import numpy as np
 import pytest
@@ -120,6 +128,81 @@ def test_lookup_kernel_vs_plain(dev, T, S):
     np.testing.assert_array_equal(fused.numpy(),
                                   tl.table_lookup(t, ids,
                                                   addend=add).numpy())
+
+
+def _sparse_case(N, C, R, seed, dyadic):
+    """Power-law ELL store with all-sentinel rows, a padded column
+    (zero_bin -1, no entries), empty slots and real or dyadic gh."""
+    rng = np.random.RandomState(seed)
+    cols = np.full((N, R), C, np.int32)
+    bins = np.zeros((N, R), np.int32)
+    cnt = rng.randint(0, R + 1, N)
+    cnt[rng.rand(N) < 0.05] = 0                       # all-sentinel rows
+    for i in np.flatnonzero(cnt):
+        u = np.unique(np.minimum((C * rng.rand(cnt[i]) ** 3).astype(
+            np.int64), C - 2))
+        cols[i, :u.size] = u
+        bins[i, :u.size] = rng.randint(0, 63, u.size)
+    zb = rng.randint(0, 3, C).astype(np.int32)
+    zb[C - 1] = -1                                    # padded column
+    lid = rng.randint(0, 9, N).astype(np.int32)
+    m = (rng.rand(N) > 0.1).astype(np.float32)
+    if dyadic:
+        g = np.round(rng.randn(N) * 8) / 8
+        h = np.round(rng.rand(N) * 16) / 32
+    else:
+        g, h = rng.randn(N), rng.rand(N)
+    gh = np.stack([g * m, h * m, m]).astype(np.float32)
+    sl = np.array([0, 3, -1, 8, 5, -1, 1], np.int32)  # empty slots
+    return [torch.as_tensor(x) for x in (cols, bins, zb, lid, gh, sl)]
+
+
+@pytest.mark.parametrize("input_dtype,dyadic", [
+    ("int8", False), ("float32", False), ("float32", True)])
+def test_hist_sparse_kernel_vs_plain(dev, input_dtype, dyadic):
+    C, B = 2_000, 64
+    cols, bins, zb, lid, gh, sl = _sparse_case(50_000, C, 64, 5, dyadic)
+    kw = dict(num_columns_padded=C, num_bins_padded=B,
+              input_dtype=input_dtype)
+    ref = th.hist_sparse_xla(cols, bins, zb, lid, gh, sl, **kw)
+    name = "hist_sparse_int8" if input_dtype == "int8" else \
+        "hist_sparse_f32"
+    before = kernels.LAUNCHES[name]
+    out = th.hist_sparse_multileaf(
+        (cols.to(dev), bins.to(dev), zb.to(dev)), lid.to(dev), gh.to(dev),
+        sl.to(dev), **kw).cpu()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert not out[:, C - 1].any()                    # the padded column
+    srow = th._slot_of_rows(lid, sl)
+    K = len(sl)
+    if input_dtype == "int8" or dyadic:
+        np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    else:
+        cell_tol = _reorder_bound(cols, bins, srow, gh, K, C, B)
+        absv = torch.stack([gh[0].abs(), gh[1].abs(), gh[2]])
+        tot = th._slot_totals(srow, absv, K).double()      # [K, 3]
+        tol = cell_tol.clone()
+        ok = (zb >= 0).nonzero()[:, 0]
+        tol[:, ok, :, zb[ok].long()] += (tot[:, 2:3] * 2.0 ** -22
+                                         * tot)[None]
+        assert ((out.double() - ref.double()).abs() <= tol).all()
+    # the kernel's own output: the stored-entry sums alone
+    vals = gh if input_dtype != "int8" else th._quantize_gh(gh)[0]
+    plain = th._sparse_hist_plain(cols, bins, srow, vals, K, C, B)
+    raw = th._sparse_hist_cuda(cols.to(dev), bins.to(dev), srow.to(dev),
+                               vals.to(dev), K, C, B).cpu()
+    if input_dtype == "int8" or dyadic:
+        np.testing.assert_array_equal(raw.numpy(), plain.numpy())
+    else:
+        tol = _reorder_bound(cols, bins, srow, gh, K, C, B)
+        assert ((raw.double() - plain.double()).abs() <= tol).all()
+
+
+def _reorder_bound(cols, bins, srow, gh, K, C, B):
+    """n * 2^-23 * sum|x| per stored cell (n of its entries)."""
+    absv = torch.stack([gh[0].abs(), gh[1].abs(), gh[2]])
+    s = th._sparse_hist_plain(cols, bins, srow, absv, K, C, B).double()
+    return s[:, :, 2:3, :] * 2.0 ** -23 * s
 
 
 def test_cuda_tensor_never_takes_the_plain_version(dev, monkeypatch):

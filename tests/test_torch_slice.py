@@ -2,8 +2,8 @@
 
 Same seeded inputs through both packages: bin mappers and the binned
 store (bitwise), binary-logloss gradients, one 63-leaf tree from the
-batched-rounds learner, a 5-iteration train + predict, and a JAX-trained
-model carried into the port.
+batched-rounds learner, a 5-iteration train + predict, the training
+callbacks, and a JAX-trained model carried into the port.
 
 Tolerances: the grown trees must match in structure (split features,
 thresholds, children, leaf counts) exactly.  Leaf values agree to rtol
@@ -185,6 +185,49 @@ def test_train_predict_matches_jax(jax_booster):
                                atol=1e-5)
     np.testing.assert_allclose(res_t["valid_0"]["auc"],
                                res_j["valid_0"]["auc"], rtol=0, atol=1e-5)
+
+
+def test_train_callbacks_match_jax():
+    """Callbacks see what the JAX package's see: before-iteration ones
+    first, then after-iteration ones in `order`, each with the same
+    CallbackEnv fields and the iteration's evaluation list (atol 1e-5)."""
+    X, y = synth_higgs(5000)
+    Xv, yv = synth_higgs(1000, seed=7)
+
+    def run(pkg, params):
+        seen = []
+
+        def before(env):
+            seen.append(("before", env.iteration, env.begin_iteration,
+                         env.end_iteration, env.evaluation_result_list))
+        before.before_iteration = True
+
+        def late(env):
+            seen.append(("late", env.iteration, env.begin_iteration,
+                         env.end_iteration, env.evaluation_result_list))
+        late.order = 20
+
+        def early(env):
+            seen.append(("early", env.iteration))
+        early.order = 5
+        ds = pkg.Dataset(X, y)
+        pkg.train(params, ds, 3,
+                  valid_sets=[pkg.Dataset(Xv, yv, reference=ds)],
+                  callbacks=[late, before, early])
+        return seen
+
+    sj = run(lj, PARAMS)
+    st = run(lt, dict(PARAMS, device_type="cpu"))
+    assert [e[:4] for e in st] == [e[:4] for e in sj]
+    assert [e[0] for e in st[:3]] == ["before", "early", "late"]
+    assert st[0][4] is None
+    for a, b in zip(sj, st):
+        if a[0] == "late":
+            assert [r[:2] + r[3:] for r in b[4]] == \
+                [r[:2] + r[3:] for r in a[4]]
+            np.testing.assert_allclose([r[2] for r in b[4]],
+                                       [r[2] for r in a[4]], rtol=0,
+                                       atol=1e-5)
 
 
 def test_jax_model_carried_over_predicts_bitwise(jax_booster):
