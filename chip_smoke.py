@@ -65,6 +65,40 @@ Phases (any failure exits non-zero and prints no result line):
              within 1e-4), and 3 iterations of CTR_PARAMS on
              synth_ctr(4_000, 2_048, 0.01), float32 and int8 (valid
              NDCG@5 within 1e-4).
+8. onehot set-up — synth_onehot(2_000_000): 40 one-hot groups of 6, 240
+             features (bench.py BENCH_WORKLOAD=onehot, cut from 10.5M
+             rows) through lightgbm_tpu_torch.Dataset with ONEHOT_PARAMS:
+             host seconds of data, binning with the bundle plan, and the
+             store apart; fails unless EFB packed the 240 features into 40
+             store columns with 0 conflicting rows.  Valid set
+             synth_onehot(200_000, seed=7) on the same plan.
+9. gathered kernels — K5 (histogram_from_indices) against its plain
+             version at the exact learner's shapes: the root of the onehot
+             store (every row, C=40 columns, B=128), a mid-tree leaf
+             (65,536 index slots, 60,000 of them rows), and a north-star
+             store (C=28, B=256, every row); K6 (hist_multileaf) at M=128
+             value rows, F=28, B=256, C=2M.  Bitwise on dyadic values, and
+             on real ones within n * 2^-23 * sum|x| per cell (float atomics
+             and the plain version's index_add_ both reorder); the count
+             channel always bitwise.  Times of kernel, plain version and
+             one PyTorch call over prebuilt flat indices (index_add_ for
+             K5; for K6 one scatter_add_ over stride-0 views, since its
+             flat index would hold F*M*C = 7.2e9 entries).
+10. onehot main — the exact leaf-wise learner (tree_growth=exact) on the
+             phase-8 datasets, 12 iterations (s/iter over iterations 3-12,
+             timed as in phase 3), valid AUC every iteration; fails unless
+             the learner is the exact one, K5 launched, AUC rose from
+             iteration 1 to 12, and the device-scored valid set agrees with
+             Booster.predict(raw_score=True) within 1e-4.  Then the rounds
+             learner (tree_growth=auto) on the same bundled store, 6
+             iterations, which must launch K1, K3 and K4.
+11. losslessness — synth_onehot(50_000) with enable_bundle true and
+             false, for each learner: the same first tree (unless its first
+             differing split is an f32 gain tie), predictions within 1e-5.
+12. onehot card vs CPU — 5 iterations of the exact learner on the CPU and
+             on the card, on synth_onehot(50_000) with ONEHOT_PARAMS and on
+             synth_higgs(50_000) with the north-star parameters: first
+             trees as in phase 7, valid AUC within 1e-4.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and last {"ok": true, "device": {...}}.  Exits with 2 and no result when
@@ -107,6 +141,14 @@ CTR_VALID_ROWS = 4_080
 CTR_COMPARE = (4_000, 2_048)
 # slots of the sparse-kernel phase: the ctr tree's 31 leaves
 CTR_SLOTS = 31
+# the onehot configuration (bench.py BENCH_WORKLOAD=onehot), cut from
+# 10.5M to 2M rows; its valid set; the losslessness and card-vs-CPU shape
+ONEHOT_ROWS = 2_000_000
+ONEHOT_VALID_ROWS = 200_000
+ONEHOT_COMPARE = 50_000
+# K5's mid-tree leaf (index slots, rows) and K6's value rows
+LEAF_CAP, LEAF_ROWS = 65_536, 60_000
+K6_ROWS = 128
 GPU = "cuda"
 
 
@@ -697,6 +739,299 @@ def compare_first_trees(label, tc, tg, m_c, m_g, metric):
              f"{m_g}")
 
 
+def phase_onehot_setup(lt):
+    """The onehot training and valid Datasets, built once (phase 8)."""
+    from lightgbm_tpu_torch.synth import ONEHOT_PARAMS, synth_onehot
+    params = dict(ONEHOT_PARAMS, device_type=GPU)
+    t0 = time.perf_counter()
+    X, y = synth_onehot(ONEHOT_ROWS)
+    Xv, yv = synth_onehot(ONEHOT_VALID_ROWS, seed=7)
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, y, params=params).construct()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vs = lt.Dataset(Xv, yv, reference=ds, params=params).construct()
+    valid_s = time.perf_counter() - t0
+    inner = ds._inner
+    st = dict(rows=inner.num_data, features=inner.num_features,
+              store_columns=inner.num_store_columns,
+              conflict_rows=inner.bundle_conflict_rows,
+              max_store_bins=inner.max_num_bin, synth_s=synth_s,
+              setup_binning_s=inner.setup_seconds["binning"],
+              setup_store_s=inner.setup_seconds["store"],
+              setup_train_total_s=train_s, setup_valid_s=valid_s)
+    print(f"[onehot setup] {json.dumps(st)}", flush=True)
+    if (inner.num_features != 240 or inner.num_store_columns != 40
+            or inner.bundle_conflict_rows != 0
+            or vs._inner.bundle_plan is not inner.bundle_plan):
+        fail("EFB did not bundle the onehot workload's 240 features into "
+             "40 store columns with 0 conflicting rows")
+    del X
+    return params, ds, vs, Xv
+
+
+def gathered_check(torch, H, name, bins_t, gp, hp, idx, B,
+                   exact: bool) -> float:
+    """K5 against its plain version on one histogram's inputs: bitwise
+    when `exact`, else every cell within n * 2^-23 * sum|x|; the count
+    channel always bitwise.  Returns the max |diff|."""
+    got = H._from_indices_cuda(bins_t, gp, hp, idx, B)
+    ref = H._from_indices_plain(bins_t, gp, hp, idx, B)
+    torch.cuda.synchronize()
+    err = (got.double() - ref.double()).abs().max().item()
+    if not torch.equal(got[:, 2], ref[:, 2]):
+        fail(f"{name}: the count channel differs from the plain version")
+    if exact and not torch.equal(got, ref):
+        fail(f"{name} differs from its plain version: max |diff| {err}")
+    if not exact:
+        absum = H._from_indices_plain(bins_t, gp.abs(), hp.abs(), idx, B)
+        tol = absum[:, 2:3].double() * 2.0 ** -23 * absum.double()
+        bad = ((got.double() - ref.double()).abs() > tol).sum().item()
+        if bad:
+            fail(f"{name}: {bad} cells beyond n*2^-23*sum|x| (max |diff| "
+                 f"{err})")
+    return err
+
+
+def multirow_check(torch, H, gb, vals, B, exact: bool) -> float:
+    """K6 against its plain version, as gathered_check."""
+    got = H._multirow_cuda(gb, vals, B, "float32")
+    ref = H.hist_multileaf_xla(gb, vals, num_bins_padded=B)
+    torch.cuda.synchronize()
+    err = (got.double() - ref.double()).abs().max().item()
+    if exact and not torch.equal(got, ref):
+        fail(f"hist_multirow differs from its plain version: {err}")
+    if not exact:
+        absum = H.hist_multileaf_xla(gb, vals.abs(), num_bins_padded=B)
+        ones = torch.ones((1, gb.shape[1]), device=gb.device)
+        n = H.hist_multileaf_xla(gb, ones, num_bins_padded=B)
+        tol = n.double() * 2.0 ** -23 * absum.double()
+        bad = ((got.double() - ref.double()).abs() > tol).sum().item()
+        if bad:
+            fail(f"hist_multirow: {bad} cells beyond n*2^-23*sum|x| (max "
+                 f"|diff| {err})")
+    return err
+
+
+def phase_gathered_kernels(torch, H, ds):
+    """K5 and K6 against their plain versions at the exact learner's
+    shapes (phase 9).  Returns their {"kernels"} rows: K5 at the onehot
+    root, K6 at M=128."""
+    from lightgbm_tpu_torch.learner.common import (padded_bin_count,
+                                                   sentinel_bins_t)
+    dev = torch.device(GPU)
+    rng = np.random.RandomState(13)
+    inner = ds._inner
+    N = inner.num_data
+
+    def values(n):
+        """(real, dyadic) padded gradient pairs [n+1] on the card."""
+        out = []
+        for g, h in ((rng.randn(n), rng.rand(n) * 0.25),
+                     (np.clip(np.round(rng.randn(n) * 64), -1000, 1000) / 64,
+                      np.round(rng.rand(n) * 64) / 256)):
+            out.append(tuple(torch.as_tensor(
+                np.concatenate([v, [0.0]]).astype(np.float32), device=dev)
+                for v in (g, h)))
+        return out
+
+    onehot_bt = torch.as_tensor(sentinel_bins_t(inner), device=dev)
+    onehot_B = padded_bin_count(inner.max_num_bin)
+    ns_bt = torch.as_tensor(np.concatenate([
+        rng.randint(0, 255, size=(N, 28)), np.zeros((1, 28))]).astype(
+            np.int32), device=dev)
+    leaf_idx = np.full(LEAF_CAP, N, np.int32)
+    leaf_idx[:LEAF_ROWS] = np.sort(rng.choice(N, LEAF_ROWS, replace=False))
+    root_idx = torch.arange(N, dtype=torch.int32, device=dev)
+    shapes = (("onehot root", onehot_bt, onehot_B, root_idx),
+              ("onehot leaf", onehot_bt, onehot_B,
+               torch.as_tensor(leaf_idx, device=dev)),
+              ("north-star root", ns_bt, 256, root_idx))
+    rows = []
+    for label, bt, B, idx in shapes:
+        C = bt.shape[1]
+        (g, h), (gd, hd) = values(N)
+        errs = [gathered_check(torch, H, f"hist_gathered ({label})", bt, gd,
+                               hd, idx, B, True),
+                gathered_check(torch, H, f"hist_gathered ({label})", bt, g, h,
+                               idx, B, False)]
+        ms = time_ms(torch, lambda: H._from_indices_cuda(bt, g, h, idx, B),
+                     20)
+        plain = time_ms(torch, lambda: H._from_indices_plain(bt, g, h, idx,
+                                                             B), 3, 1)
+        live = idx[idx < N].long()
+        E = int(live.numel())
+        b = bt[live].long()                                     # [E, C]
+        f = torch.arange(C, device=dev)[None, :]
+        flat = torch.cat([((f * 3 + ch) * B + b).reshape(-1)
+                          for ch in range(3)])
+        vals = torch.cat([v[live][:, None].expand(E, C).reshape(-1)
+                          for v in (g, h, torch.ones_like(g))])
+        out = torch.zeros(C * 3 * B, device=dev)
+        del b
+        lib = time_ms(torch, lambda: out.zero_().index_add_(0, flat, vals),
+                      5, 1)
+        del flat, vals, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        cap = int(idx.numel())
+        bms, by = bound_ms(cap * 4 + E * (C * 4 + 8) + C * 3 * B * 4,
+                           3.0 * C * E)
+        print(f"[gathered kernels] hist_gathered {label}: cap={cap} rows={E} "
+              f"C={C} B={B} max_abs_err={max(errs):.3g} ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} "
+              f"bound_ms={bms:.4f} ({by})", flush=True)
+        if label == "onehot root":
+            rows.append(dict(name="hist_gathered", route="cuda",
+                             source="lightgbm_tpu_torch/csrc/hist_gathered.cu",
+                             replaces="lightgbm_tpu/ops/histogram.py:178",
+                             max_abs_err=max(errs), ms=ms, plain_ms=plain,
+                             bound_ms=bms, bound_by=by, library_ms=lib))
+    del onehot_bt, ns_bt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- K6: M value rows over an [F, C] store ---------------------------
+    F, M, B, C = 28, K6_ROWS, 256, ONEHOT_ROWS
+    gb = torch.as_tensor(rng.randint(0, 255, size=(F, C)).astype(np.int32),
+                         device=dev)
+    vals = torch.as_tensor(rng.randn(M, C).astype(np.float32), device=dev)
+    dy = torch.round(vals * 16) / 16
+    errs = [multirow_check(torch, H, gb, dy, B, True),
+            multirow_check(torch, H, gb, vals, B, False)]
+    del dy
+    ms = time_ms(torch, lambda: H._multirow_cuda(gb, vals, B, "float32"), 10)
+    plain = time_ms(torch, lambda: H.hist_multileaf_xla(
+        gb, vals, num_bins_padded=B), 2, 1)
+    # one scatter_add_: bins broadcast over the M rows, values over the F
+    # features (stride-0 views, nothing materialised)
+    index = gb.long()[:, None, :].expand(F, M, C)
+    src = vals[None, :, :].expand(F, M, C)
+    out = torch.zeros((F, M, B), device=dev)
+    lib = time_ms(torch, lambda: out.zero_().scatter_add_(2, index, src), 5,
+                  1)
+    del index, src, out
+    bms, by = bound_ms(F * C * 4 + M * C * 4 + F * M * B * 4, float(F) * M * C)
+    print(f"[gathered kernels] hist_multirow: F={F} M={M} C={C} B={B} "
+          f"max_abs_err={max(errs):.3g} ms={ms:.4f} plain_ms={plain:.4f} "
+          f"library_ms={lib:.4f} bound_ms={bms:.4f} ({by})", flush=True)
+    rows.append(dict(name="hist_multirow", route="cuda",
+                     source="lightgbm_tpu_torch/csrc/hist_gathered.cu",
+                     replaces="lightgbm_tpu/ops/histogram.py:252",
+                     max_abs_err=max(errs), ms=ms, plain_ms=plain,
+                     bound_ms=bms, bound_by=by, library_ms=lib))
+    del gb, vals
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def drive_onehot(torch, lt, kernels, params, ds, vs, Xv, warmup, timed):
+    """lightgbm_tpu_torch.train on the built onehot Datasets, the valid
+    AUC every iteration; counts zeroed before, read after; s/iter as in
+    `drive`."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    n, res, marks = warmup + timed, {}, []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bst = lt.train(params, ds, n, valid_sets=[vs], evals_result=res,
+                   callbacks=[steady_window(torch, warmup, n, marks)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    if bst.num_trees() != n:
+        fail(f"onehot training stopped early: {bst.num_trees()} of {n}")
+    auc = res["valid_0"]["auc"]
+    models = bst._gbdt.models
+    dev_raw = bst._gbdt.valid_sets[0][2].score[0].double().cpu().numpy()
+    walk_err = float(np.abs(dev_raw - bst.predict(Xv, raw_score=True)).max())
+    st = dict(learner=type(bst._gbdt.learner).__name__,
+              s_per_iter=(marks[1] - marks[0]) / timed, train_wall_s=wall,
+              auc_first=auc[0], auc_last=auc[-1],
+              leaves_per_tree=statistics.mean(t.num_leaves for t in models),
+              syncs_per_tree=statistics.mean(bst._gbdt.host_syncs_per_tree),
+              launches=launches,
+              launches_per_tree={k: v / n for k, v in launches.items() if v},
+              valid_walk_vs_host=walk_err,
+              peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if not (math.isfinite(auc[0]) and math.isfinite(auc[-1])):
+        fail(f"onehot valid AUC is not finite: {auc}")
+    if walk_err > 1e-4:
+        fail(f"onehot device valid scores disagree with the host walk: "
+             f"{walk_err}")
+    return st
+
+
+def phase_onehot_main(torch, lt, kernels, params, ds, vs, Xv):
+    st = drive_onehot(torch, lt, kernels, dict(params, tree_growth="exact"),
+                      ds, vs, Xv, 2, 10)
+    print(f"[onehot main] exact: {json.dumps(st)}", flush=True)
+    if st["learner"] != "SerialTreeLearner":
+        fail(f"tree_growth=exact ran {st['learner']}")
+    if st["launches"]["hist_gathered"] <= 0:
+        fail("the exact learner never launched hist_gathered")
+    if not st["auc_last"] > st["auc_first"]:
+        fail(f"onehot valid AUC did not rise: {st['auc_first']} -> "
+             f"{st['auc_last']}")
+    rd = drive_onehot(torch, lt, kernels, params, ds, vs, Xv, 2, 4)
+    print(f"[onehot main] rounds: {json.dumps(rd)}", flush=True)
+    if rd["learner"] != "RoundsTreeLearner":
+        fail(f"tree_growth=auto ran {rd['learner']}")
+    for k in ("hist_masked_int8", "table_lookup", "partition_rows"):
+        if rd["launches"][k] <= 0:
+            fail(f"the rounds learner on the bundled store never launched "
+                 f"{k}")
+    return st, rd
+
+
+def phase_lossless(lt):
+    """Bundled against unbundled training on the card (phase 11)."""
+    from lightgbm_tpu_torch.synth import ONEHOT_PARAMS, synth_onehot
+    X, y = synth_onehot(ONEHOT_COMPARE)
+    for growth in ("exact", "auto"):
+        out = {}
+        for eb in (True, False):
+            p = dict(ONEHOT_PARAMS, device_type=GPU, tree_growth=growth,
+                     enable_bundle=eb)
+            ds = lt.Dataset(X, y, params=p)
+            bst = lt.train(p, ds, 1)
+            if (ds._inner.bundle_plan is not None) != eb:
+                fail(f"enable_bundle={eb} did not decide the bundling")
+            out[eb] = (bst._gbdt.models[0], bst.predict(X))
+        compare_first_trees(f"onehot bundled vs not ({growth})", out[True][0],
+                            out[False][0], 0.0, 0.0, "-")
+        d = float(np.abs(out[True][1] - out[False][1]).max())
+        print(f"[lossless] {growth}: predictions max |diff| {d}", flush=True)
+        if d > 1e-5:
+            fail(f"bundled and unbundled predictions differ by {d} "
+                 f"({growth})")
+
+
+def phase_onehot_card_vs_cpu(lt):
+    """The exact learner on the CPU and on the card (phase 12)."""
+    from lightgbm_tpu_torch.synth import (NORTH_STAR_PARAMS, ONEHOT_PARAMS,
+                                          synth_higgs, synth_onehot)
+    for label, data, base in (("onehot exact", synth_onehot, ONEHOT_PARAMS),
+                              ("higgs exact", synth_higgs,
+                               NORTH_STAR_PARAMS)):
+        X, y = data(ONEHOT_COMPARE)
+        Xv, yv = data(ONEHOT_COMPARE // 5, seed=7)
+        out = {}
+        for dev in ("cpu", GPU):
+            p = dict(base, device_type=dev, tree_growth="exact")
+            ds = lt.Dataset(X, y, params=p)
+            res = {}
+            bst = lt.train(p, ds, 5, valid_sets=[lt.Dataset(Xv, yv,
+                                                            reference=ds)],
+                           evals_result=res)
+            out[dev] = (bst._gbdt.models[0], res["valid_0"]["auc"][-1])
+        compare_first_trees(label, out["cpu"][0], out[GPU][0], out["cpu"][1],
+                            out[GPU][1], "auc")
+
+
 def phase_card_vs_cpu(lt):
     from lightgbm_tpu_torch.synth import (CTR_PARAMS, NORTH_STAR_PARAMS,
                                           synth_ctr, synth_higgs)
@@ -777,6 +1112,22 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     phase_card_vs_cpu(lt)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    params, ds, vs, Xv = phase_onehot_setup(lt)
+    gathered_rows = phase_gathered_kernels(torch, H, ds)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    ex, _ = phase_onehot_main(torch, lt, kernels, params, ds, vs, Xv)
+    for r in gathered_rows:
+        # K6 has no caller on any training path (as in the JAX package)
+        r["launches"] = ex["launches"][r["name"]]
+    rows += gathered_rows
+    del ds, vs, Xv
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    phase_lossless(lt)
+    phase_onehot_card_vs_cpu(lt)
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,13 +2,17 @@
 
 Port of lightgbm_tpu/boosting/gbdt.py for this slice: boost-from-average,
 bagging through `np.random.RandomState` (the same draws as JAX), one tree
-per iteration from the rounds learner with the scores updated on the
-device (training rows by leaf id, valid sets by walking the device tree
-arrays over their dense store or their sparse ELL rows — the JAX
-package's pipelined path, here with the tree fetched in the same
-iteration), objectives and metrics initialised with the query metadata,
-eval, host prediction, and the LightGBM text model (save and load).
-Checkpoint/resume, DART and GOSS are later slices.
+per iteration with the scores updated on the device, objectives and
+metrics initialised with the query metadata, eval, host prediction, and
+the LightGBM text model (save and load).  Two iteration paths, as in the
+JAX package: the rounds learner returns device tree arrays (training
+rows add by leaf id, valid sets walk the device tree arrays over their
+dense store or their sparse ELL rows — the JAX package's pipelined path,
+here with the tree fetched in the same iteration); the exact learner
+returns a host tree and the leaf of every row (training rows add by leaf
+id, or walk the training store when bagging left rows out; valid sets
+walk the host tree).  Either walk reads an EFB-bundled store through its
+feature table.  Checkpoint/resume, DART and GOSS are later slices.
 """
 from __future__ import annotations
 
@@ -88,9 +92,12 @@ class GBDT:
         self.objective.init(train_set.metadata, self.num_data, self.device)
         self.K = self.objective.num_tree_per_iteration
         self.learner = create_tree_learner(train_set, cfg)
+        # the exact learner's store, walked in bagged iterations; the
+        # rounds learner adds by leaf id only
         self.train_score = ScoreUpdater(
-            None, self.num_data, self.K, self.device,
-            train_set.metadata.init_score)
+            getattr(self.learner, "walk_bins", None), self.num_data, self.K,
+            self.device, train_set.metadata.init_score,
+            feat_tbl=train_set.bundle_feat_table())
         if self.models:
             raise NotImplementedError(
                 "continued training from a loaded model is not ported yet "
@@ -113,7 +120,8 @@ class GBDT:
             bins_fn = torch.as_tensor(valid_set.bins.astype(np.int32),
                                       device=self.device)
         su = ScoreUpdater(bins_fn, valid_set.num_data, self.K, self.device,
-                          valid_set.metadata.init_score)
+                          valid_set.metadata.init_score,
+                          feat_tbl=valid_set.bundle_feat_table())
         for t in self.models:
             su.add_tree(t, 0)
         self.valid_sets.append((name, valid_set, su,
@@ -165,6 +173,9 @@ class GBDT:
         bag = (self.bag_idx
                if self.need_bagging and self.bag_cnt < self.num_data
                else None)
+        if not hasattr(self.learner, "train_device"):
+            return self._train_host_tree(gradient.reshape(-1),
+                                         hessian.reshape(-1), bag)
         arrs, leaf_id = self.learner.train_device(
             gradient.reshape(-1), hessian.reshape(-1), bag)
         tree = tree_arrays_to_host(arrs, self.train_set,
@@ -181,6 +192,31 @@ class GBDT:
         for _, _, su, _ in self.valid_sets:
             su.add_tree_arrays_dev(arrs, lv, 0, tree.num_leaves, depth)
         tree.apply_shrinkage(self.shrinkage_rate)
+        self.models.append(tree)
+        self.iter_ += 1
+        return False
+
+    def _train_host_tree(self, gradient: torch.Tensor, hessian: torch.Tensor,
+                         bag: Optional[torch.Tensor]) -> bool:
+        """The iteration of a learner that returns a host tree (the exact
+        learner; lightgbm_tpu/boosting/gbdt.py's non-pipelined path):
+        shrink on the host, then add the tree to the training scores by
+        leaf id (by walking the training store when a bag left rows out)
+        and to each valid set by walking it."""
+        tree, leaf_id = self.learner.train(
+            gradient, hessian, bag, self.bag_cnt if bag is not None else None)
+        self.host_syncs_per_tree.append(self.learner.last_host_syncs)
+        if tree.num_leaves <= 1:
+            warnings.warn("Stopped training because there are no more "
+                          "leaves that meet the split requirements.")
+            return True
+        tree.apply_shrinkage(self.shrinkage_rate)
+        if bag is None:
+            self.train_score.add_tree_by_leaf_id(tree, leaf_id, 0)
+        else:
+            self.train_score.add_tree(tree, 0)
+        for _, _, su, _ in self.valid_sets:
+            su.add_tree(tree, 0)
         self.models.append(tree)
         self.iter_ += 1
         return False

@@ -7,7 +7,11 @@ advances one tree level per step, per-node fields fetched by one table
 lookup), and `ScoreUpdater`.  A valid set's store is the dense [F, N]
 tensor or the sparse ELL triple (cols, bins, zero_bin), whose bin reads
 probe the row's stored entries (ops/predict.sparse_bin_lookup) so the
-store never densifies.  The training set adds by leaf id either way.
+store never densifies.  Over an EFB-bundled store the walk maps each
+node's original feature to its store column and recovers the original
+bin from the packed slot (`feat_tbl`).  The training set adds by leaf
+id, and walks its own store only in bagged iterations of the exact
+learner.
 """
 from __future__ import annotations
 
@@ -30,11 +34,14 @@ def _num_rows(bins_fn) -> int:
 def _walk_step(node: torch.Tensor, bins_fn,
                split_feature: torch.Tensor, threshold: torch.Tensor,
                decision: torch.Tensor, left_child: torch.Tensor,
-               right_child: torch.Tensor) -> torch.Tensor:
-    """One tree level for every row at once.  bins_fn is the [F, N]
+               right_child: torch.Tensor,
+               feat_tbl: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One tree level for every row at once.  bins_fn is the [C, N]
     store, or the sparse ELL triple (cols, bins, zero_bin), whose bin
     read is `sparse_bin_lookup`; child ids are exact in f32 (|v| <
-    2^24)."""
+    2^24).  feat_tbl ([5, F]: column, offset, default, nslots, packed)
+    maps the node's original feature onto a bundled store column and the
+    packed slot back to the original bin; None for an unbundled store."""
     nd = torch.clamp(node, min=0)
     tbl = torch.stack([split_feature.to(torch.float32),
                        threshold.to(torch.float32),
@@ -46,9 +53,22 @@ def _walk_step(node: torch.Tensor, bins_fn,
     t = r[1].to(torch.int32)
     d = r[2]
     if isinstance(bins_fn, (tuple, list)):
-        bv = sparse_bin_lookup(*bins_fn, feat)
+        def bin_of(c):
+            return sparse_bin_lookup(*bins_fn, c)
     else:
-        bv = select_bin_by_feature(bins_fn, feat)
+        def bin_of(c):
+            return select_bin_by_feature(bins_fn, c)
+    if feat_tbl is None:
+        bv = bin_of(feat)
+    else:
+        fr = table_lookup(feat_tbl, feat)
+        off = fr[1].to(torch.int32)
+        dflt = fr[2].to(torch.int32)
+        bv_store = bin_of(fr[0].to(torch.int32))
+        s = bv_store - off
+        in_r = (s >= 0) & (s < fr[3].to(torch.int32))
+        orig = torch.where(in_r, s + (s >= dflt).to(torch.int32), dflt)
+        bv = torch.where(fr[4] > 0, orig, bv_store)
     go_left = torch.where(d == 1, bv == t, bv <= t)
     nxt = torch.where(go_left, r[3], r[4]).to(torch.int32)
     return torch.where(node < 0, node, nxt)
@@ -56,7 +76,8 @@ def _walk_step(node: torch.Tensor, bins_fn,
 
 def traverse_tree_device(bins_fn, split_feature, threshold_bin,
                          is_cat, left_child, right_child, num_leaves: int,
-                         depth: int) -> torch.Tensor:
+                         depth: int, feat_tbl: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Leaf index per row from device tree arrays.  The JAX version walked
     in a while_loop until every row parked at a leaf; here the host knows
     the tree's depth, so it walks exactly `depth` levels (rows parked at
@@ -67,7 +88,7 @@ def traverse_tree_device(bins_fn, split_feature, threshold_bin,
                       device=split_feature.device)
     for _ in range(depth if num_leaves >= 2 else 0):
         node = _walk_step(node, bins_fn, split_feature, threshold_bin,
-                          is_cat, left_child, right_child)
+                          is_cat, left_child, right_child, feat_tbl)
     return ~node
 
 
@@ -99,11 +120,16 @@ class ScoreUpdater:
 
     def __init__(self, bins_fn, num_data: int,
                  K: int, device: torch.device,
-                 init_score: Optional[np.ndarray] = None):
-        # bins_fn: [F, N] int32 store or the sparse (cols, bins,
-        # zero_bin) triple on `device` (None for the training set, which
-        # adds by leaf id)
+                 init_score: Optional[np.ndarray] = None,
+                 feat_tbl: Optional[np.ndarray] = None):
+        # bins_fn: [C, N] int32 store or the sparse (cols, bins,
+        # zero_bin) triple on `device` (None for a training set that
+        # only adds by leaf id); feat_tbl: the [5, F] bundle walk table
+        # of an EFB store, None for the per-feature layout
         self.bins_fn = bins_fn
+        self.feat_tbl = (None if feat_tbl is None else
+                         torch.as_tensor(feat_tbl, dtype=torch.float32,
+                                         device=device))
         self.num_data = num_data
         self.K = K
         self.device = device
@@ -133,7 +159,7 @@ class ScoreUpdater:
         leaf_idx = traverse_tree_device(
             self.bins_fn, d["split_feature_inner"], d["threshold_in_bin"],
             d["decision_type"], d["left_child"], d["right_child"],
-            tree.num_leaves, d["depth"])
+            tree.num_leaves, d["depth"], self.feat_tbl)
         lv = torch.as_tensor(
             tree.leaf_value[: tree.max_leaves].astype(np.float32)
             * np.float32(scale), device=self.device)
@@ -147,9 +173,19 @@ class ScoreUpdater:
         leaf_idx = traverse_tree_device(
             self.bins_fn, arrs.split_feature, arrs.threshold_bin,
             arrs.is_cat, arrs.left_child, arrs.right_child, num_leaves,
-            depth)
+            depth, self.feat_tbl)
         self.score = _add_leaf_to_row(self.score, leaf_idx, leaf_values,
                                       tree_id)
+
+    def add_tree_by_leaf_id(self, tree, leaf_id: torch.Tensor,
+                            tree_id: int) -> None:
+        """Leaf-partition score update from a host tree whose leaf values
+        carry shrinkage already (the exact learner's training rows):
+        leaf id -1 (out-of-bag rows) adds 0.0."""
+        lv = torch.as_tensor(
+            tree.leaf_value[: tree.max_leaves].astype(np.float32),
+            device=self.device)
+        self.score = _add_leaf_to_row(self.score, leaf_id, lv, tree_id)
 
     def add_tree_by_leaf_id_dev(self, leaf_id: torch.Tensor,
                                 leaf_values: torch.Tensor,

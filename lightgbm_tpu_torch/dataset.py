@@ -17,12 +17,21 @@ binning.  Valid sets follow their reference's layout.  A consumer without
 a sparse path densifies lazily through `Dataset.bins`, and every such
 densification is counted in `SPARSE_FALLBACKS`.
 
-Not in this slice: Exclusive Feature Bundling.  Where a bundle would
-form, construction raises NotImplementedError naming the ROADMAP item
-that ports it.
+Exclusive Feature Bundling (EFB, docs/Bundling.md of the JAX package):
+when `enable_bundle` is on, a bundle plan is drawn from a row sample
+(`binning.plan_bundles`) and mutually exclusive features share one store
+column, bin 0 meaning "every member at its default bin".  The store then
+has fewer columns than there are used features; `num_bins` and
+`is_categorical` keep the original per-feature view that split search
+and trees speak, `store_num_bins` describes the stored columns, and the
+learners translate between the two with `bundle_feat_table` and
+`unbundle_tables`.  Valid sets inherit their reference's plan.  A sparse
+store over bundled columns is not ported: where one would form,
+construction raises NotImplementedError.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -32,6 +41,7 @@ from . import log
 from .binning import (BinMapper, BundlePlan, CATEGORICAL, find_bin_mappers,
                       plan_bundles)
 from .config import Config
+from .quantize import bin_column_into, bin_rows_into
 
 # rows used to estimate pairwise feature conflicts when planning bundles
 BUNDLE_PLAN_SAMPLE_CNT = 50_000
@@ -111,17 +121,9 @@ def _pack_ell(rows: np.ndarray, cols: np.ndarray, binvals: np.ndarray,
 def store_zero_bins(mappers: List[BinMapper],
                     used: Sequence[int]) -> np.ndarray:
     """[C] int32 bin an implicit raw zero maps to, per store column: the
-    feature's default bin (the no-bundle form)."""
+    feature's default bin (the no-bundle form: a sparse store over
+    bundle columns is not ported)."""
     return np.asarray([mappers[i].default_bin for i in used], np.int32)
-
-
-def bin_feature_column(k: int, values: np.ndarray,
-                       mappers: Sequence[BinMapper],
-                       used_features: Sequence[int],
-                       out: np.ndarray) -> None:
-    """Bin one used feature's raw column into the [N] scratch row `out`
-    (lightgbm_tpu/quantize.py `bin_feature_column`, no-bundle form)."""
-    out[:] = mappers[used_features[k]].value_to_bin(values).astype(out.dtype)
 
 
 @dataclass
@@ -182,12 +184,34 @@ def _plan_bundles_from_sample(sample: np.ndarray, mappers: List[BinMapper],
     return plan_bundles(sb, nb, db, cfg.max_conflict_rate)
 
 
+def _log_bundle_state(plan: Optional[BundlePlan], num_used: int,
+                      cfg: Config) -> None:
+    """The one-line construction log of the bundling outcome (the JAX
+    package also bumps profiling counters here; those are not ported)."""
+    if cfg.verbose < 1:
+        return
+    if plan is None:
+        state = "off" if not cfg.enable_bundle else \
+            "inactive (no exclusive features)"
+        log.info(f"EFB: bundling {state}; {num_used} features "
+                 "histogrammed directly")
+        return
+    log.info(f"EFB: bundled {num_used} features into {plan.num_columns} "
+             f"columns ({plan.num_bundles} bundles holding "
+             f"{plan.num_packed} features; sampled conflict rate "
+             f"{plan.est_conflict_rate:.4f} summed over bundles, budget "
+             f"{cfg.max_conflict_rate:g} each)")
+
+
 def resolve_sparse_store(cfg: Config, mappers: List[BinMapper],
-                         used: Sequence[int]) -> bool:
+                         used: Sequence[int],
+                         plan: Optional[BundlePlan] = None) -> bool:
     """Whether the `sparse_store` knob asks for the csr store: "csr"
     always; "auto" when sparse storage is enabled, the rounds learner
-    runs (the port's learner for every device), the store has >= 128
-    columns and the mean sampled zero-bin rate clears sparse_threshold."""
+    runs (the port's `auto` growth on every device), the store has >= 128
+    columns and the mean zero-bin rate of the stored columns clears
+    sparse_threshold — a bundle column's rate is the complement of its
+    members' summed non-default rates."""
     mode = getattr(cfg, "sparse_store", "dense")
     if mode == "csr":
         return True
@@ -195,10 +219,25 @@ def resolve_sparse_store(cfg: Config, mappers: List[BinMapper],
         return False
     if getattr(cfg, "tree_growth", "auto") == "exact":
         return False
-    if len(used) < 128:
+    C = plan.num_columns if plan is not None else len(used)
+    if C < 128:
         return False
-    rates = np.asarray([mappers[i].sparse_rate for i in used])
+    if plan is None:
+        rates = np.asarray([mappers[i].sparse_rate for i in used])
+    else:
+        nd = np.zeros(plan.num_columns)
+        for k, i in enumerate(used):
+            nd[int(plan.feat_col[k])] += 1.0 - mappers[i].sparse_rate
+        rates = 1.0 - np.minimum(nd, 1.0)
     return float(np.mean(rates)) >= float(cfg.sparse_threshold)
+
+
+def _refuse_sparse_bundles(plan: Optional[BundlePlan]) -> None:
+    if plan is not None:
+        raise NotImplementedError(
+            "a sparse store over EFB-bundled columns is not ported yet "
+            "(ROADMAP.md §A item 11) — pass sparse_store=dense or "
+            "enable_bundle=false")
 
 
 def _csc_row_sample(indptr: np.ndarray, indices: np.ndarray,
@@ -225,10 +264,11 @@ class Dataset:
 
     Attributes
     ----------
-    bins : np.ndarray  [num_used_features, num_data] uint8/uint16 bin ids
-        (a sparse dataset densifies it lazily, counted in
-        SPARSE_FALLBACKS)
+    bins : np.ndarray  [num_store_columns, num_data] uint8/uint16 bin ids
+        (one row per used feature, or per bundle column under a plan; a
+        sparse dataset densifies it lazily, counted in SPARSE_FALLBACKS)
     sparse : SparseStore or None — the CSR/ELL store
+    bundle_plan : BundlePlan or None — the EFB layout of the store
     num_bins : np.ndarray [num_used_features] int32 per-feature bin counts
     mappers : list[BinMapper], one per RAW feature
     used_features : list[int] raw indices of non-trivial features
@@ -240,34 +280,44 @@ class Dataset:
                  metadata: Optional[Metadata] = None,
                  feature_names: Optional[List[str]] = None,
                  categorical_feature: Sequence[int] = ()):
+        t0 = time.perf_counter()
         cfg = config or Config()
         X = np.ascontiguousarray(np.asarray(X, dtype=np.float64))
         if X.ndim != 2:
             raise ValueError("X must be 2-dimensional")
         n, num_raw = X.shape
         if reference is not None:
+            # a valid set takes its reference's mappers and bundle plan,
+            # so it shares the training walk and unbundle tables
             if num_raw != reference.num_total_features:
                 raise ValueError("validation data has different #features")
             mappers, used = reference.mappers, reference.used_features
+            plan = reference.bundle_plan
         else:
-            mappers, used = self._find_mappers(X, cfg, categorical_feature)
-        self._init_store(cfg, mappers, used, n, num_raw, feature_names)
-        self._bins = np.empty((len(used), n), dtype=self._store_dtype)
-        for k, i in enumerate(used):
-            self._bins[k] = mappers[i].value_to_bin(X[:, i]).astype(
-                self._store_dtype)
+            mappers, used, plan = self._find_mappers(X, cfg,
+                                                     categorical_feature)
+        self._init_store(cfg, mappers, used, n, num_raw, feature_names, plan)
+        t1 = time.perf_counter()
+        self.bundle_conflict_rows += bin_rows_into(X, mappers, used, plan,
+                                                   self._bins, 0)
+        self._check_realized_conflicts()
         # training sets by the resolver; valid sets follow their
         # reference's layout (a csr valid set is scored from its ELL rows)
         if ((reference is None or reference.sparse is not None)
-                and resolve_sparse_store(cfg, mappers, used)):
+                and resolve_sparse_store(cfg, mappers, used, plan)):
+            _refuse_sparse_bundles(plan)
             self._sparsify_store()
+        # host seconds of the mappers and bundle plan, and of the store
+        self.setup_seconds = {"binning": t1 - t0,
+                              "store": time.perf_counter() - t1}
         self._set_metadata(metadata, label)
 
     @staticmethod
     def _find_mappers(sample: np.ndarray, cfg: Config,
                       categorical_feature: Sequence[int]):
-        """(mappers, used features) from a raw-valued row sample; refuses
-        what this slice cannot store (sketch bin finding, EFB bundles)."""
+        """(mappers, used features, bundle plan or None) from a
+        raw-valued row sample; refuses sketch bin finding, which is not
+        ported."""
         if cfg.bin_find == "sketch":
             raise NotImplementedError(
                 "bin_find=sketch is not ported yet (ROADMAP.md §A item 12)")
@@ -277,17 +327,19 @@ class Dataset:
             sample_cnt=cfg.bin_construct_sample_cnt,
             seed=cfg.data_random_seed, bin_budget=cfg.bin_budget)
         used = [i for i, m in enumerate(mappers) if not m.is_trivial]
-        if _plan_bundles_from_sample(sample, mappers, used, cfg) is not None:
-            raise NotImplementedError(
-                "Exclusive Feature Bundling formed a bundle; bundled stores "
-                "are not ported yet (ROADMAP.md §A item 10) — pass "
-                "enable_bundle=false")
-        return mappers, used
+        plan = _plan_bundles_from_sample(sample, mappers, used, cfg)
+        _log_bundle_state(plan, len(used), cfg)
+        return mappers, used, plan
 
     def _init_store(self, cfg: Config, mappers: List[BinMapper],
                     used: List[int], n: int, num_raw: int,
-                    feature_names: Optional[List[str]]) -> None:
-        """Per-feature metadata derived from the mappers; no store yet."""
+                    feature_names: Optional[List[str]],
+                    plan: Optional[BundlePlan] = None) -> None:
+        """Per-feature metadata derived from the mappers, and the dense
+        [C, N] store allocated (zeroed under a plan: a bundle column's
+        bin 0 means every member at its default).  `num_bins` and
+        `is_categorical` keep the original per-feature view; the stored
+        columns are described by `store_num_bins` and `max_num_bin`."""
         self.config = cfg
         self.num_data = n
         self.num_total_features = num_raw
@@ -299,11 +351,17 @@ class Dataset:
                                  dtype=np.int32)
         self.is_categorical = np.array(
             [mappers[i].bin_type == CATEGORICAL for i in used], dtype=bool)
-        self.max_num_bin = int(self.num_bins.max()) if len(used) else 1
+        self.bundle_plan = plan
+        self.bundle_conflict_rows = 0
+        self.store_num_bins = (self.num_bins if plan is None
+                               else plan.col_num_bins)
+        C = len(self.store_num_bins)
+        self.max_num_bin = int(self.store_num_bins.max()) if C else 1
         self._store_dtype = np.uint8 if self.max_num_bin <= 256 \
             else np.uint16
         self.sparse: Optional[SparseStore] = None
-        self._bins: Optional[np.ndarray] = None
+        self._bins = (np.empty((C, n), self._store_dtype) if plan is None
+                      else np.zeros((C, n), self._store_dtype))
 
     def _set_metadata(self, metadata: Optional[Metadata],
                       label: Optional[np.ndarray]) -> None:
@@ -332,7 +390,6 @@ class Dataset:
 
         `setup_seconds` records the host time of the two steps:
         {"binning": sample + FindBin, "store": the store build}."""
-        import time
         t0 = time.perf_counter()
         sp = sp_matrix.tocsc()
         n, num_raw = sp.shape
@@ -342,29 +399,38 @@ class Dataset:
             if num_raw != reference.num_total_features:
                 raise ValueError("validation data has different #features")
             mappers, used = reference.mappers, reference.used_features
+            plan = reference.bundle_plan
         else:
             S = min(int(cfg.bin_construct_sample_cnt), n)
             rng = np.random.RandomState(cfg.data_random_seed)
             rows = (np.sort(rng.choice(n, S, replace=False)) if n > S
                     else np.arange(n))
             sample = _csc_row_sample(indptr, indices, data, rows, num_raw)
-            mappers, used = cls._find_mappers(sample, cfg,
-                                              categorical_feature)
+            mappers, used, plan = cls._find_mappers(sample, cfg,
+                                                    categorical_feature)
             del sample
         ds = cls.__new__(cls)
-        ds._init_store(cfg, mappers, used, n, num_raw, feature_names)
+        sparse = reference is None and resolve_sparse_store(cfg, mappers,
+                                                            used, plan)
+        if sparse:
+            _refuse_sparse_bundles(plan)
+        # the sparse build never allocates the dense store
+        ds._init_store(cfg, mappers, used, 0 if sparse else n, num_raw,
+                       feature_names, plan)
+        ds.num_data = n
         t1 = time.perf_counter()
-        if reference is None and resolve_sparse_store(cfg, mappers, used):
+        if sparse:
             ds._build_sparse_from_csc(indptr, indices, data,
                                       bool(sp.has_canonical_format))
         else:
-            ds._bins = np.empty((len(used), n), ds._store_dtype)
             col = np.empty(n, np.float64)
             for k, i in enumerate(used):
                 col[:] = 0.0
                 s, e = int(indptr[i]), int(indptr[i + 1])
                 col[indices[s:e]] = data[s:e]
-                bin_feature_column(k, col, mappers, used, ds._bins[k])
+                ds.bundle_conflict_rows += bin_column_into(
+                    k, col, mappers, used, plan, ds._bins)
+            ds._check_realized_conflicts()
         ds.setup_seconds = {"binning": t1 - t0,
                             "store": time.perf_counter() - t1}
         ds._set_metadata(metadata, label)
@@ -441,7 +507,7 @@ class Dataset:
         if self._bins is None and self.sparse is not None:
             SPARSE_FALLBACKS[site] = SPARSE_FALLBACKS.get(site, 0) + 1
             log.warning(
-                f"sparse store materialized dense ({self.num_features} x "
+                f"sparse store materialized dense ({self.num_store_columns} x "
                 f"{self.num_data} cells) for a consumer without a sparse "
                 f"path (site={site})")
             self._bins = self.sparse.densify(self._store_dtype)
@@ -461,6 +527,80 @@ class Dataset:
                 torch.as_tensor(sp.bins.astype(np.int32), device=device),
                 torch.as_tensor(sp.zero_bin.astype(np.int32),
                                 device=device))
+
+    # -- bundle views --------------------------------------------------------
+
+    @property
+    def num_store_columns(self) -> int:
+        """Stored (histogrammed) columns: num_features, or fewer under
+        a bundle plan."""
+        return int(len(self.store_num_bins))
+
+    def bundle_feat_table(self) -> Optional[np.ndarray]:
+        """[5, F] f32 (column, offset, default, nslots, packed) per
+        original feature — the walk and predicate table — or None when
+        unbundled."""
+        if self.bundle_plan is None:
+            return None
+        return self.bundle_plan.feat_table()
+
+    def unbundle_tables(self, num_bins_padded: int,
+                        num_columns_padded: int = 0):
+        """(src [F, B] int32, dmask [F, B] bool) gather tables of
+        ops/split.unbundle_hist, or None when the store is the original
+        per-feature layout.  num_columns_padded: the column count of the
+        histograms to unbundle when a learner pads the store, so that the
+        zero sentinel sits past every padded column."""
+        if self.bundle_plan is None:
+            return None
+        return self.bundle_plan.unbundle_tables(
+            self.num_bins, num_bins_padded, num_columns_padded)
+
+    def unbundled_bins(self) -> np.ndarray:
+        """The original [num_features, N] per-feature store rebuilt from
+        the bundle columns (a packed feature out of its slot window sits
+        at its default bin)."""
+        store = self.dense_bins(site="unbundled_bins")
+        plan = self.bundle_plan
+        if plan is None:
+            return store
+        F = len(self.used_features)
+        out = np.empty((F, self.num_data), store.dtype)
+        for k in range(F):
+            col = store[int(plan.feat_col[k])]
+            if not plan.feat_packed[k]:
+                out[k] = col
+                continue
+            off = int(plan.feat_offset[k])
+            d = int(plan.feat_default[k])
+            s = col.astype(np.int32) - off
+            in_r = (s >= 0) & (s < int(plan.feat_nslots[k]))
+            out[k] = np.where(in_r, s + (s >= d), d).astype(store.dtype)
+        return out
+
+    def realized_conflict_rate(self) -> float:
+        if self.bundle_plan is None or self.num_data == 0:
+            return 0.0
+        return float(self.bundle_conflict_rows) / float(self.num_data)
+
+    def _check_realized_conflicts(self) -> None:
+        """The plan judged exclusivity on a row sample; binning counted
+        conflicts exactly.  Warn when the data conflicts more than the
+        budget promised (any conflict under max_conflict_rate=0, which
+        is advertised as lossless)."""
+        if self.bundle_plan is None or self.bundle_conflict_rows == 0:
+            return
+        rate = self.realized_conflict_rate()
+        budget = float(self.config.max_conflict_rate)
+        if budget == 0.0 or rate > budget * max(self.bundle_plan.num_bundles,
+                                                1):
+            log.warning(
+                f"EFB: {self.bundle_conflict_rows} conflicting rows "
+                f"(rate {rate:.5f}) exceed what the planning sample "
+                f"promised (budget {budget:g}/bundle); conflicting rows "
+                "keep only the last-bundled feature's bin. Set "
+                "enable_bundle=false (or raise bin_construct_sample_cnt) "
+                "for exact training")
 
     @property
     def num_features(self) -> int:

@@ -29,24 +29,33 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-# source name -> (C function, argtypes); every function returns the
-# cudaError_t of its launch (0 = success)
+# entry name -> (source name, C function, argtypes); every function
+# returns the cudaError_t of its launch (0 = success)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
-    "histogram": ("lgbt_hist_multileaf",
+    "histogram": ("histogram", "lgbt_hist_multileaf",
                   [_P, _I, _L, _I, _P, _P, _P, _I, _L, _P, _I, _I, _I, _P,
                    _P]),
-    "lookup": ("lgbt_table_lookup", [_P, _I, _I, _P, _L, _P, _P, _P]),
-    "partition": ("lgbt_partition_rows", [_P, _I, _P, _I, _I, _L, _P, _P,
-                                          _P]),
-    "hist_sparse": ("lgbt_hist_sparse", [_P, _P, _L, _I, _P, _P, _I, _I, _I,
-                                         _I, _P, _P]),
+    "lookup": ("lookup", "lgbt_table_lookup",
+               [_P, _I, _I, _P, _L, _P, _P, _P]),
+    "partition": ("partition", "lgbt_partition_rows",
+                  [_P, _I, _P, _I, _I, _L, _P, _P, _P]),
+    "hist_sparse": ("hist_sparse", "lgbt_hist_sparse",
+                    [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P]),
+    "hist_gathered": ("hist_gathered", "lgbt_hist_gathered",
+                      [_P, _L, _L, _I, _P, _L, _P, _P, _P, _L, _I, _I, _P,
+                       _P]),
+    "hist_multirow": ("hist_gathered", "lgbt_hist_multirow",
+                      [_P, _I, _L, _P, _I, _I, _I, _P, _P]),
 }
+# the sources of csrc/, one library each
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
 # launches per kernel, keyed by the names chip_smoke.py reports
 LAUNCHES: Dict[str, int] = {"hist_masked_int8": 0, "hist_masked_f32": 0,
                             "table_lookup": 0, "partition_rows": 0,
-                            "hist_sparse_int8": 0, "hist_sparse_f32": 0}
+                            "hist_sparse_int8": 0, "hist_sparse_f32": 0,
+                            "hist_gathered": 0, "hist_multirow": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -74,7 +83,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Compile every missing library among `names`, one nvcc each, all
     in parallel.  Returns {name: seconds} for the libraries built now
     (empty when all were built already); raises with the compiler's
@@ -109,29 +118,31 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
     return took
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built on first use."""
-    lib = _libs.get(name)
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<source>.cu, built on first use, with
+    the argument types of its entry points set."""
+    lib = _libs.get(source)
     if lib is None:
         build()
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
+        lib = ctypes.CDLL(str(_lib_path(source)))
+        for src, fn_name, argtypes in SIGNATURES.values():
+            if src == source:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _libs[source] = lib
     return lib
 
 
 def call(name: str, *args) -> None:
-    """Run csrc/<name>.cu's entry point on the current CUDA stream and
-    raise if the launch was refused."""
-    lib = library(name)
-    fn = getattr(lib, SIGNATURES[name][0])
+    """Run the entry point `name` of SIGNATURES on the current CUDA
+    stream and raise if the launch was refused."""
+    source, fn_name, _ = SIGNATURES[name]
+    fn = getattr(library(source), fn_name)
     err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {SIGNATURES[name][0]} failed to "
-                           f"launch: cudaError {err}")
+        raise RuntimeError(f"CUDA kernel {fn_name} failed to launch: "
+                           f"cudaError {err}")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -1,4 +1,4 @@
-"""Setup helpers of the rounds learner.
+"""Setup helpers of the tree learners.
 
 Port of lightgbm_tpu/learner/common.py (the single-device part).  Device
 memory is read with `torch.cuda.mem_get_info` where JAX read
@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import log
@@ -30,6 +31,16 @@ def padded_bin_count(max_num_bin: int) -> int:
     """Bin axis padded to a multiple of 128 (the JAX layout, kept so the
     histograms compare like with like)."""
     return max(128, int(128 * math.ceil(max_num_bin / 128)))
+
+
+def sentinel_bins_t(dataset) -> np.ndarray:
+    """[N+1, C] int32 transpose of the store (one column per used
+    feature, or per EFB bundle column) with a sentinel row N of bin 0,
+    so that the padded positions of a row-index vector gather
+    branch-free (the exact learner's histogram feed)."""
+    bins_np = dataset.dense_bins(site="bins_t").astype(np.int32)
+    pad = np.zeros((bins_np.shape[0], 1), np.int32)
+    return np.concatenate([bins_np, pad], axis=1).T.copy()
 
 
 def device_memory_bytes(device: torch.device) -> float:

@@ -18,6 +18,14 @@ choice of the gathered feed).  The final tree fetch is one more read.
 `last_host_syncs`.  Removing these reads (CUDA graphs, device-side
 control) is later work.
 
+Over an EFB-bundled store (the dataset has a bundle plan) the histograms
+and the parent cache are store-space, [C, 3, B] per leaf with C bundle
+columns; each is unbundled to the original features (`unbundle_hist`,
+through `unb`) before split search, and each split's original-space
+(feature, threshold) is translated into its store-space window
+(`bundle_predicate_params`, through the feature table `ftbl`) for the
+partition table that kernel K4 reads.
+
 With `sparse=True` (the dataset holds a SparseStore) `bins` is the ELL
 triple (cols [N, R], bins [N, R], zero_bin [F]): histogram passes
 iterate stored entries only (kernels K7/K8, ops/histogram.py
@@ -65,15 +73,20 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
                       min_sum_hessian_in_leaf: float,
                       input_dtype: str = "float32",
                       cache_parent_hist: bool = True,
-                      hist_rows: str = "masked", sparse: bool = False
+                      hist_rows: str = "masked", sparse: bool = False,
+                      ftbl: Optional[torch.Tensor] = None,
+                      unb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                       ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree in batched rounds.
 
-    bins [F, N] int32 store (int8 = value-128), or with sparse=True the
-    ELL triple (cols [N, R] int32 with F as the empty-slot sentinel,
-    bins [N, R] int32, zero_bin [F] int32 with -1 on padded columns);
+    bins [C, N] int32 store (int8 = value-128), or with sparse=True the
+    ELL triple (cols [N, R] int32 with C as the empty-slot sentinel,
+    bins [N, R] int32, zero_bin [C] int32 with -1 on padded columns);
     grad/hess/row_mask [N] f32; num_bins [F] int, is_cat/fmask [F]
-    bool — all on one device.
+    bool, over the original features — all on one device.  C == F
+    unless the store is EFB-bundled; then ftbl is the [5, F] feature
+    table and unb the (src, dmask) unbundle tables, both on the device
+    (None for an unbundled store).
     Returns (TreeArrays on that device, leaf_id [N] int32, host reads
     made).  hist_rows="gathered" keeps the device-resident row
     permutation grouped by leaf with per-leaf (offset, count), stably
@@ -104,7 +117,7 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
     def find_best_batch(hists, sums):
         """hists [k, F, 3, B], sums [k, 3] -> packed records [k, 11] with
         the can-split gate applied (depth gates at selection time)."""
-        rec = best_split(maybe_unbundle(hists, None, sums), num_bins,
+        rec = best_split(maybe_unbundle(hists, unb, sums), num_bins,
                          is_cat, fmask, sums[:, 0], sums[:, 1], sums[:, 2],
                          **skw)
         can = ((sums[:, 2] >= 2 * min_data_in_leaf)
@@ -208,14 +221,14 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
         thr = rec[:, 2].to(torch.int64)
         # never-split leaves hold -inf records; their slots are inactive,
         # so only the index has to stay in range
-        catf = is_cat[feat.clamp(0, F - 1)]
+        catf = is_cat[feat.clamp(0, is_cat.shape[0] - 1)]
         new_leaf = n_leaves + prefix
         node = (n_leaves - 1) + prefix
         l_sums = rec[:, 3:6]
         r_sums = rec[:, 6:9]
 
         # ---- partition all rows in one pass -------------------------------
-        colv, Tv, lov, hi1v, dlv = bundle_predicate_params(None, feat, thr,
+        colv, Tv, lov, hi1v, dlv = bundle_predicate_params(ftbl, feat, thr,
                                                            catf)
         tbl_idx = torch.where(do, pl_, torch.full_like(pl_, L))
         tbl = torch.zeros((7, L + 1), **f32)
@@ -375,7 +388,8 @@ class RoundsTreeLearner:
         self.config = config
         self.device = torch.device(config.device_type)
         self.N = dataset.num_data
-        self.F = dataset.num_features
+        self.F = dataset.num_features                  # original features
+        self.C = dataset.num_store_columns             # store columns
         self.B = padded_bin_count(dataset.max_num_bin)
         self.sparse = dataset.sparse is not None
         if self.sparse:
@@ -400,6 +414,17 @@ class RoundsTreeLearner:
             dataset.num_bins.astype(np.int64), device=self.device)
         self.is_cat_dev = torch.as_tensor(dataset.is_categorical,
                                           device=self.device)
+        # bundled: histograms unbundle to the original features before
+        # split search.  The gather tables' zero sentinel sits past the
+        # store's C columns, the columns of every histogram here (the
+        # port pads no store column)
+        ft = dataset.bundle_feat_table()
+        self.ftbl = (None if ft is None
+                     else torch.as_tensor(ft, device=self.device))
+        unb = dataset.unbundle_tables(self.B, self.C)
+        self.unb = (None if unb is None else
+                    (torch.as_tensor(unb[0], device=self.device),
+                     torch.as_tensor(unb[1], device=self.device)))
         self._base_fmask = np.ones(self.F, bool)
         self._fmask_dev = torch.as_tensor(self._base_fmask,
                                           device=self.device)
@@ -408,7 +433,7 @@ class RoundsTreeLearner:
         cfg = config
         self.split_kw = make_split_kw(cfg)
         self._feat_rng = np.random.RandomState(cfg.feature_fraction_seed)
-        self.cache_parent_hist = use_parent_hist_cache(cfg, self.F, self.B,
+        self.cache_parent_hist = use_parent_hist_cache(cfg, self.C, self.B,
                                                        self.device)
         if self.sparse:
             # masked by default; a pinned gathered feed runs on the CPU
@@ -423,7 +448,7 @@ class RoundsTreeLearner:
             self.hist_rows = "masked" if hr == "auto" else hr
         else:
             self.hist_rows = resolve_hist_rows(
-                cfg, device=self.device, num_columns=self.F,
+                cfg, device=self.device, num_columns=self.C,
                 np_rows=max(1, self.N), bins_itemsize=bins_itemsize)
         self.last_host_syncs = 0
         self._kw = dict(num_leaves=int(cfg.num_leaves),
@@ -434,6 +459,7 @@ class RoundsTreeLearner:
                             cfg.min_sum_hessian_in_leaf),
                         cache_parent_hist=self.cache_parent_hist,
                         hist_rows=self.hist_rows, sparse=self.sparse,
+                        ftbl=self.ftbl, unb=self.unb,
                         input_dtype=getattr(cfg, "histogram_dtype",
                                             "float32"))
 

@@ -1,12 +1,23 @@
-"""K-leaf histograms of the batched-rounds learner (kernels K1, K2, K7, K8).
+"""Histograms: the gather-fed dense half (kernels K5, K6) and the K-leaf
+histograms of the batched-rounds learner (kernels K1, K2, K7, K8).
 
-Port of the rounds learner's part of lightgbm_tpu/ops/histogram.py:
-`_quantize_gh`, `hist_multileaf_masked`, `gather_segments` and
-`hist_multileaf_gathered` over the dense store, and the sparse half
-(`hist_sparse_xla`, `hist_sparse_multileaf`, `hist_sparse_gathered` and
-their helpers) over the CSR/ELL store.  Output layout is the JAX one:
-[K, F, 3, B] float32, channels (sum_grad, sum_hess, count) per slot,
-feature (store column) and bin.
+Port of lightgbm_tpu/ops/histogram.py.  The gather-fed half:
+`hist_xla` (the plain version of K5), `hist_pallas` (K5's wrapper),
+`histogram_from_indices` (one leaf's histogram over an index vector, the
+exact leaf-wise learner's feed), `hist_multileaf_xla` (the plain version
+of K6), `hist_pallas_multileaf` / `hist_multileaf` (K6's wrappers) and
+`_coerce_dtype`.  Their output is [F, 3, B] (or [F, M, B]) float32.  The
+JAX functions took `backend=` and `interpret=`; here, as in every
+wrapper of the port, the tensor's device decides: a CUDA tensor launches
+the kernel of csrc/hist_gathered.cu, a CPU tensor takes the plain
+version.
+
+The rounds learner's part: `_quantize_gh`, `hist_multileaf_masked`,
+`gather_segments` and `hist_multileaf_gathered` over the dense store,
+and the sparse half (`hist_sparse_xla`, `hist_sparse_multileaf`,
+`hist_sparse_gathered` and their helpers) over the CSR/ELL store.
+Output layout is the JAX one: [K, F, 3, B] float32, channels (sum_grad,
+sum_hess, count) per slot, feature (store column) and bin.
 
 The TPU kernels built one-hot matrices and contracted them on the MXU;
 the CUDA kernels (csrc/histogram.cu) scatter each row into a per-block
@@ -44,6 +55,205 @@ INT8_MAX_ROWS = 16_000_000
 
 # f32 reciprocal of the int8 range (see _quantize_gh)
 _INV127 = float(np.float32(1.0 / 127.0))
+
+# whether _coerce_dtype has warned (it warns once per process)
+_INT8_COERCED = False
+
+
+# ----------------------------------------------------------------------------
+# Gather-fed dense histograms (kernels K5 and K6)
+# ----------------------------------------------------------------------------
+
+def _coerce_dtype(input_dtype: str) -> str:
+    """int8 means caller-side gradient quantization, which only the
+    rounds learner's histograms implement; a bare int8 cast would
+    truncate real-valued gradients, so the gather-fed histograms run
+    float32 instead and say so, once."""
+    global _INT8_COERCED
+    if input_dtype == "int8":
+        if not _INT8_COERCED:
+            log.warning("histogram_dtype=int8 is only supported by the "
+                        "batched-rounds learner; using float32 here")
+            _INT8_COERCED = True
+        return "float32"
+    return input_dtype
+
+
+def _operands(vals: torch.Tensor, input_dtype: str) -> torch.Tensor:
+    """float32 operands, rounded to bfloat16 first in bfloat16 mode (the
+    JAX functions' `vals.astype(input_dtype)`)."""
+    vals = vals.to(torch.float32)
+    if input_dtype == "bfloat16":
+        vals = vals.to(torch.bfloat16).to(torch.float32)
+    return vals
+
+
+def _rows_hist_plain(gb_t: torch.Tensor, vals: torch.Tensor,
+                     B: int) -> torch.Tensor:
+    """[F, M, B] float32 sums of vals [M, C] over the positions whose bin
+    gb_t [F, C] falls in each bin; bins outside [0, B) add nothing."""
+    F, C = gb_t.shape
+    M = vals.shape[0]
+    dev = gb_t.device
+    # out-of-range bins add into one extra cell that is sliced off
+    out = torch.zeros(F * M * B + 1, dtype=torch.float32, device=dev)
+    b = gb_t.long()
+    ok = ((b >= 0) & (b < B)).reshape(-1)
+    base = (torch.arange(F, device=dev)[:, None] * (M * B) + b).reshape(-1)
+    dump = torch.full((), F * M * B, device=dev)
+    for m in range(M):
+        out.index_add_(0, torch.where(ok, base + m * B, dump),
+                       vals[m][None, :].expand(F, C).reshape(-1))
+    return out[:F * M * B].view(F, M, B)
+
+
+def _gathered_cuda(bins: torch.Tensor, row_stride: int, feat_stride: int,
+                   F: int, idx: Optional[torch.Tensor], C: int,
+                   g: torch.Tensor, h: torch.Tensor,
+                   m: Optional[torch.Tensor], n_live: int, B: int,
+                   input_dtype: str) -> torch.Tensor:
+    """Kernel K5 (csrc/hist_gathered.cu): [F, 3, B] float32 sums of
+    (g[r], h[r], m[r] or r < n_live) over the rows r of the C positions
+    (r = idx[p], or p without an index), bin of (r, f) at
+    bins[r * row_stride + f * feat_stride]."""
+    if bins.dtype != torch.int32:
+        raise TypeError("gathered histogram kernel takes int32 bins")
+    if idx is not None and (idx.dtype != torch.int32 or idx.shape != (C,)):
+        raise TypeError("gathered histogram kernel takes int32 idx [C]")
+    for t in (g, h) + ((m,) if m is not None else ()):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError("gathered histogram kernel takes contiguous "
+                            "float32 value rows")
+    out = torch.zeros((F, 3, B), dtype=torch.float32, device=bins.device)
+    if C == 0 or F == 0:
+        return out
+    kernels.call("hist_gathered", bins.data_ptr(), row_stride, feat_stride,
+                 F, kernels.ptr(idx), C, g.data_ptr(), h.data_ptr(),
+                 kernels.ptr(m), n_live, B, int(input_dtype == "bfloat16"),
+                 out.data_ptr())
+    kernels.LAUNCHES["hist_gathered"] += 1
+    return out
+
+
+def hist_xla(gb: torch.Tensor, vals: torch.Tensor, *, num_bins_padded: int,
+             input_dtype: str = "float32") -> torch.Tensor:
+    """The plain version of kernel K5, on any device: gb [C, F] integer
+    bins of the gathered rows (sentinel rows carry zero vals), vals
+    [3, C] (grad, hess, count mask) -> [F, 3, B] float32."""
+    input_dtype = _coerce_dtype(input_dtype)
+    return _rows_hist_plain(gb.t(), _operands(vals[:3], input_dtype),
+                            num_bins_padded)
+
+
+def hist_pallas(gb_t: torch.Tensor, vals8: torch.Tensor, *,
+                num_bins_padded: int,
+                input_dtype: str = "bfloat16") -> torch.Tensor:
+    """One-leaf histogram of gathered rows: gb_t [F, C] int32, vals8
+    [>=3, C] float32 (grad, hess, mask, padding rows) -> [F, 3, B]
+    float32.  A CUDA tensor launches kernel K5, reading gb_t in place; a
+    CPU tensor takes the plain version (`hist_xla`)."""
+    input_dtype = _coerce_dtype(input_dtype)
+    if not gb_t.is_cuda:
+        return hist_xla(gb_t.t(), vals8[:3], num_bins_padded=num_bins_padded,
+                        input_dtype=input_dtype)
+    F, C = gb_t.shape
+    gb_t = gb_t.contiguous()
+    v = vals8[:3].to(torch.float32).contiguous()
+    return _gathered_cuda(gb_t, 1, C, F, None, C, v[0], v[1], v[2], C,
+                          num_bins_padded, input_dtype)
+
+
+def _from_indices_plain(bins_t: torch.Tensor, grad_pad: torch.Tensor,
+                        hess_pad: torch.Tensor, idx: torch.Tensor, B: int,
+                        input_dtype: str = "float32") -> torch.Tensor:
+    """The plain version of histogram_from_indices on any device: gather
+    the rows, then `hist_xla`'s sums."""
+    N = grad_pad.shape[0] - 1
+    il = idx.long()
+    vals = torch.stack([grad_pad[il], hess_pad[il],
+                        (idx < N).to(torch.float32)])
+    return _rows_hist_plain(bins_t[il].t(), _operands(vals, input_dtype), B)
+
+
+def _from_indices_cuda(bins_t: torch.Tensor, grad_pad: torch.Tensor,
+                       hess_pad: torch.Tensor, idx: torch.Tensor, B: int,
+                       input_dtype: str = "float32") -> torch.Tensor:
+    """Kernel K5 with histogram_from_indices' contract: each position's
+    row bins are read through idx in the [N+1, F] store."""
+    N = grad_pad.shape[0] - 1
+    F = bins_t.shape[1]
+    return _gathered_cuda(bins_t.contiguous(), F, 1, F,
+                          idx.to(torch.int32).contiguous(), idx.shape[0],
+                          grad_pad.contiguous(), hess_pad.contiguous(), None,
+                          N, B, input_dtype)
+
+
+def histogram_from_indices(bins_t: torch.Tensor, grad_pad: torch.Tensor,
+                           hess_pad: torch.Tensor, idx: torch.Tensor, *,
+                           num_bins_padded: int,
+                           input_dtype: str = "float32") -> torch.Tensor:
+    """hist [F, 3, B] float32 over the rows named by `idx`.
+
+    bins_t [N+1, F] int32 bins, row N the sentinel (any value);
+    grad_pad, hess_pad [N+1] float32 with [N] == 0; idx [C] int32 row ids
+    padded with N.  Padded positions add nothing (zero gradient, mask
+    idx < N).  A CUDA tensor launches kernel K5, which reads each row's
+    bins through idx (the gathered [C, F] copy is never built); a CPU
+    tensor gathers and takes the plain version (`hist_xla`'s sums)."""
+    input_dtype = _coerce_dtype(input_dtype)
+    fn = _from_indices_cuda if bins_t.is_cuda else _from_indices_plain
+    return fn(bins_t, grad_pad, hess_pad, idx, num_bins_padded, input_dtype)
+
+
+def hist_multileaf_xla(gb_t: torch.Tensor, vals: torch.Tensor, *,
+                       num_bins_padded: int,
+                       input_dtype: str = "float32") -> torch.Tensor:
+    """The plain version of kernel K6, on any device: gb_t [F, C] int
+    bins, vals [M, C] float32 -> [F, M, B] float32."""
+    input_dtype = _coerce_dtype(input_dtype)
+    return _rows_hist_plain(gb_t, _operands(vals, input_dtype),
+                            num_bins_padded)
+
+
+def _multirow_cuda(gb_t: torch.Tensor, vals: torch.Tensor, B: int,
+                   input_dtype: str) -> torch.Tensor:
+    """Kernel K6 (csrc/hist_gathered.cu) with hist_multileaf_xla's
+    contract."""
+    F, C = gb_t.shape
+    M = vals.shape[0]
+    if vals.shape[1] != C:
+        raise ValueError("vals must be [M, C] over gb_t's C positions")
+    gb_t = gb_t.to(torch.int32).contiguous()
+    vals = vals.to(torch.float32).contiguous()
+    out = torch.zeros((F, M, B), dtype=torch.float32, device=gb_t.device)
+    if C == 0 or F == 0 or M == 0:
+        return out
+    kernels.call("hist_multirow", gb_t.data_ptr(), F, C, vals.data_ptr(), M,
+                 B, int(input_dtype == "bfloat16"), out.data_ptr())
+    kernels.LAUNCHES["hist_multirow"] += 1
+    return out
+
+
+def hist_pallas_multileaf(gb_t: torch.Tensor, vals: torch.Tensor, *,
+                          num_bins_padded: int,
+                          input_dtype: str = "bfloat16") -> torch.Tensor:
+    """Histogram of M value rows at once: gb_t [F, C] int, vals [M, C]
+    float32 (3 rows per leaf for K leaves) -> [F, M, B] float32.  A CUDA
+    tensor launches kernel K6; a CPU tensor takes the plain version."""
+    input_dtype = _coerce_dtype(input_dtype)
+    if not gb_t.is_cuda:
+        return hist_multileaf_xla(gb_t, vals,
+                                  num_bins_padded=num_bins_padded,
+                                  input_dtype=input_dtype)
+    return _multirow_cuda(gb_t, vals, num_bins_padded, input_dtype)
+
+
+def hist_multileaf(gb_t: torch.Tensor, vals: torch.Tensor, *,
+                   num_bins_padded: int,
+                   input_dtype: str = "float32") -> torch.Tensor:
+    """hist_pallas_multileaf with the float32 default of the JAX entry."""
+    return hist_pallas_multileaf(gb_t, vals, num_bins_padded=num_bins_padded,
+                                 input_dtype=input_dtype)
 
 
 def _quantize_gh(gh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,

@@ -14,6 +14,15 @@ scipy CSR matrix.  `CTR_PARAMS` is the on-chip CTR configuration of the
 JAX package's chip queue (the bench_ctr stage: lambdarank over the
 sparse CSR/ELL store, 31 leaves, 63 bins, EFB off); chip_smoke.py and
 the sparse tests run it.
+
+`synth_onehot` is the JAX package's one-hot EFB shape (bench.py
+`synth_onehot`, BENCH_WORKLOAD=onehot): 40 categorical groups one-hot
+encoded into 6 columns each (240 features, exactly one non-zero per
+group per row, so bundling packs each group into one store column) with
+a fixed (seed 0) logistic labelling.  `ONEHOT_PARAMS` is the training
+configuration bench.py runs on it (bench.py:278-293: binary, AUC, 255
+leaves, 255 bins, EFB on, the dense store pinned); chip_smoke.py,
+trace_main.py and the bundle tests run it.
 """
 from __future__ import annotations
 
@@ -33,6 +42,13 @@ CTR_PARAMS = {"objective": "lambdarank", "metric": "ndcg",
               "sparse_store": "csr", "enable_bundle": False,
               "bin_construct_sample_cnt": 20_000,
               "histogram_dtype": "float32", "verbose": -1}
+
+
+# bench.py with BENCH_WORKLOAD=onehot: the north-star parameters with
+# EFB on and the dense store pinned (the exact learner ignores the int8
+# histogram dtype and histograms in float32)
+ONEHOT_PARAMS = dict(NORTH_STAR_PARAMS, enable_bundle=True,
+                     sparse_store="dense")
 
 
 def synth_higgs(n: int, f: int = 28, seed: int = 42):
@@ -67,3 +83,18 @@ def synth_ctr(n: int, features: int = 50_000, density: float = 0.01,
     y = (logits + rng.logistic(size=n) * 0.3 > 0).astype(np.float64)
     group = np.full(n // query, query, np.int64)
     return X, y, group
+
+
+def synth_onehot(n: int, groups: int = 40, card: int = 6, seed: int = 42):
+    """`groups` categorical variables of `card` levels each, one-hot
+    encoded into groups * card float64 columns (one non-zero per group
+    per row: 100% exclusive), and 0/1 labels from a fixed (seed 0)
+    linear function plus seeded logistic noise.  Returns (X, y)."""
+    w = np.random.RandomState(0).randn(groups * card)
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, card, size=(n, groups))
+    X = np.zeros((n, groups * card), np.float64)
+    for g in range(groups):
+        X[np.arange(n), g * card + codes[:, g]] = 1.0
+    y = (X @ w + rng.logistic(size=n) * 0.5 > 0).astype(np.float64)
+    return X, y

@@ -1,14 +1,17 @@
 """Where the time of a boosting iteration goes, on the GPU.
 
-    python -m lightgbm_tpu_torch.trace_main [--workload higgs|ctr]
+    python -m lightgbm_tpu_torch.trace_main [--workload higgs|ctr|onehot]
         [--rows N] [--trace PATH]
 
 Trains a configuration that chip_smoke.py runs — the north-star one
 (binary, `synth_higgs(N)` x 28, 255 leaves, max_bin 255, int8
-histograms, a valid set of N/10 rows scored with AUC each iteration), or
+histograms, a valid set of N/10 rows scored with AUC each iteration),
 with `--workload ctr` the CTR one (lambdarank on `synth_ctr(N)` x 50,000
 over the sparse store, CTR_PARAMS, a 4,080-row valid set scored with
-NDCG) — for 2 warm-up iterations, then traces 3 more with torch.profiler
+NDCG), or with `--workload onehot` the EFB one (`synth_onehot(N)`, 240
+one-hot features bundled into 40 store columns, ONEHOT_PARAMS, the exact
+leaf-wise learner, a valid set of N/10 rows scored with AUC) — for 2
+warm-up iterations, then traces 3 more with torch.profiler
 (CPU and CUDA activities).  Prints one JSON line: wall seconds per
 traced iteration, device busy seconds (union of the kernel intervals)
 and the idle share, kernel launches per iteration, the device time of
@@ -31,7 +34,9 @@ WARMUP = 2
 OWN_KERNELS = {"hist_kernel": "hist_masked (K1/K2)",
                "lookup_kernel": "table_lookup (K3)",
                "partition_kernel": "partition_rows (K4)",
-               "hist_sparse_kernel": "hist_sparse (K7/K8)"}
+               "hist_sparse_kernel": "hist_sparse (K7/K8)",
+               "hist_gathered_kernel": "hist_gathered (K5)",
+               "hist_multirow_kernel": "hist_multirow (K6)"}
 
 
 def _union_us(intervals) -> float:
@@ -48,10 +53,11 @@ def _union_us(intervals) -> float:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=("higgs", "ctr"),
+    ap.add_argument("--workload", choices=("higgs", "ctr", "onehot"),
                     default="higgs")
     ap.add_argument("--rows", type=int, default=0,
-                    help="training rows (default 2M higgs, 500k ctr)")
+                    help="training rows (default 2M higgs and onehot, "
+                         "500k ctr)")
     ap.add_argument("--trace", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -71,6 +77,13 @@ def main(argv=None) -> None:
         ds = lt.Dataset(X, y, group=g, params=params)
         vs = lt.Dataset(Xv.toarray(), yv, group=gv, reference=ds,
                         params=params)
+    elif args.workload == "onehot":
+        args.rows = args.rows or 2_000_000
+        params = dict(synth.ONEHOT_PARAMS, tree_growth="exact")
+        X, y = synth.synth_onehot(args.rows)
+        Xv, yv = synth.synth_onehot(args.rows // 10, seed=7)
+        ds = lt.Dataset(X, y, params=params)
+        vs = lt.Dataset(Xv, yv, reference=ds, params=params)
     else:
         args.rows = args.rows or 2_000_000
         params = dict(synth.NORTH_STAR_PARAMS)

@@ -16,6 +16,7 @@ import sys
 import lightgbm_tpu_torch
 import lightgbm_tpu_torch.engine, lightgbm_tpu_torch.convert
 import lightgbm_tpu_torch.learner.rounds, lightgbm_tpu_torch.kernels
+import lightgbm_tpu_torch.learner.serial
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "lightgbm_tpu" or m.startswith("lightgbm_tpu."))
@@ -59,17 +60,15 @@ def test_device_type_validated():
 
 
 def test_unported_paths_raise_not_implemented():
-    from lightgbm_tpu_torch.config import config_from_params
-    from lightgbm_tpu_torch.dataset import Dataset
     rng = np.random.RandomState(0)
     X = rng.randn(300, 4)
-    # the exact learner is still unported (the sparse store is ported)
+    y = (X[:, 0] > 0) * 1.0
     import lightgbm_tpu_torch as lt
+    # multi-device learners and the L1 objective are still unported (the
+    # exact learner and EFB bundles are ported)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.train({"tree_growth": "exact", "device_type": "cpu",
-                  "verbose": -1}, lt.Dataset(X, (X[:, 0] > 0) * 1.0), 1)
-    # one-hot columns are mutually exclusive: EFB bundles them
-    onehot = np.eye(4)[rng.randint(0, 4, size=300)]
+        lt.train({"tree_learner": "data", "device_type": "cpu",
+                  "verbose": -1}, lt.Dataset(X, y), 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Dataset(np.hstack([X, onehot]), None,
-                config_from_params({"device_type": "cpu"}))
+        lt.train({"objective": "regression_l1", "device_type": "cpu",
+                  "verbose": -1}, lt.Dataset(X, X[:, 1]), 1)

@@ -20,7 +20,9 @@ version reorder, so a stored cell agrees within n * 2^-23 * sum|x| of
 its own n entries; a zero bin (slot total minus the column's stored
 sums, each reordered on both sides) within n * 2^-22 * sum|x| of the
 slot's n rows.  With dyadic gradients every partial sum is exact and K8
-is bitwise.
+is bitwise.  K5 (gathered-row histogram) and K6 (M-row histogram) add
+with float atomics too and are held to the same n * 2^-23 * sum|x| per
+cell, bitwise on dyadic values, their count channel always bitwise.
 """
 import numpy as np
 import pytest
@@ -215,3 +217,117 @@ def test_cuda_tensor_never_takes_the_plain_version(dev, monkeypatch):
     ids = torch.zeros(8, dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError, match="launch refused"):
         tl.table_lookup(t, ids)
+
+
+def _gathered_case(N, F, nb, cap, live, seed, dyadic):
+    rng = np.random.RandomState(seed)
+    bt = np.concatenate([rng.randint(0, nb, size=(N, F)),
+                         np.zeros((1, F))]).astype(np.int32)
+    g, h = rng.randn(N), rng.rand(N)
+    if dyadic:
+        g, h = np.round(g * 64) / 64, np.round(h * 64) / 256
+    g = np.concatenate([g, [0.0]]).astype(np.float32)
+    h = np.concatenate([h, [0.0]]).astype(np.float32)
+    idx = np.full(cap, N, np.int32)
+    idx[:live] = np.sort(rng.choice(N, live, replace=False))
+    return [torch.as_tensor(x) for x in (bt, g, h, idx)]
+
+
+@pytest.mark.parametrize("N,F,nb,B,cap,live,dyadic", [
+    (100_003, 40, 7, 128, 131_072, 100_003, True),    # onehot store, root
+    (100_003, 40, 7, 128, 65_536, 60_000, False),     # a mid-tree leaf
+    (100_003, 28, 255, 256, 131_072, 99_000, False),  # north-star store
+    (5_000, 300, 250, 256, 4_096, 3_000, False),      # feature tiles
+])
+def test_hist_from_indices_kernel_vs_plain(dev, N, F, nb, B, cap, live,
+                                            dyadic):
+    args = _gathered_case(N, F, nb, cap, live, N + F, dyadic)
+    ref = th.histogram_from_indices(*args, num_bins_padded=B)
+    before = kernels.LAUNCHES["hist_gathered"]
+    out = th.histogram_from_indices(*[a.to(dev) for a in args],
+                                    num_bins_padded=B).cpu()
+    assert kernels.LAUNCHES["hist_gathered"] == before + 1
+    np.testing.assert_array_equal(out[:, 2].numpy(), ref[:, 2].numpy())
+    if dyadic:
+        np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    else:
+        bt, g, h, idx = args
+        s = th.histogram_from_indices(bt, g.abs(), h, idx,
+                                      num_bins_padded=B).double()
+        tol = s[:, 2:3] * 2.0 ** -23 * s
+        assert bool(((out.double() - ref.double()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("input_dtype", ["float32", "bfloat16"])
+def test_hist_pallas_kernel_vs_plain(dev, input_dtype):
+    rng = np.random.RandomState(9)
+    F, C = 11, 50_003
+    gb = torch.as_tensor(rng.randint(0, 250, size=(F, C)).astype(np.int32))
+    v8 = np.zeros((8, C), np.float32)
+    v8[0] = np.round(rng.randn(C) * 64) / 64
+    v8[1] = np.round(rng.rand(C) * 64) / 256
+    v8[2] = rng.rand(C) < 0.8
+    v8 = torch.as_tensor(v8)
+    ref = th.hist_pallas(gb, v8, num_bins_padded=256,
+                         input_dtype=input_dtype)
+    out = th.hist_pallas(gb.to(dev), v8.to(dev), num_bins_padded=256,
+                         input_dtype=input_dtype).cpu()
+    np.testing.assert_array_equal(out.numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("M,F,C,B,dyadic", [(128, 28, 200_003, 256, True),
+                                            (24, 5, 30_001, 128, False),
+                                            (128, 3, 20_000, 512, True)])
+def test_hist_multirow_kernel_vs_plain(dev, M, F, C, B, dyadic):
+    rng = np.random.RandomState(M + F)
+    gb = torch.as_tensor(rng.randint(0, B, size=(F, C)).astype(np.int32))
+    vals = rng.randn(M, C)
+    if dyadic:
+        vals = np.round(vals * 16) / 16
+    vals = torch.as_tensor(vals.astype(np.float32))
+    ref = th.hist_multileaf(gb, vals, num_bins_padded=B)
+    before = kernels.LAUNCHES["hist_multirow"]
+    out = th.hist_multileaf(gb.to(dev), vals.to(dev),
+                            num_bins_padded=B).cpu()
+    assert kernels.LAUNCHES["hist_multirow"] == before + 1
+    if dyadic:
+        np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    else:
+        s = th.hist_multileaf(gb, vals.abs(), num_bins_padded=B).double()
+        n = th.hist_multileaf(gb, torch.ones(1, C),
+                              num_bins_padded=B).double()
+        tol = n * 2.0 ** -23 * s
+        assert bool(((out.double() - ref.double()).abs() <= tol).all())
+
+
+def test_exact_learner_on_the_card_matches_the_cpu(dev):
+    """One tree of the exact learner over a bundled store, card and CPU:
+    dyadic gradients make every histogram exact, so the trees and leaf
+    ids agree bitwise."""
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.dataset import Dataset
+    from lightgbm_tpu_torch.learner.serial import SerialTreeLearner
+    from lightgbm_tpu_torch.synth import synth_onehot
+    X, y = synth_onehot(20_000)
+    rng = np.random.RandomState(3)
+    g = (np.round(rng.randn(20_000) * 16) / 16).astype(np.float32)
+    h = (np.round(rng.rand(20_000) * 64) / 256).astype(np.float32)
+    out = {}
+    for d in ("cpu", "cuda"):
+        cfg = config_from_params({"device_type": d, "num_leaves": 63,
+                                  "min_sum_hessian_in_leaf": 1.0,
+                                  "tree_growth": "exact"})
+        ds = Dataset(X, y, cfg)
+        assert ds.num_store_columns == 40
+        tree, lid = SerialTreeLearner(ds, cfg).train(
+            torch.as_tensor(g, device=d), torch.as_tensor(h, device=d))
+        out[d] = (tree, lid.cpu().numpy())
+    (tc, lc), (tg, lg) = out["cpu"], out["cuda"]
+    n = tc.num_leaves
+    assert tg.num_leaves == n
+    np.testing.assert_array_equal(tg.split_feature[:n - 1],
+                                  tc.split_feature[:n - 1])
+    np.testing.assert_array_equal(tg.threshold_in_bin[:n - 1],
+                                  tc.threshold_in_bin[:n - 1])
+    np.testing.assert_array_equal(tg.leaf_value[:n], tc.leaf_value[:n])
+    np.testing.assert_array_equal(lg, lc)
