@@ -15,7 +15,9 @@ Phases (any failure exits non-zero and prints no result line):
              with the score add, and one level of the valid-set walk,
              bitwise), K4 (row partition, bitwise); median times of
              kernel, plain version and, where one exists, a single
-             PyTorch call computing the same function (library_ms).  The
+             PyTorch call computing the same function (library_ms; K3 has
+             none — one index_select, which neither adds into the score
+             nor zeroes out-of-range ids, is printed as a note).  The
              {"kernels"} line reports the gathered pass for K1/K2 and the
              score add for K3; the other shapes are printed on their own
              lines.
@@ -34,21 +36,30 @@ Phases (any failure exits non-zero and prints no result line):
              lightgbm_tpu_torch.Dataset with CTR_PARAMS (sparse_store=csr):
              host seconds of the binning and of the ELL store build; a
              valid set synth_ctr(4_080, seed=7) given as a dense ndarray,
-             sparsified against its reference.
-5. sparse kernels — K7 (int8) and K8 (float32) stored-entry histograms
-             against their plain version on the ctr store itself (N=500k
-             rows, its ELL width R, K=31 slots, Cp=its columns, B=128),
-             K7 and K8 on dyadic gradients bitwise, K8 on real ones within
-             n * 2^-23 * sum|x| in every cell (n float additions in any
-             order lie within n * 2^-24 * sum|x| of the exact sum, and
-             the plain version's index_add_ reorders too), K7 also through
-             the whole pass with the zero bins; times of kernel, plain version
-             and one index_add_ over the flattened (slot, column,
-             channel, bin) indices of the stored entries.  Then the
-             learner's own passes: one tree per dtype on the ctr store
-             with the kernel's wrapper recording each pass's inputs, and
-             each recorded pass checked (as above) and timed, with its
-             bound.
+             sparsified against its reference; then the column-sorted
+             entry streams that K7/K8 read, built on the card from the ELL
+             arrays as the rounds learner builds them: seconds, bytes and
+             the build's peak device memory.
+5. sparse kernels — K7 (int8) and K8 (float32) against their plain
+             version (hist_streams_plain: index_add_ of the stream entries,
+             the zero bins, the dequantize) on the ctr store itself (N=500k
+             rows, K=31 slots, Cp=its columns, B=128), both given the same
+             slot totals: K7 bitwise, K8 bitwise on dyadic gradients and
+             on real ones within n * 2^-23 * sum|x| in every cell (n f32
+             additions in any order lie within n * 2^-24 * sum|x| of the
+             exact sum, and the plain version's index_add_ reorders too; a
+             stored cell counts its entries, a zero bin the slot's rows);
+             K7 also through the whole hist_sparse_multileaf pass against
+             hist_sparse_xla over the ELL arrays, bitwise; times of
+             kernel, plain version and one index_add_ over the flattened
+             (slot, column, channel, bin) indices of the stored entries.
+             Then K7 at K=84, B=256 the same way (alone and through the
+             whole pass, bitwise), once at the module's shared-memory
+             budget and block length and once with slot tiles and
+             long-column chunks forced.  Then the learner's own passes:
+             one tree per dtype on the ctr store with the kernel's wrapper
+             recording each pass's inputs, and each recorded pass checked
+             (as above) and timed, with its bound.
 6. ctr main — lightgbm_tpu_torch.train with CTR_PARAMS on the phase-4
              datasets, float32 then int8 histograms (2 warm-up and 10
              timed iterations each, timed as in phase 3), NDCG@1..5 on
@@ -207,24 +218,34 @@ def sparse_bound(torch, cols, srow, vals, K: int, Cp: int, B: int):
     return bound_ms(nbytes, 3.0 * entries) + (n_slotted, entries)
 
 
-def sparse_check(torch, H, name, cols, binsv, srow, v, K, Cp, B,
-                 exact: bool) -> float:
-    """K7/K8 against their plain version on one pass's inputs: bitwise
-    when `exact`, else every cell within n * 2^-23 * sum|x| (n f32
-    additions in any order lie within n * 2^-24 * sum|x| of the exact
-    sum, and the plain version's index_add_ reorders too).  Returns the
-    max |diff|."""
-    got = H._sparse_hist_cuda(cols, binsv, srow, v, K, Cp, B)
-    ref = H._sparse_hist_plain(cols, binsv, srow, v, K, Cp, B)
+def sparse_check(torch, H, SS, name, st, zb, srow, v, tot, scale, K, Cp,
+                 B, exact: bool) -> float:
+    """K7/K8 against their plain version on one pass's inputs (the same
+    slot totals `tot` for both): bitwise when `exact`, else every cell
+    within n * 2^-23 * sum|x| (n f32 additions in any order lie within
+    n * 2^-24 * sum|x| of the exact sum, and the plain version's
+    index_add_ reorders too), where a stored cell counts its own entries
+    and a zero bin (slot total minus the column's stored sums) the slot's
+    rows.  Returns the max |diff|."""
+    got = SS._hist_streams_cuda(st, zb, srow, v, tot, scale, K, Cp, B)
+    ref = SS.hist_streams_plain(st, zb, srow, v, tot, scale, K, Cp, B)
     torch.cuda.synchronize()
-    err = (got.double() - ref.double()).abs().max().item()
+    # in slices of a few slots: a K=84, B=256 pass is 12.9 GB in float32
+    err = max((got[k:k + 8].double() - ref[k:k + 8].double()).abs().max()
+              .item() for k in range(0, K, 8))
     if exact and not torch.equal(got, ref):
         fail(f"{name} differs from its plain version: max |diff| {err}")
     if not exact:
         absv = torch.stack([v[0].abs(), v[1].abs(), v[2]])
-        cnt = H._sparse_hist_plain(cols, binsv, srow, absv, K, Cp, B)
-        n = cnt[:, :, 2:3, :].expand(-1, -1, 3, -1)
-        tol = n.double() * 2.0 ** -23 * cnt.double()
+        ta = H._slot_totals(srow, absv, K)
+        s = SS.hist_streams_plain(st, torch.full_like(zb, -1), srow, absv,
+                                  ta, None, K, Cp, B).double()
+        tol = s[:, :, 2:3, :] * 2.0 ** -23 * s
+        del s
+        ta = ta.double()
+        ok = (zb >= 0).nonzero()[:, 0]
+        tol[:, ok, :, zb[ok].long().clamp(max=B - 1)] += (
+            ta[:, 2:3] * 2.0 ** -23 * ta)[None]
         bad = ((got.double() - ref.double()).abs() > tol).sum().item()
         if bad:
             fail(f"{name}: {bad} cells beyond n*2^-23*sum|x| (max |diff| "
@@ -357,17 +378,21 @@ def phase_kernels(torch, kernels, H, LK, P):
         fail(f"table_lookup differs from its plain version: {err}")
     ms = time_ms(torch, lambda: LK._lookup_cuda(table, ids, score), 50)
     plain = time_ms(torch, lambda: LK._lookup_plain(table, ids, score), 10)
+    # no single PyTorch call adds into the score and zeroes out-of-range
+    # ids, so K3 has no library time; one index_select over in-range ids
+    # (neither) is printed as a note
     ids_in = ids.clamp(0, 254).long()
-    lib = time_ms(torch, lambda: torch.index_select(table[0], 0, ids_in), 50)
+    sel = time_ms(torch, lambda: torch.index_select(table[0], 0, ids_in), 50)
     bms, by = bound_ms(Nr * 4 + 255 * 4 + 2 * Nr * 4, Nr)
     rows.append(dict(name="table_lookup", route="cuda",
                      source="lightgbm_tpu_torch/csrc/lookup.cu",
                      replaces="lightgbm_tpu/ops/lookup.py:23",
                      max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                     bound_by=by, library_ms=lib))
+                     bound_by=by, library_ms=None))
     print(f"[kernels] table_lookup (fused add): T=1 S=255 N={Nr} "
           f"max_abs_err={err} ms={ms:.4f} plain_ms={plain:.4f} "
-          f"library_ms={lib:.4f} bound_ms={bms:.4f} ({by})", flush=True)
+          f"index_select_ms={sel:.4f} bound_ms={bms:.4f} ({by})",
+          flush=True)
 
     # ---- K3: one level of the valid-set walk, T=5 node fields, S=254
     # nodes, no addend ------------------------------------------------------
@@ -384,11 +409,12 @@ def phase_kernels(torch, kernels, H, LK, P):
     wms = time_ms(torch, lambda: LK._lookup_cuda(wtab, wids), 50)
     wplain = time_ms(torch, lambda: LK._lookup_plain(wtab, wids), 10)
     wids_l = wids.long()
-    wlib = time_ms(torch, lambda: torch.index_select(wtab, 1, wids_l), 50)
+    wsel = time_ms(torch, lambda: torch.index_select(wtab, 1, wids_l), 50)
     wbms, wby = bound_ms(Nv * 4 + T * Sw * 4 + T * Nv * 4, T * Nv)
     print(f"[kernels] table_lookup (walk step): T={T} S={Sw} N={Nv} "
           f"max_abs_err={werr} ms={wms:.4f} plain_ms={wplain:.4f} "
-          f"library_ms={wlib:.4f} bound_ms={wbms:.4f} ({wby})", flush=True)
+          f"index_select_ms={wsel:.4f} bound_ms={wbms:.4f} ({wby})",
+          flush=True)
 
     # ---- K4: partition, S=256, N=2M, F=28 -------------------------------
     S = 256
@@ -443,78 +469,113 @@ def phase_ctr_setup(lt, rows):
     sp = ds._inner.sparse
     if sp is None or vs._inner.sparse is None:
         fail("the ctr datasets did not build the sparse store")
+    # the column-sorted entry streams K7/K8 read, built on the card from
+    # the ELL arrays as the rounds learner builds them
+    from lightgbm_tpu_torch.ops.sparse_streams import build_sparse_streams
+    import torch
+    cols, binsv, zb = ds._inner.sparse_triple(torch.device(GPU))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    streams = build_sparse_streams(cols, binsv, sp.num_columns)
+    torch.cuda.synchronize()
+    streams_s = time.perf_counter() - t0
     st = dict(rows=len(y), features=CTR_FEATURES,
               store_columns=sp.num_columns, nnz=sp.nnz,
               ell_width=sp.nnz_capacity, synth_s=synth_s,
               setup_binning_s=ds._inner.setup_seconds["binning"],
               setup_store_s=ds._inner.setup_seconds["store"],
-              setup_train_total_s=train_s, setup_valid_s=valid_s)
+              setup_train_total_s=train_s, setup_valid_s=valid_s,
+              streams_s=streams_s, streams_bytes=streams.nbytes,
+              streams_build_peak_bytes=torch.cuda.max_memory_allocated()
+              - base, streams_stored_bins=streams.num_bins,
+              streams_longest_column=int(
+                  (streams.col_off[1:] - streams.col_off[:-1]).max()))
     print(f"[ctr setup] {json.dumps(st)}", flush=True)
     del X
-    return params, ds, vs, Xv, st
+    return params, ds, vs, Xv, (cols, binsv, zb, streams)
 
 
-def phase_sparse_kernels(torch, H, ds):
-    """K7 / K8 against their plain version on the ctr store (phase 5)."""
+def sparse_pass_inputs(torch, H, N, K, seed):
+    """Leaf ids (some leaves unslotted), slots (two empty) and gradient
+    rows — dyadic and real — of one K-slot sparse pass over N rows."""
     dev = torch.device(GPU)
-    sp = ds._inner.sparse
-    N, R = sp.cols.shape
-    Cp, B, K = sp.num_columns, 128, CTR_SLOTS
-    rng = np.random.RandomState(11)
-    cols, binsv, zb = ds._inner.sparse_triple(dev)
-    lid_np = rng.randint(0, 40, N).astype(np.int32)     # 9 leaves unslotted
+    rng = np.random.RandomState(seed)
+    lid_np = rng.randint(0, K + 9, N).astype(np.int32)
     sl_np = np.arange(K, dtype=np.int32)
-    sl_np[[7, 19]] = -1                                 # empty slots
-    lid = torch.as_tensor(lid_np, device=dev)
-    sl = torch.as_tensor(sl_np, device=dev)
-    srow = H._slot_of_rows(lid, sl)
+    sl_np[[K // 4, (3 * K) // 5]] = -1                  # empty slots
     m = (rng.rand(N) > 0.05).astype(np.float32)
     dy = np.stack([np.round(rng.randn(N) * 8) / 8 * m,
                    np.round(rng.rand(N) * 16) / 32 * m, m])
     real = np.stack([rng.randn(N) * m, rng.rand(N) * m, m])
-    gh_dy = torch.as_tensor(dy.astype(np.float32), device=dev)
-    gh = torch.as_tensor(real.astype(np.float32), device=dev)
-    ghq, _, _ = H._quantize_gh(gh)
-    nnz = sp.nnz
-    rr = torch.nonzero((cols < Cp) & (srow < K)[:, None], as_tuple=True)
+    return (torch.as_tensor(lid_np, device=dev),
+            torch.as_tensor(sl_np, device=dev),
+            torch.as_tensor(dy.astype(np.float32), device=dev),
+            torch.as_tensor(real.astype(np.float32), device=dev))
+
+
+def whole_pass_check(torch, H, sp, lid, gh, sl, Cp, B) -> None:
+    """hist_sparse_multileaf(int8) — the pass the learner makes, zero bins
+    and the one dequantize included — against hist_sparse_xla over the
+    ELL arrays: bitwise, as both sum the same integers."""
+    full = H.hist_sparse_multileaf(sp, lid, gh, sl, num_columns_padded=Cp,
+                                   num_bins_padded=B, input_dtype="int8")
+    plain_full = H.hist_sparse_xla(sp[0], sp[1], sp[2], lid, gh, sl,
+                                   num_columns_padded=Cp,
+                                   num_bins_padded=B, input_dtype="int8")
+    if not torch.equal(full, plain_full):
+        fail(f"hist_sparse_multileaf (int8, K={sl.shape[0]}, B={B}) "
+             "differs from hist_sparse_xla on the card")
+    del full, plain_full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_sparse_kernels(torch, H, SS, ds, sp):
+    """K7 / K8 against their plain version on the ctr store (phase 5)."""
+    dev = torch.device(GPU)
+    cols, binsv, zb, streams = sp
+    N, R = cols.shape
+    Cp, B, K = streams.num_columns, 128, CTR_SLOTS
+    lid, sl, gh_dy, gh = sparse_pass_inputs(torch, H, N, K, 11)
+    nnz = ds._inner.sparse.nnz
     rows = []
-    for name, vals, replaces in (
-            ("hist_sparse_int8", ghq, "lightgbm_tpu/ops/histogram.py:1180"),
-            ("hist_sparse_f32", gh, "lightgbm_tpu/ops/histogram.py:1133")):
-        quant = name == "hist_sparse_int8"
-        checks = [(vals, True)] if quant else [(gh_dy, True), (vals, False)]
-        errs = [sparse_check(torch, H, name, cols, binsv, srow, v, K, Cp,
-                             B, exact) for v, exact in checks]
+    for name, input_dtype, replaces in (
+            ("hist_sparse_int8", "int8",
+             "lightgbm_tpu/ops/histogram.py:1180"),
+            ("hist_sparse_f32", "float32",
+             "lightgbm_tpu/ops/histogram.py:1133")):
+        quant = input_dtype == "int8"
+        srow, vals, tot, scale = H._sparse_pass(lid, gh, sl, input_dtype)
+        errs = [sparse_check(torch, H, SS, name, streams, zb, srow, vals,
+                             tot, scale, K, Cp, B, quant)]
+        if not quant:
+            dsrow, dvals, dtot, _ = H._sparse_pass(lid, gh_dy, sl,
+                                                   input_dtype)
+            errs.append(sparse_check(torch, H, SS, name, streams, zb, dsrow,
+                                     dvals, dtot, None, K, Cp, B, True))
+            del dsrow, dvals, dtot
         gc.collect()
         torch.cuda.empty_cache()
         if quant:
-            # the whole pass (zero bins, one dequantize) is integer-exact
-            full = H.hist_sparse_multileaf((cols, binsv, zb), lid, gh, sl,
-                                           num_columns_padded=Cp,
-                                           num_bins_padded=B,
-                                           input_dtype="int8")
-            plain_full = H.hist_sparse_xla(cols, binsv, zb, lid, gh, sl,
-                                           num_columns_padded=Cp,
-                                           num_bins_padded=B,
-                                           input_dtype="int8")
-            if not torch.equal(full, plain_full):
-                fail("hist_sparse_multileaf (int8) differs from "
-                     "hist_sparse_xla on the card")
-            del full, plain_full
-        ms = time_ms(torch, lambda: H._sparse_hist_cuda(
-            cols, binsv, srow, vals, K, Cp, B), 10)
-        plain = time_ms(torch, lambda: H._sparse_hist_plain(
-            cols, binsv, srow, vals, K, Cp, B), 2, 1)
+            whole_pass_check(torch, H, sp, lid, gh, sl, Cp, B)
+        ms = time_ms(torch, lambda: SS._hist_streams_cuda(
+            streams, zb, srow, vals, tot, scale, K, Cp, B), 10)
+        plain = time_ms(torch, lambda: SS.hist_streams_plain(
+            streams, zb, srow, vals, tot, scale, K, Cp, B), 2, 1)
         # one index_add_ over the stored entries' flattened (slot, col,
-        # channel, bin) indices, built beforehand
+        # channel, bin) indices, built beforehand: the stored-entry sums
+        # alone (no zero bins, no dequantize)
         acc = vals.dtype
-        r0, j0 = rr
+        r0, j0 = torch.nonzero((cols < Cp) & (srow < K)[:, None],
+                               as_tuple=True)
         base = ((srow[r0].long() * Cp + cols[r0, j0].long()) * (3 * B)
                 + binsv[r0, j0].long().clamp(max=B - 1))
         idx = torch.cat([base + ch * B for ch in range(3)])
         v = torch.cat([vals[ch, r0] for ch in range(3)]).to(acc)
         out = torch.zeros(K * Cp * 3 * B, dtype=acc, device=dev)
-        del base
+        del base, r0, j0
         lib = time_ms(torch, lambda: out.zero_().index_add_(0, idx, v), 5, 1)
         del idx, v, out
         gc.collect()
@@ -532,40 +593,76 @@ def phase_sparse_kernels(torch, H, ds):
               f"max_abs_err={max(errs):.3g} ms={ms:.4f} "
               f"plain_ms={plain:.4f} library_ms={lib:.4f} "
               f"bound_ms={bms:.4f} ({by})", flush=True)
-    del cols, binsv, zb, rr
+        del srow, vals, tot, scale
+
+    # K7 at K=84 (LEAVES_PER_BATCH), B=256: alone and through the whole
+    # pass, bitwise; once as the module's constants have it, once with
+    # slot tiles and long-column chunks forced (every column of more than
+    # 2^15 entries in chunks, slots in tiles of 20)
+    K84, B256 = 84, 256
+    lid, sl, _, gh = sparse_pass_inputs(torch, H, N, K84, 12)
+    srow, vals, tot, scale = H._sparse_pass(lid, gh, sl, "int8")
+    nb = min(streams.num_bins, B256)
+    for budget, chunk in ((SS.SPARSE_SMEM_BUDGET, SS.SPARSE_BLOCK_ENTRIES),
+                          (20 * 3 * (nb | 1) * 4, 1 << 15)):
+        saved = SS.SPARSE_SMEM_BUDGET, SS.SPARSE_BLOCK_ENTRIES
+        SS.SPARSE_SMEM_BUDGET, SS.SPARSE_BLOCK_ENTRIES = budget, chunk
+        try:
+            k_tile = SS.slot_tile(K84, nb, budget, 3)
+            plan = streams.plan(chunk)
+            err = sparse_check(torch, H, SS, "hist_sparse_int8", streams, zb,
+                               srow, vals, tot, scale, K84, Cp, B256, True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            whole_pass_check(torch, H, sp, lid, gh, sl, Cp, B256)
+            ms = time_ms(torch, lambda: SS._hist_streams_cuda(
+                streams, zb, srow, vals, tot, scale, K84, Cp, B256), 5)
+        finally:
+            SS.SPARSE_SMEM_BUDGET, SS.SPARSE_BLOCK_ENTRIES = saved
+        bms, by, _, entries = sparse_bound(torch, cols, srow, vals, K84, Cp,
+                                           B256)
+        print(f"[sparse kernels] hist_sparse_int8 K={K84} B={B256} nb={nb} "
+              f"k_tile={k_tile} slot tiles={-(-K84 // k_tile)} chunk={chunk} "
+              f"chunked columns={plan.n_long} chunks={plan.n_parts} "
+              f"max_abs_err={err:.3g} ms={ms:.4f} bound_ms={bms:.4f} ({by})",
+              flush=True)
+    del lid, sl, gh, srow, vals, tot, scale
     gc.collect()
     torch.cuda.empty_cache()
     return rows
 
 
-def phase_learner_passes(torch, lt, H, params, ds):
+def phase_learner_passes(torch, lt, H, SS, params, ds, sp):
     """K7 / K8 at the pass shapes the learner makes (end of phase 5): one
     tree per dtype on the ctr store, with the kernel's wrapper recording
     each pass's inputs; every recorded pass is then held against the
     plain version (int8 bitwise, float32 within n * 2^-23 * sum|x|) and
     timed, and their sums over the tree are printed."""
-    real = H._sparse_hist_cuda
+    real = SS._hist_streams_cuda
+    cols = sp[0]
     for dtype, name in (("float32", "hist_sparse_f32"),
                         ("int8", "hist_sparse_int8")):
         passes = []
 
-        def record(cols, binsv, srow, vals, K, Cp, B):
-            passes.append((cols, binsv, srow.clone(), vals.clone(), K, Cp,
+        def record(st, zb, srow, vals, tot, scale, K, Cp, B):
+            passes.append((st, zb, srow.clone(), vals.clone(), tot.clone(),
+                           None if scale is None else scale.clone(), K, Cp,
                            B))
-            return real(cols, binsv, srow, vals, K, Cp, B)
-        H._sparse_hist_cuda = record
+            return real(st, zb, srow, vals, tot, scale, K, Cp, B)
+        SS._hist_streams_cuda = record
         try:
             lt.train(dict(params, histogram_dtype=dtype), ds, 1)
         finally:
-            H._sparse_hist_cuda = real
+            SS._hist_streams_cuda = real
         per = []
-        for i, (cols, binsv, srow, vals, K, Cp, B) in enumerate(passes):
-            err = sparse_check(torch, H, name, cols, binsv, srow, vals, K,
-                               Cp, B, name == "hist_sparse_int8")
-            ms = time_ms(torch, lambda: real(cols, binsv, srow, vals, K, Cp,
-                                             B), 10)
-            plain = time_ms(torch, lambda: H._sparse_hist_plain(
-                cols, binsv, srow, vals, K, Cp, B), 2, 1)
+        for i, (st, zb, srow, vals, tot, scale, K, Cp, B) in \
+                enumerate(passes):
+            err = sparse_check(torch, H, SS, name, st, zb, srow, vals, tot,
+                               scale, K, Cp, B, name == "hist_sparse_int8")
+            ms = time_ms(torch, lambda: real(st, zb, srow, vals, tot, scale,
+                                             K, Cp, B), 10)
+            plain = time_ms(torch, lambda: SS.hist_streams_plain(
+                st, zb, srow, vals, tot, scale, K, Cp, B), 2, 1)
             bms, by, n_slotted, entries = sparse_bound(torch, cols, srow,
                                                        vals, K, Cp, B)
             per.append(dict(K=K, rows=n_slotted, entries=entries,
@@ -1080,6 +1177,7 @@ def main() -> None:
     from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.ops import lookup as LK
     from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops import sparse_streams as SS
 
     t_start = time.perf_counter()
     t0 = time.perf_counter()
@@ -1096,10 +1194,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    params, ds, vs, Xv, _ = phase_ctr_setup(lt, CTR_ROWS)
+    params, ds, vs, Xv, sp = phase_ctr_setup(lt, CTR_ROWS)
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
-    sparse_rows = phase_sparse_kernels(torch, H, ds)
-    phase_learner_passes(torch, lt, H, params, ds)
+    sparse_rows = phase_sparse_kernels(torch, H, SS, ds, sp)
+    phase_learner_passes(torch, lt, H, SS, params, ds, sp)
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     ctr = phase_ctr_main(torch, lt, kernels, dataset_mod, params, ds, vs,
                          Xv)

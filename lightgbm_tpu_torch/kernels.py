@@ -41,7 +41,9 @@ SIGNATURES = {
     "partition": ("partition", "lgbt_partition_rows",
                   [_P, _I, _P, _I, _I, _L, _P, _P, _P]),
     "hist_sparse": ("hist_sparse", "lgbt_hist_sparse",
-                    [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P]),
+                    [_P, _P, _P, _I, _P, _P, _I, _L, _P, _P, _P, _P, _L,
+                     _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                     _P]),
     "hist_gathered": ("hist_gathered", "lgbt_hist_gathered",
                       [_P, _L, _L, _I, _P, _L, _P, _P, _P, _L, _I, _I, _P,
                        _P]),

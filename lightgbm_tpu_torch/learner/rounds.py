@@ -27,7 +27,8 @@ through `unb`) before split search, and each split's original-space
 partition table that kernel K4 reads.
 
 With `sparse=True` (the dataset holds a SparseStore) `bins` is the ELL
-triple (cols [N, R], bins [N, R], zero_bin [F]): histogram passes
+triple (cols [N, R], bins [N, R], zero_bin [F]), on CUDA with the
+column-sorted entry streams as a fourth element: histogram passes
 iterate stored entries only (kernels K7/K8, ops/histogram.py
 `hist_sparse_multileaf`) and rebuild each column's zero bin from the
 slot totals, and the partition probes the row's entries
@@ -53,6 +54,7 @@ from ..dataset import Dataset
 from ..ops.histogram import (hist_multileaf_gathered, hist_multileaf_masked,
                              hist_sparse_gathered, hist_sparse_multileaf)
 from ..ops.partition import partition_rows, partition_rows_sparse
+from ..ops.sparse_streams import build_sparse_streams
 from ..ops.split import best_split, bundle_predicate_params, maybe_unbundle
 from ..tree import Tree
 from .common import (device_memory_bytes, gather_capacity_tiers,
@@ -81,7 +83,8 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
 
     bins [C, N] int32 store (int8 = value-128), or with sparse=True the
     ELL triple (cols [N, R] int32 with C as the empty-slot sentinel,
-    bins [N, R] int32, zero_bin [C] int32 with -1 on padded columns);
+    bins [N, R] int32, zero_bin [C] int32 with -1 on padded columns,
+    and optionally the SparseStreams of ops/sparse_streams.py);
     grad/hess/row_mask [N] f32; num_bins [F] int, is_cat/fmask [F]
     bool, over the original features — all on one device.  C == F
     unless the store is EFB-bundled; then ftbl is the [5, F] feature
@@ -93,7 +96,7 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
     compacted after every round's partition, and histograms only the
     segments a pass needs; "masked" streams all rows every pass."""
     if sparse:
-        sp_cols, sp_bins, sp_zb = bins
+        sp_cols, sp_bins, sp_zb = bins[:3]
         F, N = sp_zb.shape[0], sp_cols.shape[0]
         dev = sp_cols.device
     else:
@@ -395,8 +398,12 @@ class RoundsTreeLearner:
         if self.sparse:
             # the ELL triple as built: on one device no column is padded,
             # so the empty-slot sentinel is the column count and no
-            # zero_bin is -1
+            # zero_bin is -1.  On CUDA the histogram kernels read the
+            # entries sorted by column, built here once per learner
             self.bins_dev = dataset.sparse_triple(self.device)
+            if self.device.type == "cuda":
+                self.bins_dev += (build_sparse_streams(
+                    self.bins_dev[0], self.bins_dev[1], self.C),)
             bins_itemsize = 4
         else:
             store = dataset.dense_bins(site="rounds_feed")     # [F, N]

@@ -31,13 +31,14 @@ kernel, as plain torch ops, exactly as in JAX.  In the gathered row feed
 the kernel reads each scratch position's bins through the row index
 (`row_idx`) instead of materializing the gathered [F, capacity] copy.
 
-Over the sparse store the CUDA kernels K7 (int8) and K8 (float32) of
-csrc/hist_sparse.cu add the stored ELL entries only; the zero bin of
-every column is rebuilt around them, as plain torch ops, from each
-slot's totals (`_apply_zero_bin`).  The TPU's window streams
-(`sparse_window_streams`, `unscatter_slot_hist`) are layout machinery for
-its matmul formulation and are not ported: the kernels walk the ELL
-arrays directly.
+Over the sparse store `hist_sparse_multileaf` runs the CUDA kernels K7
+(int8) and K8 (float32) of csrc/hist_sparse.cu over the store's
+column-sorted entry streams (ops/sparse_streams.py, the GPU form of the
+JAX package's `sparse_window_streams`): each block owns one column's
+histogram in shared memory and writes it once, with the column's zero
+bin and the int8 dequantize applied.  On the CPU it takes
+`hist_sparse_xla`, the JAX function's formulation over the ELL arrays
+(stored-entry sums, then the zero bins from each slot's totals).
 """
 from __future__ import annotations
 
@@ -47,6 +48,8 @@ import numpy as np
 import torch
 
 from .. import kernels, log
+from .sparse_streams import (build_sparse_streams, finish_sparse_hist,
+                             hist_streams)
 
 # int32-accumulator bound: with constant hessians every row quantizes to
 # 127, so one bin can reach 127 * C; above 16M rows per pass the int8
@@ -448,25 +451,6 @@ def _slot_totals(srow: torch.Tensor, vals: torch.Tensor,
     return tot.index_add_(0, srow.long(), vals[:3].t())[:K]
 
 
-def _apply_zero_bin(hist: torch.Tensor, tot: torch.Tensor,
-                    zero_bin: torch.Tensor) -> torch.Tensor:
-    """Add each store column's implicit-zero bin in place: slot totals
-    minus the stored-entry sums, at the column's zero bin.  hist
-    [K, C, 3, B] (stored entries only), tot [K, 3], zero_bin [C] (-1 on
-    padded columns, which stay all-zero).  Exact in the int32 lanes."""
-    K, C, _, B = hist.shape
-    colsum = hist.sum(dim=3, dtype=hist.dtype)             # [K, C, 3]
-    resid = torch.where((zero_bin >= 0)[None, :, None],
-                        tot[:, None, :] - colsum,
-                        torch.zeros((), dtype=hist.dtype,
-                                    device=hist.device))
-    zb = torch.clamp(zero_bin, 0, B - 1).long()
-    ar = torch.arange(C, device=hist.device)
-    # the advanced axes (column, zero bin) move first: [C, K, 3]
-    hist[:, ar, :, zb] += resid.permute(1, 0, 2)
-    return hist
-
-
 def _sparse_quant_ok(input_dtype: str, num_rows: int) -> bool:
     """int8 eligibility of a sparse pass: the int32-exactness bound of
     the dense path, keyed on the row count (a (column, bin) cell takes at
@@ -484,13 +468,12 @@ def _sparse_quant_ok(input_dtype: str, num_rows: int) -> bool:
 def _sparse_hist_plain(cols: torch.Tensor, binsv: torch.Tensor,
                        srow: torch.Tensor, vals: torch.Tensor, K: int,
                        Cp: int, B: int) -> torch.Tensor:
-    """Plain version of both sparse kernels: [K, Cp, 3, B] sums of
+    """Stored-entry sums over the ELL arrays: [K, Cp, 3, B] sums of
     vals [3, N] (int32 exactly, or float32) over the stored ELL entries
     (0 <= col < Cp) of rows with srow < K, at [srow, col, ch,
     min(bin, B-1)].  Zero bins are not included."""
     dev = cols.device
-    acc = torch.int64 if not vals.is_floating_point() else torch.float32
-    out = torch.zeros(K * Cp * 3 * B, dtype=acc, device=dev)
+    out = torch.zeros(K * Cp * 3 * B, dtype=vals.dtype, device=dev)
     ok = (cols >= 0) & (cols < Cp) & (srow < K)[:, None]
     rr, jj = torch.nonzero(ok, as_tuple=True)
     if rr.numel():
@@ -500,62 +483,24 @@ def _sparse_hist_plain(cols: torch.Tensor, binsv: torch.Tensor,
         c = cols[rr, jj[keep]].long()
         base = (srow[rr].long() * Cp + c) * (3 * B) + b
         for ch in range(3):
-            out.index_add_(0, base + ch * B, vals[ch, rr].to(acc))
-    out = out.view(K, Cp, 3, B)
-    return out.to(torch.int32) if acc == torch.int64 else out
+            out.index_add_(0, base + ch * B, vals[ch, rr])
+    return out.view(K, Cp, 3, B)
 
 
-def _sparse_hist_cuda(cols: torch.Tensor, binsv: torch.Tensor,
-                      srow: torch.Tensor, vals: torch.Tensor, K: int,
-                      Cp: int, B: int) -> torch.Tensor:
-    """Kernels K7 (int32 vals) and K8 (float32 vals), csrc/hist_sparse.cu,
-    with the plain version's contract."""
-    N, R = cols.shape
-    quant = not vals.is_floating_point()
-    if cols.dtype != torch.int32 or binsv.dtype != torch.int32 \
-            or binsv.shape != (N, R):
-        raise TypeError("sparse histogram kernel takes int32 [N, R] cols "
-                        "and bins")
-    if srow.dtype != torch.int32 or srow.shape != (N,):
-        raise TypeError("sparse histogram kernel takes int32 srow [N]")
-    if vals.dtype not in (torch.int32, torch.float32) \
-            or vals.shape != (3, N):
-        raise TypeError("sparse histogram kernel takes [3, N] int32 or "
-                        "float32 vals")
-    out = torch.zeros((K, Cp, 3, B), dtype=vals.dtype, device=cols.device)
-    if N == 0 or R == 0 or K == 0 or Cp == 0:
-        return out
-    cols = cols.contiguous()
-    binsv = binsv.contiguous()
-    srow = srow.contiguous()
-    vals = vals.contiguous()
-    kernels.call("hist_sparse", cols.data_ptr(), binsv.data_ptr(), N, R,
-                 srow.data_ptr(), vals.data_ptr(), int(quant), K, Cp, B,
-                 out.data_ptr())
-    kernels.LAUNCHES["hist_sparse_int8" if quant else "hist_sparse_f32"] += 1
-    return out
-
-
-def _hist_sparse(entries_fn, cols, binsv, zero_bin, lid, gh8, sl, Cp: int,
-                 B: int, input_dtype: str) -> torch.Tensor:
-    """The sparse pass around a stored-entry histogram `entries_fn`:
-    quantize (int8), slot of every row, slot totals, stored-entry sums,
-    zero-bin rebuild, one dequantize — the order of the JAX function."""
-    N = cols.shape[0]
+def _sparse_pass(lid: torch.Tensor, gh8: torch.Tensor, sl: torch.Tensor,
+                 input_dtype: str):
+    """The per-pass set-up of a sparse histogram, in the order of the JAX
+    function: quantize (int8), slot of every row, slot totals.  Returns
+    (srow [N] int32, vals [3, N] int32 or float32, tot [K, 3] of vals'
+    type, scale [3] f32 (sg, sh, 1) for int8 or None)."""
     K = sl.shape[0]
-    quant = _sparse_quant_ok(input_dtype, N)
-    if quant:
+    if _sparse_quant_ok(input_dtype, lid.shape[0]):
         vals, sg, sh = _quantize_gh(gh8)                   # [3, N] int32
-    else:
-        vals = gh8[:3].to(torch.float32)
-    srow = _slot_of_rows(lid, sl)
-    tot = _slot_totals(srow, vals, K)
-    hist = entries_fn(cols, binsv, srow, vals, K, Cp, B)
-    hist = _apply_zero_bin(hist, tot, zero_bin)
-    if quant:
         scale = torch.stack([sg, sh, torch.ones_like(sg)])
-        hist = hist.to(torch.float32) * scale[None, None, :, None]
-    return hist
+    else:
+        vals, scale = gh8[:3].to(torch.float32), None
+    srow = _slot_of_rows(lid, sl)
+    return srow, vals, _slot_totals(srow, vals, K), scale
 
 
 def hist_sparse_xla(cols: torch.Tensor, binsv: torch.Tensor,
@@ -563,8 +508,8 @@ def hist_sparse_xla(cols: torch.Tensor, binsv: torch.Tensor,
                     gh8: torch.Tensor, sl: torch.Tensor, *,
                     num_columns_padded: int, num_bins_padded: int,
                     input_dtype: str = "float32") -> torch.Tensor:
-    """Nonzero-iterating multi-leaf histogram in plain torch ops — the
-    plain version of kernels K7 and K8 on any device.
+    """Nonzero-iterating multi-leaf histogram in plain torch ops over the
+    ELL arrays, on any device — the JAX function's formulation.
 
     cols/binsv [N, R] int32 ELL entries (col >= num_columns_padded marks
     an empty slot); zero_bin [Cp] int32 (-1 = padded column); lid [N]
@@ -574,23 +519,32 @@ def hist_sparse_xla(cols: torch.Tensor, binsv: torch.Tensor,
     store.  input_dtype "int8" quantizes per pass (`_quantize_gh`) and
     keeps the stored sums, slot totals and zero-bin residual in int32,
     with one dequantizing scale at the end."""
-    return _hist_sparse(_sparse_hist_plain, cols, binsv, zero_bin, lid,
-                        gh8, sl, num_columns_padded, num_bins_padded,
-                        input_dtype)
+    srow, vals, tot, scale = _sparse_pass(lid, gh8, sl, input_dtype)
+    hist = _sparse_hist_plain(cols, binsv, srow, vals, sl.shape[0],
+                              num_columns_padded, num_bins_padded)
+    return finish_sparse_hist(hist, tot, zero_bin, scale)
 
 
 def hist_sparse_multileaf(sp, lid: torch.Tensor, gh8: torch.Tensor,
                           sl: torch.Tensor, *, num_columns_padded: int,
                           num_bins_padded: int,
                           input_dtype: str = "float32") -> torch.Tensor:
-    """hist_sparse_xla's contract over the sparse store triple
-    sp = (cols, binsv, zero_bin): a CUDA tensor launches kernel K7
-    (int8) or K8 (float32) for the stored-entry sums, a CPU tensor takes
-    the plain version."""
+    """hist_sparse_xla's contract over the sparse store
+    sp = (cols, binsv, zero_bin[, streams]).  A CUDA tensor launches
+    kernel K7 (int8) or K8 (float32) over the column-sorted entry
+    streams (`sparse_streams`; built here when sp carries none), a CPU
+    tensor takes hist_sparse_xla."""
     cols, binsv, zero_bin = sp[0], sp[1], sp[2]
-    fn = _sparse_hist_cuda if cols.is_cuda else _sparse_hist_plain
-    return _hist_sparse(fn, cols, binsv, zero_bin, lid, gh8, sl,
-                        num_columns_padded, num_bins_padded, input_dtype)
+    Cp = num_columns_padded
+    if not cols.is_cuda:
+        return hist_sparse_xla(cols, binsv, zero_bin, lid, gh8, sl,
+                               num_columns_padded=Cp,
+                               num_bins_padded=num_bins_padded,
+                               input_dtype=input_dtype)
+    st = sp[3] if len(sp) > 3 else build_sparse_streams(cols, binsv, Cp)
+    srow, vals, tot, scale = _sparse_pass(lid, gh8, sl, input_dtype)
+    return hist_streams(st, zero_bin, srow, vals, tot, scale, sl.shape[0],
+                        Cp, num_bins_padded)
 
 
 def hist_sparse_gathered(sp, gh8: torch.Tensor, perm: torch.Tensor,

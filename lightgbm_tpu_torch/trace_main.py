@@ -35,6 +35,7 @@ OWN_KERNELS = {"hist_kernel": "hist_masked (K1/K2)",
                "lookup_kernel": "table_lookup (K3)",
                "partition_kernel": "partition_rows (K4)",
                "hist_sparse_kernel": "hist_sparse (K7/K8)",
+               "pack_rows_kernel": "hist_sparse (K7/K8)",
                "hist_gathered_kernel": "hist_gathered (K5)",
                "hist_multirow_kernel": "hist_multirow (K6)"}
 

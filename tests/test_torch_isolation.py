@@ -11,12 +11,17 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# imports every module of the port (found by walking the package) and
+# chip_smoke.py, then names any JAX or JAX-package module loaded
 _PROBE = """
-import sys
+import importlib, pkgutil, sys
 import lightgbm_tpu_torch
-import lightgbm_tpu_torch.engine, lightgbm_tpu_torch.convert
-import lightgbm_tpu_torch.learner.rounds, lightgbm_tpu_torch.kernels
-import lightgbm_tpu_torch.learner.serial
+names = [m.name for m in pkgutil.walk_packages(
+    lightgbm_tpu_torch.__path__, "lightgbm_tpu_torch.")]
+assert "lightgbm_tpu_torch.ops.sparse_streams" in names, names
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "lightgbm_tpu" or m.startswith("lightgbm_tpu."))

@@ -32,6 +32,7 @@ from lightgbm_tpu_torch import kernels
 from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops import lookup as tl
 from lightgbm_tpu_torch.ops import partition as tp
+from lightgbm_tpu_torch.ops import sparse_streams as ss
 
 pytestmark = pytest.mark.cuda
 
@@ -132,9 +133,10 @@ def test_lookup_kernel_vs_plain(dev, T, S):
                                                   addend=add).numpy())
 
 
-def _sparse_case(N, C, R, seed, dyadic):
+def _sparse_case(N, C, R, seed, dyadic, K=7, nbins=63):
     """Power-law ELL store with all-sentinel rows, a padded column
-    (zero_bin -1, no entries), empty slots and real or dyadic gh."""
+    (zero_bin -1, no entries), empty slots, unslotted leaves and real or
+    dyadic gh; bins below `nbins`."""
     rng = np.random.RandomState(seed)
     cols = np.full((N, R), C, np.int32)
     bins = np.zeros((N, R), np.int32)
@@ -144,10 +146,10 @@ def _sparse_case(N, C, R, seed, dyadic):
         u = np.unique(np.minimum((C * rng.rand(cnt[i]) ** 3).astype(
             np.int64), C - 2))
         cols[i, :u.size] = u
-        bins[i, :u.size] = rng.randint(0, 63, u.size)
+        bins[i, :u.size] = rng.randint(0, nbins, u.size)
     zb = rng.randint(0, 3, C).astype(np.int32)
     zb[C - 1] = -1                                    # padded column
-    lid = rng.randint(0, 9, N).astype(np.int32)
+    lid = rng.randint(0, 9 if K == 7 else K + 3, N).astype(np.int32)
     m = (rng.rand(N) > 0.1).astype(np.float32)
     if dyadic:
         g = np.round(rng.randn(N) * 8) / 8
@@ -156,60 +158,84 @@ def _sparse_case(N, C, R, seed, dyadic):
         g, h = rng.randn(N), rng.rand(N)
     gh = np.stack([g * m, h * m, m]).astype(np.float32)
     sl = np.array([0, 3, -1, 8, 5, -1, 1], np.int32)  # empty slots
+    if K != 7:
+        sl = np.arange(K, dtype=np.int32)
+        sl[1::6] = -1
     return [torch.as_tensor(x) for x in (cols, bins, zb, lid, gh, sl)]
 
 
-@pytest.mark.parametrize("input_dtype,dyadic", [
-    ("int8", False), ("float32", False), ("float32", True)])
-def test_hist_sparse_kernel_vs_plain(dev, input_dtype, dyadic):
-    C, B = 2_000, 64
-    cols, bins, zb, lid, gh, sl = _sparse_case(50_000, C, 64, 5, dyadic)
+@pytest.mark.parametrize("input_dtype,dyadic,K,B,budget,chunk", [
+    ("int8", False, 7, 64, None, None),
+    ("float32", False, 7, 64, None, None),
+    ("float32", True, 7, 64, None, None),
+    # slot tiles of 2 and columns of several chunks (the head columns
+    # hold ~10k entries here)
+    ("int8", False, 15, 128, 2 * 3 * 65 * 4, 1_500),
+    ("float32", False, 15, 128, 2 * 3 * 65 * 4, 1_500),
+    ("float32", True, 84, 256, 40 * 1024, 4_096),
+])
+def test_hist_sparse_kernel_vs_plain(dev, monkeypatch, input_dtype, dyadic,
+                                     K, B, budget, chunk):
+    if budget is not None:
+        monkeypatch.setattr(ss, "SPARSE_SMEM_BUDGET", budget)
+        monkeypatch.setattr(ss, "SPARSE_BLOCK_ENTRIES", chunk)
+    C = 2_000
+    cols, bins, zb, lid, gh, sl = _sparse_case(50_000, C, 64, 5, dyadic, K,
+                                               255 if B == 256 else 63)
     kw = dict(num_columns_padded=C, num_bins_padded=B,
               input_dtype=input_dtype)
     ref = th.hist_sparse_xla(cols, bins, zb, lid, gh, sl, **kw)
     name = "hist_sparse_int8" if input_dtype == "int8" else \
         "hist_sparse_f32"
+    st = ss.build_sparse_streams(cols.to(dev), bins.to(dev), C)
+    plan = st.plan(ss.SPARSE_BLOCK_ENTRIES)
+    if budget is not None:
+        rows = 3 if input_dtype == "int8" else 4
+        assert plan.n_long > 0 and ss.slot_tile(K, st.num_bins, budget,
+                                                rows) < K
     before = kernels.LAUNCHES[name]
     out = th.hist_sparse_multileaf(
-        (cols.to(dev), bins.to(dev), zb.to(dev)), lid.to(dev), gh.to(dev),
-        sl.to(dev), **kw).cpu()
+        (cols.to(dev), bins.to(dev), zb.to(dev), st), lid.to(dev),
+        gh.to(dev), sl.to(dev), **kw).cpu()
     assert kernels.LAUNCHES[name] == before + 1
     assert not out[:, C - 1].any()                    # the padded column
     srow = th._slot_of_rows(lid, sl)
-    K = len(sl)
+    absv = torch.stack([gh[0].abs(), gh[1].abs(), gh[2]])
     if input_dtype == "int8" or dyadic:
         np.testing.assert_array_equal(out.numpy(), ref.numpy())
     else:
-        cell_tol = _reorder_bound(cols, bins, srow, gh, K, C, B)
-        absv = torch.stack([gh[0].abs(), gh[1].abs(), gh[2]])
-        tot = th._slot_totals(srow, absv, K).double()      # [K, 3]
-        tol = cell_tol.clone()
-        ok = (zb >= 0).nonzero()[:, 0]
-        tol[:, ok, :, zb[ok].long()] += (tot[:, 2:3] * 2.0 ** -22
-                                         * tot)[None]
+        tol = _reorder_bound(cols, bins, srow, absv, zb, K, C, B)
         assert ((out.double() - ref.double()).abs() <= tol).all()
-    # the kernel's own output: the stored-entry sums alone
-    vals = gh if input_dtype != "int8" else th._quantize_gh(gh)[0]
-    plain = th._sparse_hist_plain(cols, bins, srow, vals, K, C, B)
-    raw = th._sparse_hist_cuda(cols.to(dev), bins.to(dev), srow.to(dev),
-                               vals.to(dev), K, C, B).cpu()
+    # the kernel against its plain version on the same pass inputs (one
+    # tot tensor for both)
+    srow, vals, tot, scale = th._sparse_pass(lid.to(dev), gh.to(dev),
+                                             sl.to(dev), input_dtype)
+    got = ss._hist_streams_cuda(st, zb.to(dev), srow, vals, tot, scale, K,
+                                C, B).cpu()
+    plain = ss.hist_streams_plain(st, zb.to(dev), srow, vals, tot, scale,
+                                  K, C, B).cpu()
     if input_dtype == "int8" or dyadic:
-        np.testing.assert_array_equal(raw.numpy(), plain.numpy())
+        np.testing.assert_array_equal(got.numpy(), plain.numpy())
     else:
-        tol = _reorder_bound(cols, bins, srow, gh, K, C, B)
-        assert ((raw.double() - plain.double()).abs() <= tol).all()
+        tol = _reorder_bound(cols, bins, srow.cpu(), absv, zb, K, C, B)
+        assert ((got.double() - plain.double()).abs() <= tol).all()
 
 
-def _reorder_bound(cols, bins, srow, gh, K, C, B):
-    """n * 2^-23 * sum|x| per stored cell (n of its entries)."""
-    absv = torch.stack([gh[0].abs(), gh[1].abs(), gh[2]])
+def _reorder_bound(cols, bins, srow, absv, zb, K, C, B):
+    """n * 2^-23 * sum|x| per stored cell (n of its entries); a zero bin
+    (slot total minus the column's stored sums, each reordered on both
+    sides) n * 2^-22 * sum|x| over the slot's n rows."""
     s = th._sparse_hist_plain(cols, bins, srow, absv, K, C, B).double()
-    return s[:, :, 2:3, :] * 2.0 ** -23 * s
+    tol = s[:, :, 2:3, :] * 2.0 ** -23 * s
+    tot = th._slot_totals(srow, absv, K).double()          # [K, 3]
+    ok = (zb >= 0).nonzero()[:, 0]
+    tol[:, ok, :, zb[ok].long()] += (tot[:, 2:3] * 2.0 ** -22 * tot)[None]
+    return tol
 
 
 def test_cuda_tensor_never_takes_the_plain_version(dev, monkeypatch):
     """A CUDA tensor launches the kernel or raises: with the library
-    call failing, the wrapper raises instead of falling back."""
+    call failing, the wrappers raise instead of falling back."""
     def refuse(*a, **k):
         raise RuntimeError("launch refused")
     monkeypatch.setattr(kernels, "call", refuse)
@@ -217,6 +243,13 @@ def test_cuda_tensor_never_takes_the_plain_version(dev, monkeypatch):
     ids = torch.zeros(8, dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError, match="launch refused"):
         tl.table_lookup(t, ids)
+    cols, bins, zb, lid, gh, sl = [x.to(dev) for x in _sparse_case(
+        500, 40, 8, 3, False, 5)]
+    for input_dtype in ("int8", "float32"):
+        with pytest.raises(RuntimeError, match="launch refused"):
+            th.hist_sparse_multileaf(
+                (cols, bins, zb), lid, gh, sl, num_columns_padded=40,
+                num_bins_padded=64, input_dtype=input_dtype)
 
 
 def _gathered_case(N, F, nb, cap, live, seed, dyadic):
