@@ -8,16 +8,23 @@ Phases (any failure exits non-zero and prints no result line):
              nvcc per source, in parallel) and print the seconds taken.
 2. kernels — each dense-store kernel against its plain PyTorch version on
              the card, on seeded inputs at the main path's shapes: K1
-             (int8 histogram, int32 and int8-stored bins, bitwise) and K2
-             (float32 histogram, tolerance below) on a gathered pass and
-             on a tree's root pass (masked feed, one slot, every row;
-             dyadic values, so K2 is bitwise there too), K3 (lookup fused
-             with the score add, and one level of the valid-set walk,
-             bitwise), K4 (row partition, bitwise); median times of
-             kernel, plain version and, where one exists, a single
-             PyTorch call computing the same function (library_ms; K3 has
-             none — one index_select, which neither adds into the score
-             nor zeroes out-of-range ids, is printed as a note).  The
+             (int8 histogram) on a gathered pass (84 slot runs given by
+             their bounds in the scratch, three empty), read from the
+             row-major byte copy built from the int32 and from the int8
+             store and from both [F, N] stores, bitwise equal to its
+             plain version over the runs' bounds and to the masked-feed
+             one, and bitwise from run to run; K1 on a tree's root pass
+             (masked feed, one slot, every row), bitwise the same way; K2
+             (float32 histogram, its earlier design, tolerance below) on
+             the same
+             passes (dyadic values on the root pass, so K2 is bitwise
+             there); K3
+             (lookup fused with the score add, and one level of the
+             valid-set walk, bitwise), K4 (row partition, bitwise); median
+             times of kernel, plain version and, where one exists, a
+             single PyTorch call computing the same function (library_ms;
+             K3 has none — one index_select, which neither adds into the
+             score nor zeroes out-of-range ids, is printed as a note).  The
              {"kernels"} line reports the gathered pass for K1/K2 and the
              score add for K3; the other shapes are printed on their own
              lines.
@@ -30,7 +37,11 @@ Phases (any failure exits non-zero and prints no result line):
              Booster.predict; launch counts are
              zeroed before and read after, and every kernel of the path
              must have launched.  The float32-histogram path is driven
-             the same way (1 warm-up, 2 timed) so that K2 launches.
+             the same way (1 warm-up, 2 timed) so that K2 launches.  Then
+             one tree replayed: a one-tree train with K1's wrapper
+             recording each call's inputs, every call then held bitwise
+             against its plain version, timed, and given its bound; the
+             per-tree sums are printed.
 4. ctr set-up — synth_ctr(500_000) x 50,000 hashed-count features at
              density 0.01 (scipy CSR, 20-row queries) through
              lightgbm_tpu_torch.Dataset with CTR_PARAMS (sparse_store=csr):
@@ -84,17 +95,20 @@ Phases (any failure exits non-zero and prints no result line):
              store columns with 0 conflicting rows.  Valid set
              synth_onehot(200_000, seed=7) on the same plan.
 9. gathered kernels — K5 (histogram_from_indices) against its plain
-             version at the exact learner's shapes: the root of the onehot
-             store (every row, C=40 columns, B=128), a mid-tree leaf
-             (65,536 index slots, 60,000 of them rows), and a north-star
-             store (C=28, B=256, every row); K6 (hist_multileaf) at M=128
-             value rows, F=28, B=256, C=2M.  Bitwise on dyadic values, and
-             on real ones within n * 2^-23 * sum|x| per cell (float atomics
-             and the plain version's index_add_ both reorder); the count
-             channel always bitwise.  Times of kernel, plain version and
-             one PyTorch call over prebuilt flat indices (index_add_ for
-             K5; for K6 one scatter_add_ over stride-0 views, since its
-             flat index would hold F*M*C = 7.2e9 entries).
+             version at the exact learner's shapes, over its byte feeds
+             ([N+1, C] uint8) with the live row count: the root of the
+             onehot store (every row, C=40 columns of 7 bins, B=128), a
+             mid-tree leaf (65,536 index slots, 60,000 of them rows), and a
+             north-star store (C=28, 255 bins, B=256, every row); K6
+             (hist_multileaf) at M=128 value rows, F=28, B=256, C=2M.
+             Bitwise on dyadic values, and on real ones within
+             n * 2^-23 * sum|x| per cell (the kernel's fixed-order float
+             sums and the plain version's index_add_ order differ); the
+             count channel always bitwise; K5 run twice, bitwise equal.
+             Times of kernel, plain version and one PyTorch call over
+             prebuilt flat indices (index_add_ for K5; for K6 one
+             scatter_add_ over stride-0 views, since its flat index would
+             hold F*M*C = 7.2e9 entries).
 10. onehot main — the exact leaf-wise learner (tree_growth=exact) on the
              phase-8 datasets, 12 iterations (s/iter over iterations 3-12,
              timed as in phase 3), valid AUC every iteration; fails unless
@@ -102,7 +116,12 @@ Phases (any failure exits non-zero and prints no result line):
              iteration 1 to 12, and the device-scored valid set agrees with
              Booster.predict(raw_score=True) within 1e-4.  Then the rounds
              learner (tree_growth=auto) on the same bundled store, 6
-             iterations, which must launch K1, K3 and K4.
+             iterations, which must launch K1, K3 and K4.  Then one tree
+             of each learner replayed: a one-tree train with K5's wrapper
+             (exact) or K1's (rounds, 7 bins a column) recording each
+             call's inputs, every call then checked as in phase 9 (K5) or
+             phase 3 (K1), timed and given its bound; the per-tree sums
+             are printed.
 11. losslessness — synth_onehot(50_000) with enable_bundle true and
              false, for each learner: the same first tree (unless its first
              differing split is an f32 gain tie), predictions within 1e-5.
@@ -110,6 +129,14 @@ Phases (any failure exits non-zero and prints no result line):
              on the card, on synth_onehot(50_000) with ONEHOT_PARAMS and on
              synth_higgs(50_000) with the north-star parameters: first
              trees as in phase 7, valid AUC within 1e-4.
+
+Every kernel's ms is timed by CUDA events around each call, the method
+of earlier versions of this script; it includes the wrapper's host
+enqueue where that takes longer than the kernel.  K1 and K5 are also
+timed two more ways: graph_ms, the device time of one call with no host
+in between, from a CUDA graph of 10 calls replayed between events (in
+their {"kernels"} rows too, null in the others); host_us, the wrapper's
+host time a call.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and last {"ok": true, "device": {...}}.  Exits with 2 and no result when
@@ -182,6 +209,56 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+_SIDE = []
+
+
+def graph_ms(torch, fn, reps: int = 10, per: int = 10) -> float:
+    """Median device time of one call with no host in between: `per`
+    calls captured in a CUDA graph (on one side stream, after warm-up
+    calls on it, which also allocate whatever the calls keep), the graph
+    replayed between CUDA events `reps` times.  A small kernel's wrapper
+    takes longer on the host than the kernel on the card, so events
+    around each call (`time_ms`) time the host enqueue; this times the
+    card."""
+    if not _SIDE:
+        _SIDE.append(torch.cuda.Stream())
+    side = _SIDE[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(per):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / per)
+    del graph
+    return statistics.median(times)
+
+
+def host_us(torch, fn, reps: int = 100) -> float:
+    """Host microseconds of one call of a kernel wrapper (enqueue only:
+    no synchronisation inside the loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple:
@@ -263,11 +340,12 @@ def phase_kernels(torch, kernels, H, LK, P):
     N = 2 * C
     bins_np = rng.randint(0, 255, size=(F, N)).astype(np.int32)
     counts = rng.multinomial(int(C * 0.95), np.full(K, 1.0 / K))
+    counts[[5, 40, 83]] = 0                           # empty slots
     lid_np = np.full(C, -2, np.int32)                 # pad rows past total
     lid_np[:counts.sum()] = np.repeat(np.arange(K), counts)
     row_idx_np = np.sort(rng.choice(N, C, replace=False)).astype(np.int32)
     sl_np = np.arange(K, dtype=np.int32)
-    sl_np[[5, 40, 83]] = -1                           # empty slots
+    sl_np[[5, 40, 83]] = -1
     g = (rng.randn(C) * (lid_np >= 0)).astype(np.float32)
     h = (rng.rand(C) * 0.25 * (lid_np >= 0)).astype(np.float32)
     gh = torch.as_tensor(np.stack([g, h, (lid_np >= 0).astype(np.float32)]),
@@ -276,15 +354,21 @@ def phase_kernels(torch, kernels, H, LK, P):
     lid = torch.as_tensor(lid_np, device=dev)
     row_idx = torch.as_tensor(row_idx_np, device=dev)
     sl = torch.as_tensor(sl_np, device=dev)
+    base = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]),
+                           dtype=torch.int64, device=dev)
     bins32 = torch.as_tensor(bins_np, device=dev)
     bins8 = (bins32 - 128).to(torch.int8)
-    match = np.isin(lid_np, sl_np[sl_np >= 0])
-    n_match = int(match.sum())
+    rows32 = H.row_major_bins(bins32, 255)
+    rows8 = H.row_major_bins(bins8, 255)
+    if not (torch.equal(rows32.rows, rows8.rows) and torch.equal(
+            rows32.rows[:, :F].t().to(torch.int32), bins32)):
+        fail("the row-major byte copy differs from the [F, N] store")
+    n_match = int(counts.sum())
 
     def library_hist(vals, acc_dtype):
         """One index_add_ over a flattened (slot, feature, channel, bin)
         index — the same sums as the kernel, index built beforehand."""
-        pos = torch.as_tensor(np.flatnonzero(match), device=dev)
+        pos = torch.arange(n_match, device=dev)
         kk = lid[pos].long()
         b = bins32[:, row_idx[pos].long()].long()           # [F, E]
         f = torch.arange(F, device=dev)[:, None]
@@ -295,40 +379,80 @@ def phase_kernels(torch, kernels, H, LK, P):
         out = torch.zeros(K * F * 3 * B, dtype=acc_dtype, device=dev)
         return lambda: out.zero_().index_add_(0, idx, v)
 
-    for name, vals, acc, replaces in (
-            ("hist_masked_int8", ghq, torch.int32,
-             "lightgbm_tpu/ops/histogram.py:503"),
-            ("hist_masked_f32", gh, torch.float32,
-             "lightgbm_tpu/ops/histogram.py:443")):
-        errs = []
-        for bins in (bins32, bins8):
-            got = H._hist_cuda(bins, row_idx, lid, vals, sl, B)
-            ref = H._hist_plain(bins, row_idx, lid, vals, sl, B)
-            torch.cuda.synchronize()
-            err = (got.double() - ref.double()).abs().max().item()
-            errs.append(err)
-            if name == "hist_masked_int8" and not torch.equal(got, ref):
-                fail(f"{name} ({bins.dtype} bins) differs from its plain "
-                     f"version: max |diff| {err}")
-            if name == "hist_masked_f32" and not err <= K2_ATOL:
-                fail(f"{name} ({bins.dtype} bins) max |diff| {err} > "
-                     f"{K2_ATOL}")
-        ms = time_ms(torch, lambda: H._hist_cuda(bins32, row_idx, lid, vals,
-                                                 sl, B), 20)
-        plain = time_ms(torch, lambda: H._hist_plain(bins32, row_idx, lid,
-                                                     vals, sl, B), 3, 1)
-        lib = time_ms(torch, library_hist(vals, acc), 5, 1)
-        nbytes = (C * 4 * 2 + K * 4 + n_match * (F * 4 + 12)
-                  + K * F * 3 * B * 4)
-        bms, by = bound_ms(nbytes, 3.0 * F * n_match)
-        rows.append(dict(name=name, route="cuda",
-                         source="lightgbm_tpu_torch/csrc/histogram.cu",
-                         replaces=replaces, max_abs_err=max(errs), ms=ms,
-                         plain_ms=plain, bound_ms=bms, bound_by=by,
-                         library_ms=lib))
-        print(f"[kernels] {name}: C={C} F={F} K={K} B={B} "
-              f"max_abs_err={max(errs):.3g} ms={ms:.4f} plain_ms={plain:.4f} "
-              f"library_ms={lib:.4f} bound_ms={bms:.4f} ({by})", flush=True)
+    # K1 over the segment plan: from the byte copy (built from the int32
+    # and from the int8 store) and from both [F, N] stores, bitwise equal
+    # to its plain version over the runs' bounds and to the masked-feed one
+    ref = H._hist_plain(bins32, row_idx, lid, ghq, sl, B)
+    errs = []
+    for label, bins, rws in (("byte copy of int32", bins32, rows32),
+                             ("byte copy of int8", bins8, rows8),
+                             ("int32 [F, N]", bins32, None),
+                             ("int8 [F, N]", bins8, None)):
+        got = H._hist_q_cuda(bins, rws, row_idx, ghq, B, base=base)
+        again = H._hist_q_cuda(bins, rws, row_idx, ghq, B, base=base)
+        plan_ref = H._segments_plain(bins, rws, row_idx, ghq, base, B)
+        torch.cuda.synchronize()
+        errs.append((got.double() - ref.double()).abs().max().item())
+        if not (torch.equal(got, ref) and torch.equal(got, plan_ref)
+                and torch.equal(got, again)):
+            fail(f"hist_masked_int8 gathered pass ({label}) differs from "
+                 f"its plain version: max |diff| {errs[-1]}")
+    del plan_ref, again
+
+    def k1_gathered():
+        return H._hist_q_cuda(bins32, rows32, row_idx, ghq, B, base=base)
+    ms = time_ms(torch, k1_gathered, 20)
+    graph = graph_ms(torch, k1_gathered)
+    host = host_us(torch, k1_gathered)
+    plain = time_ms(torch, lambda: H._segments_plain(
+        bins32, rows32, row_idx, ghq, base, B), 3, 1)
+    lib = time_ms(torch, library_hist(ghq, torch.int32), 5, 1)
+    F4 = rows32.rows.shape[1]
+    # the byte rows and (row id, 3 values) of the positions in a run, the
+    # segment bounds, the [K, F, 3, B] int32 output once
+    bms, by = bound_ms(n_match * (F4 + 4 + 12) + (K + 1) * 8
+                       + K * F * 3 * B * 4, 3.0 * F * n_match)
+    rows.append(dict(name="hist_masked_int8", route="cuda",
+                     source="lightgbm_tpu_torch/csrc/histogram.cu",
+                     replaces="lightgbm_tpu/ops/histogram.py:503",
+                     max_abs_err=max(errs), ms=ms, graph_ms=graph,
+                     plain_ms=plain, bound_ms=bms, bound_by=by,
+                     library_ms=lib))
+    print(f"[kernels] hist_masked_int8 (gathered pass): C={C} F={F} K={K} "
+          f"B={B} rows={n_match} "
+          f"f_tile={H._k1_feature_tile(F, 255, True, True)} "
+          f"max_abs_err={max(errs):.3g} ms={ms:.4f} graph_ms={graph:.4f} "
+          f"host_us={host:.1f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+          f"bound_ms={bms:.4f} ({by})", flush=True)
+    del ref, got
+
+    # K2, the masked kernel over the slot ids
+    errs = []
+    for bins in (bins32, bins8):
+        got = H._hist_cuda(bins, row_idx, lid, gh, sl, B)
+        ref = H._hist_plain(bins, row_idx, lid, gh, sl, B)
+        torch.cuda.synchronize()
+        err = (got.double() - ref.double()).abs().max().item()
+        errs.append(err)
+        if not err <= K2_ATOL:
+            fail(f"hist_masked_f32 ({bins.dtype} bins) max |diff| {err} > "
+                 f"{K2_ATOL}")
+    ms = time_ms(torch, lambda: H._hist_cuda(bins32, row_idx, lid, gh, sl, B),
+                 20)
+    plain = time_ms(torch, lambda: H._hist_plain(bins32, row_idx, lid, gh,
+                                                 sl, B), 3, 1)
+    lib = time_ms(torch, library_hist(gh, torch.float32), 5, 1)
+    bms, by = bound_ms(C * 4 * 2 + K * 4 + n_match * (F * 4 + 12)
+                       + K * F * 3 * B * 4, 3.0 * F * n_match)
+    rows.append(dict(name="hist_masked_f32", route="cuda",
+                     source="lightgbm_tpu_torch/csrc/histogram.cu",
+                     replaces="lightgbm_tpu/ops/histogram.py:443",
+                     max_abs_err=max(errs), ms=ms, plain_ms=plain,
+                     bound_ms=bms, bound_by=by, library_ms=lib))
+    print(f"[kernels] hist_masked_f32: C={C} F={F} K={K} B={B} "
+          f"max_abs_err={max(errs):.3g} ms={ms:.4f} plain_ms={plain:.4f} "
+          f"library_ms={lib:.4f} bound_ms={bms:.4f} ({by})", flush=True)
+    del ref, got, rows8
 
     # ---- K1 / K2: each tree's root pass, the masked feed (no row index),
     # one slot, every training row in leaf 0.  grad and hess are dyadic
@@ -337,6 +461,7 @@ def phase_kernels(torch, kernels, H, LK, P):
     # gives the same sums, and K2 is held bitwise here as well ----------
     Nr = MAIN_ROWS
     pbins = bins32[:, :Nr].contiguous()
+    prows = H.row_major_bins(pbins, 255)
     rlid = torch.zeros(Nr, dtype=torch.int32, device=dev)
     rsl = torch.zeros(1, dtype=torch.int32, device=dev)
     rg = np.clip(np.round(rng.randn(Nr) * 64), -1000, 1000) / 64
@@ -344,26 +469,52 @@ def phase_kernels(torch, kernels, H, LK, P):
     rgh = torch.as_tensor(np.stack([rg, rh, np.ones(Nr)]).astype(np.float32),
                           device=dev)
     rghq, _, _ = H._quantize_gh(rgh)
-    for name, vals in (("hist_masked_int8", rghq), ("hist_masked_f32", rgh)):
-        errs = []
-        for bins in (pbins, (pbins - 128).to(torch.int8)):
-            got = H._hist_cuda(bins, None, rlid, vals, rsl, B)
-            ref = H._hist_plain(bins, None, rlid, vals, rsl, B)
-            torch.cuda.synchronize()
-            err = (got.double() - ref.double()).abs().max().item()
-            errs.append(err)
-            if not torch.equal(got, ref):
-                fail(f"{name} root pass ({bins.dtype} bins) differs from "
-                     f"its plain version: max |diff| {err}")
-        ms = time_ms(torch, lambda: H._hist_cuda(pbins, None, rlid, vals,
-                                                 rsl, B), 20)
-        plain = time_ms(torch, lambda: H._hist_plain(pbins, None, rlid,
-                                                     vals, rsl, B), 3, 1)
-        bms, by = bound_ms(Nr * (4 + F * 4 + 12) + 4 + F * 3 * B * 4,
-                           3.0 * F * Nr)
-        print(f"[kernels] {name} root pass: C=N={Nr} F={F} K=1 B={B} "
-              f"max_abs_err={max(errs):.3g} ms={ms:.4f} plain_ms={plain:.4f} "
-              f"bound_ms={bms:.4f} ({by})", flush=True)
+    errs = []
+    for label, bins, rws in (("byte copy", pbins, prows),
+                             ("int32 [F, N]", pbins, None),
+                             ("int8 [F, N]", (pbins - 128).to(torch.int8),
+                              None)):
+        got = H._hist_q_cuda(bins, rws, None, rghq, B, lid=rlid, sl=rsl)
+        again = H._hist_q_cuda(bins, rws, None, rghq, B, lid=rlid, sl=rsl)
+        ref = H._hist_plain(bins, None, rlid, rghq, rsl, B)
+        torch.cuda.synchronize()
+        errs.append((got.double() - ref.double()).abs().max().item())
+        if not (torch.equal(got, ref) and torch.equal(got, again)):
+            fail(f"hist_masked_int8 root pass ({label}) differs from its "
+                 f"plain version: max |diff| {errs[-1]}")
+
+    def k1_root():
+        return H._hist_q_cuda(pbins, prows, None, rghq, B, lid=rlid, sl=rsl)
+    ms = time_ms(torch, k1_root, 20)
+    graph = graph_ms(torch, k1_root)
+    host = host_us(torch, k1_root)
+    plain = time_ms(torch, lambda: H._hist_plain(pbins, None, rlid, rghq,
+                                                 rsl, B), 3, 1)
+    bms, by = bound_ms(Nr * (F4 + 4 + 12) + 4 + F * 3 * B * 4, 3.0 * F * Nr)
+    print(f"[kernels] hist_masked_int8 root pass: C=N={Nr} F={F} K=1 B={B} "
+          f"f_tile={H._k1_feature_tile(F, 255, True, False)} "
+          f"max_abs_err={max(errs):.3g} ms={ms:.4f} graph_ms={graph:.4f} "
+          f"host_us={host:.1f} plain_ms={plain:.4f} bound_ms={bms:.4f} "
+          f"({by})", flush=True)
+    errs = []
+    for bins in (pbins, (pbins - 128).to(torch.int8)):
+        got = H._hist_cuda(bins, None, rlid, rgh, rsl, B)
+        ref = H._hist_plain(bins, None, rlid, rgh, rsl, B)
+        torch.cuda.synchronize()
+        errs.append((got.double() - ref.double()).abs().max().item())
+        if not torch.equal(got, ref):
+            fail(f"hist_masked_f32 root pass ({bins.dtype} bins) differs "
+                 f"from its plain version: max |diff| {errs[-1]}")
+    ms = time_ms(torch, lambda: H._hist_cuda(pbins, None, rlid, rgh, rsl, B),
+                 20)
+    plain = time_ms(torch, lambda: H._hist_plain(pbins, None, rlid, rgh, rsl,
+                                                 B), 3, 1)
+    bms, by = bound_ms(Nr * (4 + F * 4 + 12) + 4 + F * 3 * B * 4,
+                       3.0 * F * Nr)
+    print(f"[kernels] hist_masked_f32 root pass: C=N={Nr} F={F} K=1 B={B} "
+          f"max_abs_err={max(errs):.3g} ms={ms:.4f} plain_ms={plain:.4f} "
+          f"bound_ms={bms:.4f} ({by})", flush=True)
+    del prows, got, ref
 
     # ---- K3: the training-score add, T=1, S=255, N=2M -------------------
     table = torch.as_tensor(rng.randn(1, 255).astype(np.float32), device=dev)
@@ -774,7 +925,7 @@ def drive(torch, lt, kernels, params, X, y, Xv, yv, warmup, timed):
                      s_per_iter=(marks[1] - marks[0]) / timed,
                      train_wall_s=wall, auc=res["valid_0"]["auc"][-1],
                      syncs_per_tree=statistics.mean(syncs),
-                     predict_s=predict_s, launches=launches), pred
+                     predict_s=predict_s, launches=launches), pred, ds
 
 
 def phase_main(torch, lt, kernels):
@@ -782,7 +933,8 @@ def phase_main(torch, lt, kernels):
     X, y = synth_higgs(MAIN_ROWS)
     Xv, yv = synth_higgs(VALID_ROWS, seed=7)
     params = dict(NORTH_STAR_PARAMS, device_type=GPU)
-    bst, st, pred = drive(torch, lt, kernels, params, X, y, Xv, yv, 2, 10)
+    bst, st, pred, ds = drive(torch, lt, kernels, params, X, y, Xv, yv, 2,
+                              10)
     print(f"[main] int8: {json.dumps(st)}", flush=True)
     for k in ("hist_masked_int8", "table_lookup", "partition_rows"):
         if st["launches"][k] <= 0:
@@ -800,14 +952,146 @@ def phase_main(torch, lt, kernels):
           flush=True)
     if walk_err > 1e-4:
         fail(f"device valid scores disagree with the host walk: {walk_err}")
-    _, st32, _ = drive(torch, lt, kernels,
-                       dict(params, histogram_dtype="float32"), X, y,
-                       Xv, yv, 1, 2)
+    _, st32, _, _ = drive(torch, lt, kernels,
+                          dict(params, histogram_dtype="float32"), X, y,
+                          Xv, yv, 1, 2)
     print(f"[main] float32: {json.dumps(st32)}", flush=True)
     for k in ("hist_masked_f32", "table_lookup", "partition_rows"):
         if st32["launches"][k] <= 0:
             fail(f"main path (float32) never launched {k}")
-    return st, st32
+    return st, st32, params, ds
+
+
+def tree_sums(per, label):
+    """Print the per-tree sums of a replay's calls (ms by events around
+    each call, graph ms, plain ms, bound ms) and, by rows a call, how
+    they split."""
+    tree = dict(calls=len(per), ms_per_tree=sum(p["ms"] for p in per),
+                graph_ms_per_tree=sum(p["graph_ms"] for p in per),
+                plain_ms_per_tree=sum(p["plain_ms"] for p in per),
+                bound_ms_per_tree=sum(p["bound_ms"] for p in per),
+                largest=max(per, key=lambda p: p["ms"]))
+    buckets = {}
+    for lo, hi in ((1_000_000, None), (100_000, 1_000_000),
+                   (10_000, 100_000), (0, 10_000)):
+        sel = [p for p in per if p["rows"] >= lo
+               and (hi is None or p["rows"] < hi)]
+        if sel:
+            buckets[f"rows>={lo}"] = dict(
+                calls=len(sel), ms=sum(p["ms"] for p in sel),
+                graph_ms=sum(p["graph_ms"] for p in sel),
+                bound_ms=sum(p["bound_ms"] for p in sel))
+    tree["by_rows"] = buckets
+    print(f"[tree replay] {label} per tree: {json.dumps(tree)}", flush=True)
+
+
+def phase_k1_tree(torch, lt, H, params, ds, label):
+    """Kernel K1 on every call of one tree of the rounds learner (int8):
+    the wrapper records each call's inputs during a one-tree train; each
+    call is then held bitwise against its plain version (over the slot
+    runs' bounds for the gathered feed, the leaf ids for the masked one)
+    and run twice bitwise, timed, and given its bound."""
+    real = H._hist_q_cuda
+    calls = []
+
+    def record(bins, rows, row_idx, vals, B, *, lid=None, sl=None,
+               base=None):
+        calls.append((bins, rows, None if row_idx is None
+                      else row_idx.clone(), vals.clone(), B,
+                      None if lid is None else lid.clone(),
+                      None if sl is None else sl.clone(),
+                      None if base is None else base.clone()))
+        return real(bins, rows, row_idx, vals, B, lid=lid, sl=sl, base=base)
+    H._hist_q_cuda = record
+    try:
+        lt.train(params, ds, 1)
+    finally:
+        H._hist_q_cuda = real
+    per = []
+    for i, (bins, rows, row_idx, vals, B, lid, sl, base) in enumerate(calls):
+        F, C = bins.shape[0], vals.shape[1]
+        F4 = rows.rows.shape[1] if rows is not None else \
+            F * bins.element_size()
+        if base is not None:
+            def run():
+                return real(bins, rows, row_idx, vals, B, base=base)
+
+            def plain_fn():
+                return H._segments_plain(bins, rows, row_idx, vals, base, B)
+            K, n = base.numel() - 1, int(base[-1])
+            nbytes = n * (F4 + 4 + 12) + (K + 1) * 8
+        else:
+            def run():
+                return real(bins, rows, row_idx, vals, B, lid=lid, sl=sl)
+
+            def plain_fn():
+                return H._hist_plain(bins, row_idx, lid, vals, sl, B,
+                                     rows=rows)
+            K = sl.numel()
+            n = int(torch.isin(lid, sl).sum())
+            nbytes = C * 4 + n * (F4 + 12)
+        got, again, ref = run(), run(), plain_fn()
+        torch.cuda.synchronize()
+        if not (torch.equal(got, ref) and torch.equal(got, again)):
+            fail(f"hist_masked_int8 on call {i} of the {label} tree "
+                 "differs from its plain version")
+        del got, again, ref
+        ms = time_ms(torch, run, 10)
+        graph = graph_ms(torch, run, 5)
+        plain = time_ms(torch, plain_fn, 2, 1)
+        bms, by = bound_ms(nbytes + K * F * 3 * B * 4, 3.0 * F * n)
+        per.append(dict(feed="gathered" if base is not None else "masked",
+                        K=K, rows=n, nb=rows.num_bins if rows is not None
+                        else B, ms=ms, graph_ms=graph, plain_ms=plain,
+                        bound_ms=bms, bound_by=by))
+        print(f"[tree replay] hist_masked_int8 ({label}) call {i}: "
+              f"{json.dumps(per[-1])}", flush=True)
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not per:
+        fail(f"the {label} tree launched no hist_masked_int8")
+    tree_sums(per, f"hist_masked_int8 ({label})")
+
+
+def phase_k5_tree(torch, lt, H, params, ds):
+    """Kernel K5 on every call of one onehot exact-learner tree: the
+    wrapper records each call's inputs during a one-tree train; each call
+    is then checked as in phase 9 (count channel bitwise, the others
+    within n * 2^-23 * sum|x|, two runs bitwise), timed and given its
+    bound."""
+    real = H._from_indices_cuda
+    calls = []
+
+    def record(bins_t, gp, hp, idx, B, input_dtype="float32", count=None,
+               nb=None):
+        # the learner writes none of these after the call
+        calls.append((bins_t, gp, hp, idx, B, input_dtype, count, nb))
+        return real(bins_t, gp, hp, idx, B, input_dtype, count, nb)
+    H._from_indices_cuda = record
+    try:
+        lt.train(dict(params, tree_growth="exact"), ds, 1)
+    finally:
+        H._from_indices_cuda = real
+    per = []
+    for i, (bt, gp, hp, idx, B, dt, count, nb) in enumerate(calls):
+        err = gathered_check(torch, H, f"hist_gathered (tree call {i})", bt,
+                             gp, hp, idx, B, count, nb, False)
+        def run():
+            return real(bt, gp, hp, idx, B, dt, count, nb)
+        ms = time_ms(torch, run, 10)
+        graph = graph_ms(torch, run, 5)
+        plain = time_ms(torch, lambda: H._from_indices_plain(
+            bt, gp, hp, idx, B, dt, count, nb), 1, 1)
+        n = idx.numel() if count is None else count
+        bms, by = gathered_bound(bt, n, B)
+        per.append(dict(cap=idx.numel(), rows=n, max_abs_err=err, ms=ms,
+                        graph_ms=graph, plain_ms=plain, bound_ms=bms,
+                        bound_by=by))
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    tree_sums(per, "hist_gathered (onehot, exact learner)")
 
 
 def compare_first_trees(label, tc, tg, m_c, m_g, metric):
@@ -868,27 +1152,42 @@ def phase_onehot_setup(lt):
     return params, ds, vs, Xv
 
 
-def gathered_check(torch, H, name, bins_t, gp, hp, idx, B,
+def gathered_check(torch, H, name, bins_t, gp, hp, idx, B, count, nb,
                    exact: bool) -> float:
     """K5 against its plain version on one histogram's inputs: bitwise
     when `exact`, else every cell within n * 2^-23 * sum|x|; the count
-    channel always bitwise.  Returns the max |diff|."""
-    got = H._from_indices_cuda(bins_t, gp, hp, idx, B)
-    ref = H._from_indices_plain(bins_t, gp, hp, idx, B)
+    channel always bitwise; two runs of the kernel bitwise equal.
+    Returns the max |diff|."""
+    got = H._from_indices_cuda(bins_t, gp, hp, idx, B, "float32", count, nb)
+    again = H._from_indices_cuda(bins_t, gp, hp, idx, B, "float32", count,
+                                 nb)
+    ref = H._from_indices_plain(bins_t, gp, hp, idx, B, "float32", count, nb)
     torch.cuda.synchronize()
     err = (got.double() - ref.double()).abs().max().item()
+    if not torch.equal(got, again):
+        fail(f"{name}: two runs of the kernel differ")
     if not torch.equal(got[:, 2], ref[:, 2]):
         fail(f"{name}: the count channel differs from the plain version")
     if exact and not torch.equal(got, ref):
         fail(f"{name} differs from its plain version: max |diff| {err}")
     if not exact:
-        absum = H._from_indices_plain(bins_t, gp.abs(), hp.abs(), idx, B)
+        absum = H._from_indices_plain(bins_t, gp.abs(), hp.abs(), idx, B,
+                                      "float32", count, nb)
         tol = absum[:, 2:3].double() * 2.0 ** -23 * absum.double()
         bad = ((got.double() - ref.double()).abs() > tol).sum().item()
         if bad:
             fail(f"{name}: {bad} cells beyond n*2^-23*sum|x| (max |diff| "
                  f"{err})")
     return err
+
+
+def gathered_bound(bins_t, count, B):
+    """(bound ms, basis) of one K5 call over `count` rows: the row ids,
+    the rows' bins in the feed's bytes and their (grad, hess), read once;
+    the [C, 3, B] output written once; three adds per (row, column)."""
+    C = bins_t.shape[1]
+    return bound_ms(count * (4 + C * bins_t.element_size() + 8)
+                    + C * 3 * B * 4, 3.0 * C * count)
 
 
 def multirow_check(torch, H, gb, vals, B, exact: bool) -> float:
@@ -916,7 +1215,7 @@ def phase_gathered_kernels(torch, H, ds):
     shapes (phase 9).  Returns their {"kernels"} rows: K5 at the onehot
     root, K6 at M=128."""
     from lightgbm_tpu_torch.learner.common import (padded_bin_count,
-                                                   sentinel_bins_t)
+                                                   sentinel_bins_feed)
     dev = torch.device(GPU)
     rng = np.random.RandomState(13)
     inner = ds._inner
@@ -933,31 +1232,38 @@ def phase_gathered_kernels(torch, H, ds):
                 for v in (g, h)))
         return out
 
-    onehot_bt = torch.as_tensor(sentinel_bins_t(inner), device=dev)
-    onehot_B = padded_bin_count(inner.max_num_bin)
+    # the exact learner's byte feeds: the onehot store (40 columns of 7
+    # bins) and a north-star-shaped one (28 columns of 255 bins)
+    onehot_bt = torch.as_tensor(sentinel_bins_feed(inner), device=dev)
+    onehot_B, onehot_nb = padded_bin_count(inner.max_num_bin), \
+        inner.max_num_bin
     ns_bt = torch.as_tensor(np.concatenate([
         rng.randint(0, 255, size=(N, 28)), np.zeros((1, 28))]).astype(
-            np.int32), device=dev)
+            np.uint8), device=dev)
     leaf_idx = np.full(LEAF_CAP, N, np.int32)
     leaf_idx[:LEAF_ROWS] = np.sort(rng.choice(N, LEAF_ROWS, replace=False))
     root_idx = torch.arange(N, dtype=torch.int32, device=dev)
-    shapes = (("onehot root", onehot_bt, onehot_B, root_idx),
-              ("onehot leaf", onehot_bt, onehot_B,
-               torch.as_tensor(leaf_idx, device=dev)),
-              ("north-star root", ns_bt, 256, root_idx))
+    shapes = (("onehot root", onehot_bt, onehot_B, onehot_nb, root_idx, N),
+              ("onehot leaf", onehot_bt, onehot_B, onehot_nb,
+               torch.as_tensor(leaf_idx, device=dev), LEAF_ROWS),
+              ("north-star root", ns_bt, 256, 255, root_idx, N))
     rows = []
-    for label, bt, B, idx in shapes:
+    for label, bt, B, nb, idx, count in shapes:
         C = bt.shape[1]
         (g, h), (gd, hd) = values(N)
         errs = [gathered_check(torch, H, f"hist_gathered ({label})", bt, gd,
-                               hd, idx, B, True),
+                               hd, idx, B, count, nb, True),
                 gathered_check(torch, H, f"hist_gathered ({label})", bt, g, h,
-                               idx, B, False)]
-        ms = time_ms(torch, lambda: H._from_indices_cuda(bt, g, h, idx, B),
-                     20)
-        plain = time_ms(torch, lambda: H._from_indices_plain(bt, g, h, idx,
-                                                             B), 3, 1)
-        live = idx[idx < N].long()
+                               idx, B, count, nb, False)]
+        def k5():
+            return H._from_indices_cuda(bt, g, h, idx, B, "float32", count,
+                                        nb)
+        ms = time_ms(torch, k5, 20)
+        graph = graph_ms(torch, k5)
+        host = host_us(torch, k5)
+        plain = time_ms(torch, lambda: H._from_indices_plain(
+            bt, g, h, idx, B, "float32", count, nb), 3, 1)
+        live = idx[:count].long()
         E = int(live.numel())
         b = bt[live].long()                                     # [E, C]
         f = torch.arange(C, device=dev)[None, :]
@@ -972,19 +1278,20 @@ def phase_gathered_kernels(torch, H, ds):
         del flat, vals, out
         gc.collect()
         torch.cuda.empty_cache()
-        cap = int(idx.numel())
-        bms, by = bound_ms(cap * 4 + E * (C * 4 + 8) + C * 3 * B * 4,
-                           3.0 * C * E)
-        print(f"[gathered kernels] hist_gathered {label}: cap={cap} rows={E} "
-              f"C={C} B={B} max_abs_err={max(errs):.3g} ms={ms:.4f} "
+        bms, by = gathered_bound(bt, E, B)
+        print(f"[gathered kernels] hist_gathered {label}: cap={idx.numel()} "
+              f"rows={E} C={C} B={B} nb={nb} feed={bt.dtype} "
+              f"max_abs_err={max(errs):.3g} ms={ms:.4f} "
+              f"graph_ms={graph:.4f} host_us={host:.1f} "
               f"plain_ms={plain:.4f} library_ms={lib:.4f} "
               f"bound_ms={bms:.4f} ({by})", flush=True)
         if label == "onehot root":
             rows.append(dict(name="hist_gathered", route="cuda",
                              source="lightgbm_tpu_torch/csrc/hist_gathered.cu",
                              replaces="lightgbm_tpu/ops/histogram.py:178",
-                             max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                             bound_ms=bms, bound_by=by, library_ms=lib))
+                             max_abs_err=max(errs), ms=ms, graph_ms=graph,
+                             plain_ms=plain, bound_ms=bms, bound_by=by,
+                             library_ms=lib))
     del onehot_bt, ns_bt
     gc.collect()
     torch.cuda.empty_cache()
@@ -1186,10 +1493,12 @@ def main() -> None:
           f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})",
           flush=True)
     rows = phase_kernels(torch, kernels, H, LK, P)
-    st, st32 = phase_main(torch, lt, kernels)
+    st, st32, ns_params, ns_ds = phase_main(torch, lt, kernels)
     for r in rows:
         src = st32 if r["name"] == "hist_masked_f32" else st
         r["launches"] = src["launches"][r["name"]]
+    phase_k1_tree(torch, lt, H, ns_params, ns_ds, "north-star")
+    del ns_ds
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1223,6 +1532,8 @@ def main() -> None:
         # K6 has no caller on any training path (as in the JAX package)
         r["launches"] = ex["launches"][r["name"]]
     rows += gathered_rows
+    phase_k5_tree(torch, lt, H, params, ds)
+    phase_k1_tree(torch, lt, H, params, ds, "onehot, rounds learner")
     del ds, vs, Xv
     gc.collect()
     torch.cuda.empty_cache()
@@ -1238,8 +1549,10 @@ def main() -> None:
         fail("nvidia-smi did not report the card")
     print(smi.stdout.strip().splitlines()[0], flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
+            "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: r.get(k) for k in keys}
+                                  for r in rows]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

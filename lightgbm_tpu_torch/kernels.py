@@ -4,9 +4,10 @@ Each source in csrc/ compiles with nvcc for sm_90a into its own shared
 library with a plain C interface, loaded through ctypes.  The build runs
 at first use — every missing library at once, one nvcc process per
 source, all started together — into build/kernels/ at the root of the
-checkout.  A library's file name carries a hash of its source, so an
-edited source builds anew.  Nothing here runs at import time: the CPU
-tests import every module of the package and never build.
+checkout.  A library's file name carries a hash of its source and of the
+headers of csrc/, so an edited source builds anew.  Nothing here runs at
+import time: the CPU tests import every module of the package and never
+build.
 
 Every kernel wrapper counts its launches in `LAUNCHES` (one per launch,
 nowhere else), so a run can show that a path really went through the
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -29,13 +30,15 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-# entry name -> (source name, C function, argtypes); every function
-# returns the cudaError_t of its launch (0 = success)
+# entry name -> (source name, C function, argtypes, the stream last);
+# every function returns the cudaError_t of its launch (0 = success)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "histogram": ("histogram", "lgbt_hist_multileaf",
-                  [_P, _I, _L, _I, _P, _P, _P, _I, _L, _P, _I, _I, _I, _P,
-                   _P]),
+                  [_P, _I, _L, _I, _P, _P, _P, _L, _P, _I, _I, _I, _P, _P]),
+    "hist_q": ("histogram", "lgbt_hist_q",
+               [_P, _I, _L, _I, _I, _I, _I, _P, _P, _L, _P, _L, _P, _P, _I,
+                _I, _I, _P, _P, _P, _L, _L, _L, _P, _P]),
     "lookup": ("lookup", "lgbt_table_lookup",
                [_P, _I, _I, _P, _L, _P, _P, _P]),
     "partition": ("partition", "lgbt_partition_rows",
@@ -45,8 +48,8 @@ SIGNATURES = {
                      _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                      _P]),
     "hist_gathered": ("hist_gathered", "lgbt_hist_gathered",
-                      [_P, _L, _L, _I, _P, _L, _P, _P, _P, _L, _I, _I, _P,
-                       _P]),
+                      [_P, _I, _L, _L, _I, _I, _I, _P, _L, _L, _I, _P, _P,
+                       _P, _L, _I, _I, _I, _P, _P, _P, _P, _P]),
     "hist_multirow": ("hist_gathered", "lgbt_hist_multirow",
                       [_P, _I, _L, _P, _I, _I, _I, _P, _P]),
 }
@@ -80,7 +83,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the hash covers the headers too: a source includes csrc/*.cuh
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
@@ -136,16 +141,82 @@ def library(source: str) -> ctypes.CDLL:
     return lib
 
 
+# entry name -> its loaded C function
+_fns: Dict[str, Callable[..., int]] = {}
+
+
+def _current_stream() -> int:
+    """The current CUDA stream of the current device, as an int.  The
+    raw getter of PyTorch's CUDA build (the one Triton's launcher calls)
+    skips building a Stream object, a few microseconds a launch."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(torch._C._cuda_getDevice())
+    return torch.cuda.current_stream().cuda_stream
+
+
 def call(name: str, *args) -> None:
     """Run the entry point `name` of SIGNATURES on the current CUDA
     stream and raise if the launch was refused."""
-    source, fn_name, _ = SIGNATURES[name]
-    fn = getattr(library(source), fn_name)
-    err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    fn = _fns.get(name)
+    if fn is None:
+        source, fn_name, _ = SIGNATURES[name]
+        fn = _fns[name] = getattr(library(source), fn_name)
+    err = fn(*args, _current_stream())
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {fn_name} failed to launch: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"CUDA kernel {SIGNATURES[name][1]} failed to "
+                           f"launch: cudaError {err}")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+# scratch (partial tiles) and int32 ticket counters of the kernels that
+# combine partial tiles through tickets (csrc/tile_combine.cuh): one pair
+# a (device, stream), each grown to the largest request.  Kernels on one
+# stream run one after another, so its calls share the pair; a call on
+# another stream gets its own.  Tickets are zero when handed out and left
+# zero by the kernel.  Fresh scratch of a varying size each call made the
+# caching allocator call cudaMalloc every iteration.
+_combine: Dict[Tuple[torch.device, int],
+               Tuple[torch.Tensor, torch.Tensor]] = {}
+# pairs handed out while a CUDA graph was being captured: the graph keeps
+# their addresses, so they stay allocated when a larger request replaces
+# them
+_captured: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def combine_buffers(device: torch.device, n_scratch: int, n_tickets: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scratch, tickets) for a call on the current stream of `device`:
+    at least `n_scratch` int32 words of scratch (contents undefined) and
+    `n_tickets` zeroed int32 ticket counters."""
+    key = (device, _current_stream())
+    buf = _combine.get(key)
+    if (buf is None or buf[0].numel() < n_scratch
+            or buf[1].numel() < n_tickets):
+        sc, tk = buf if buf is not None else (None, None)
+        if sc is None or sc.numel() < n_scratch:
+            sc = torch.empty(max(n_scratch, 1 << 20), dtype=torch.int32,
+                             device=device)
+        if tk is None or tk.numel() < n_tickets:
+            tk = torch.zeros(max(n_tickets, 1024,
+                                 0 if tk is None else 2 * tk.numel()),
+                             dtype=torch.int32, device=device)
+        buf = _combine[key] = (sc, tk)
+    if torch.cuda.is_current_stream_capturing():
+        _captured[id(buf)] = buf
+    return buf
+
+
+_sms: Dict[torch.device, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n

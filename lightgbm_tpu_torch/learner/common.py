@@ -33,14 +33,18 @@ def padded_bin_count(max_num_bin: int) -> int:
     return max(128, int(128 * math.ceil(max_num_bin / 128)))
 
 
-def sentinel_bins_t(dataset) -> np.ndarray:
-    """[N+1, C] int32 transpose of the store (one column per used
-    feature, or per EFB bundle column) with a sentinel row N of bin 0,
-    so that the padded positions of a row-index vector gather
-    branch-free (the exact learner's histogram feed)."""
-    bins_np = dataset.dense_bins(site="bins_t").astype(np.int32)
-    pad = np.zeros((bins_np.shape[0], 1), np.int32)
-    return np.concatenate([bins_np, pad], axis=1).T.copy()
+def sentinel_bins_feed(dataset) -> np.ndarray:
+    """[N+1, C] transpose of the store (one column per used feature, or
+    per EFB bundle column) with a sentinel row N of bin 0, so that the
+    padded positions of a row-index vector gather branch-free: the exact
+    learner's feed of kernel K5.  In the store's own bytes — uint8 when
+    every bin fits one (max_num_bin <= 256), else uint16 — 40 B a onehot
+    row where the JAX package's int32 `sentinel_bins_t` takes 160."""
+    bins_np = dataset.dense_bins(site="bins_t")
+    dt = np.uint8 if dataset.max_num_bin <= 256 else np.uint16
+    out = np.zeros((bins_np.shape[1] + 1, bins_np.shape[0]), dt)
+    out[:-1] = bins_np.T
+    return out
 
 
 def device_memory_bytes(device: torch.device) -> float:

@@ -51,8 +51,9 @@ import torch
 from ..config import Config
 from .. import log
 from ..dataset import Dataset
-from ..ops.histogram import (hist_multileaf_gathered, hist_multileaf_masked,
-                             hist_sparse_gathered, hist_sparse_multileaf)
+from ..ops.histogram import (RowBins, hist_multileaf_gathered,
+                             hist_multileaf_masked, hist_sparse_gathered,
+                             hist_sparse_multileaf, row_major_bins)
 from ..ops.partition import partition_rows, partition_rows_sparse
 from ..ops.sparse_streams import build_sparse_streams
 from ..ops.split import best_split, bundle_predicate_params, maybe_unbundle
@@ -77,7 +78,8 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
                       cache_parent_hist: bool = True,
                       hist_rows: str = "masked", sparse: bool = False,
                       ftbl: Optional[torch.Tensor] = None,
-                      unb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                      unb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      rows: Optional[RowBins] = None
                       ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree in batched rounds.
 
@@ -89,7 +91,9 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
     bool, over the original features — all on one device.  C == F
     unless the store is EFB-bundled; then ftbl is the [5, F] feature
     table and unb the (src, dmask) unbundle tables, both on the device
-    (None for an unbundled store).
+    (None for an unbundled store).  rows (a dense store of at most 256
+    bins) is its row-major byte copy, which the int8 histogram kernel K1
+    reads.
     Returns (TreeArrays on that device, leaf_id [N] int32, host reads
     made).  hist_rows="gathered" keeps the device-resident row
     permutation grouped by leaf with per-leaf (offset, count), stably
@@ -139,7 +143,7 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
                 num_bins_padded=B, input_dtype=input_dtype)
         return hist_multileaf_masked(bins, lid_, gh8, sl_,
                                      num_bins_padded=B,
-                                     input_dtype=input_dtype)
+                                     input_dtype=input_dtype, rows=rows)
 
     # ---- root --------------------------------------------------------------
     gh8 = torch.stack([grad * row_mask, hess * row_mask, row_mask])
@@ -202,7 +206,8 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
                     input_dtype=input_dtype)
             return hist_multileaf_gathered(
                 bins, gh8, perm, leaf_off[slots], leaf_cnt[slots],
-                capacity=cap, num_bins_padded=B, input_dtype=input_dtype)
+                capacity=cap, num_bins_padded=B, input_dtype=input_dtype,
+                rows=rows)
         return hist_masked(leaf_id, slots.to(torch.int32))
 
     rnd = 0
@@ -417,6 +422,12 @@ class RoundsTreeLearner:
                 bins_np = store.astype(np.int32)
             self.bins_dev = torch.as_tensor(bins_np, device=self.device)
             bins_itemsize = int(bins_np.dtype.itemsize)
+        # kernel K1 reads a row's bins from a row-major byte copy of the
+        # store ([N, F4] uint8, a quarter of the int32 store); the [F, N]
+        # store stays for the partition and the score walk
+        self.rows = (row_major_bins(self.bins_dev, dataset.max_num_bin)
+                     if not self.sparse and dataset.max_num_bin <= 256
+                     else None)
         self.num_bins_dev = torch.as_tensor(
             dataset.num_bins.astype(np.int64), device=self.device)
         self.is_cat_dev = torch.as_tensor(dataset.is_categorical,
@@ -466,7 +477,7 @@ class RoundsTreeLearner:
                             cfg.min_sum_hessian_in_leaf),
                         cache_parent_hist=self.cache_parent_hist,
                         hist_rows=self.hist_rows, sparse=self.sparse,
-                        ftbl=self.ftbl, unb=self.unb,
+                        ftbl=self.ftbl, unb=self.unb, rows=self.rows,
                         input_dtype=getattr(cfg, "histogram_dtype",
                                             "float32"))
 

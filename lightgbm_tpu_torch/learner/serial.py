@@ -33,7 +33,7 @@ from ..ops.histogram import histogram_from_indices
 from ..ops.split import (best_split, bundle_predicate_params,
                          identity_feat_table, maybe_unbundle, store_go_left)
 from ..tree import CATEGORICAL_DECISION, NUMERICAL_DECISION, Tree
-from .common import make_split_kw, padded_bin_count, sentinel_bins_t
+from .common import make_split_kw, padded_bin_count, sentinel_bins_feed
 
 
 def _next_pow2(n: int) -> int:
@@ -56,12 +56,15 @@ def compact_rows(mask: torch.Tensor, cap: int, fill: int,
 
 
 def _root_step(bins_t, grad_pad, hess_pad, idx, num_bins, is_cat, fmask,
-               unb, *, num_bins_padded, split_kw):
-    """Histogram of the rows `idx`, its (sum_grad, sum_hess, count) from
-    store column 0 (every row has a bin there, bundled or not) and its
-    best split.  Returns (hist, record [11], sums [3])."""
+               unb, *, num_bins_padded, split_kw, count=None,
+               num_store_bins=None):
+    """Histogram of the rows `idx` (the first `count` positions), its
+    (sum_grad, sum_hess, count) from store column 0 (every row has a bin
+    there, bundled or not) and its best split.  Returns (hist, record
+    [11], sums [3])."""
     hist = histogram_from_indices(bins_t, grad_pad, hess_pad, idx,
-                                  num_bins_padded=num_bins_padded)
+                                  num_bins_padded=num_bins_padded,
+                                  count=count, num_store_bins=num_store_bins)
     sums = hist[0].sum(dim=-1)
     h = maybe_unbundle(hist, unb, sums)
     rec = best_split(h, num_bins, is_cat, fmask, sums[0], sums[1], sums[2],
@@ -93,9 +96,14 @@ class SerialTreeLearner:
         # the bin axis of the store serves the unbundled split search too:
         # a bundle column holds at least as many bins as any member
         self.B = padded_bin_count(dataset.max_num_bin)
-        bt = sentinel_bins_t(dataset)              # [N+1, C]
+        # kernel K5's feed: [N+1, C] in the store's bytes (uint8 up to
+        # 256 bins); the partition and the tree walk read the int32
+        # [C, N+1] store
+        bt = sentinel_bins_feed(dataset)
         self.bins_t = torch.as_tensor(bt, device=self.device)
-        self.bins = self.bins_t.t().contiguous()    # [C, N+1]
+        self.bins = torch.as_tensor(np.ascontiguousarray(bt.T, np.int32),
+                                    device=self.device)
+        self.num_store_bins = int(dataset.max_num_bin)
         self.num_bins_dev = torch.as_tensor(
             dataset.num_bins.astype(np.int64), device=self.device)
         self.is_cat_dev = torch.as_tensor(dataset.is_categorical,
@@ -157,11 +165,25 @@ class SerialTreeLearner:
     def _rows_of(self, leaf: int, cap: int) -> torch.Tensor:
         return compact_rows(self.leaf_id == leaf, cap, self.N, self._arange)
 
-    def _root(self, idx: torch.Tensor):
+    def _live(self, count: int) -> Optional[int]:
+        """The row count handed to the histogram, so that it reads no
+        sentinel position past the leaf's rows: the split records' counts
+        are float32, exact below 2^24 rows (beyond, every position is
+        read)."""
+        return int(count) if self.N < (1 << 24) else None
+
+    def _hist(self, idx: torch.Tensor, count: int) -> torch.Tensor:
+        return histogram_from_indices(
+            self.bins_t, self._grad_pad, self._hess_pad, idx,
+            num_bins_padded=self.B, count=self._live(count),
+            num_store_bins=self.num_store_bins)
+
+    def _root(self, idx: torch.Tensor, count: int):
         hist, rec, sums = _root_step(
             self.bins_t, self._grad_pad, self._hess_pad, idx,
             self.num_bins_dev, self.is_cat_dev, self._fmask, self.unb,
-            num_bins_padded=self.B, split_kw=self.split_kw)
+            num_bins_padded=self.B, split_kw=self.split_kw,
+            count=self._live(count), num_store_bins=self.num_store_bins)
         host = torch.cat([rec, sums]).cpu().numpy()
         self.last_host_syncs += 1
         return hist, host[:11], host[11:].astype(np.float64)
@@ -169,7 +191,8 @@ class SerialTreeLearner:
     def _direct_hist_best(self, leaf: int, info: _LeafInfo):
         """Histogram a leaf directly (no subtraction): the pool-miss
         path (reference HistogramPool miss -> recompute)."""
-        hist, rec, _ = self._root(self._rows_of(leaf, self._cap(info.count)))
+        hist, rec, _ = self._root(self._rows_of(leaf, self._cap(info.count)),
+                                  info.count)
         return hist, rec
 
     def _partition(self, parent: int, new_leaf: int, feat: int, thr: int,
@@ -223,7 +246,7 @@ class SerialTreeLearner:
             self.leaf_id = lid[:N]
             idx = bag_idx.to(torch.int32)
 
-        hist, rec, sums = self._root(idx)
+        hist, rec, sums = self._root(idx, root_count)
         tree = Tree(cfg.num_leaves)
         leaves: Dict[int, _LeafInfo] = {
             0: _LeafInfo(sums[0], sums[1], root_count, 0, hist, rec)}
@@ -275,9 +298,7 @@ class SerialTreeLearner:
                 need_large = need_r if small_is_left else need_l
                 with_subtract = info.hist is not None
                 idx = self._rows_of(small_leaf, self._cap(small.count))
-                hist_small = histogram_from_indices(
-                    self.bins_t, self._grad_pad, self._hess_pad, idx,
-                    num_bins_padded=self.B)
+                hist_small = self._hist(idx, small.count)
                 ss = self._sums_dev(small)
                 recs = [best_split(maybe_unbundle(hist_small, self.unb, ss),
                                    self.num_bins_dev, self.is_cat_dev,

@@ -4,13 +4,13 @@ histograms of the batched-rounds learner (kernels K1, K2, K7, K8).
 Port of lightgbm_tpu/ops/histogram.py.  The gather-fed half:
 `hist_xla` (the plain version of K5), `hist_pallas` (K5's wrapper),
 `histogram_from_indices` (one leaf's histogram over an index vector, the
-exact leaf-wise learner's feed), `hist_multileaf_xla` (the plain version
-of K6), `hist_pallas_multileaf` / `hist_multileaf` (K6's wrappers) and
-`_coerce_dtype`.  Their output is [F, 3, B] (or [F, M, B]) float32.  The
-JAX functions took `backend=` and `interpret=`; here, as in every
-wrapper of the port, the tensor's device decides: a CUDA tensor launches
-the kernel of csrc/hist_gathered.cu, a CPU tensor takes the plain
-version.
+exact leaf-wise learner's feed, in bytes, with the leaf's row count),
+`hist_multileaf_xla` (the plain version of K6), `hist_pallas_multileaf`
+/ `hist_multileaf` (K6's wrappers) and `_coerce_dtype`.  Their output
+is [F, 3, B] (or [F, M, B]) float32.  The JAX functions took `backend=`
+and `interpret=`; here, as in every wrapper of the port, the tensor's
+device decides: a CUDA tensor launches the kernel of
+csrc/hist_gathered.cu, a CPU tensor takes the plain version.
 
 The rounds learner's part: `_quantize_gh`, `hist_multileaf_masked`,
 `gather_segments` and `hist_multileaf_gathered` over the dense store,
@@ -20,15 +20,20 @@ Output layout is the JAX one: [K, F, 3, B] float32, channels (sum_grad,
 sum_hess, count) per slot, feature (store column) and bin.
 
 The TPU kernels built one-hot matrices and contracted them on the MXU;
-the CUDA kernels (csrc/histogram.cu) scatter each row into a per-block
-shared-memory histogram with atomics instead.  K1 (int8 gradients)
-accumulates exactly in int32, so it is bitwise equal to its plain
-version and to the JAX kernel; K2 (float32 / bfloat16 operands)
-accumulates with float atomics, whose order varies run to run.
+the CUDA kernels (csrc/histogram.cu) add each row into a per-block
+shared-memory histogram instead.  K1 (int8 gradients) accumulates
+exactly in int32, so it is bitwise equal to its plain version and to the
+JAX kernel; it reads a row's bins from the learner's row-major byte copy
+of the store (`RowBins`, `row_major_bins`) and, over the gathered feed,
+walks each slot's run of the scratch in tiles (`segment_plan`; its plain
+version `_segments_plain` sums each run straight from its bounds).  K2
+(float32 /
+bfloat16 operands) accumulates with float atomics, whose order varies
+run to run.
 
 int8 quantization (`_quantize_gh`) and the dequantize stay outside the
 kernel, as plain torch ops, exactly as in JAX.  In the gathered row feed
-the kernel reads each scratch position's bins through the row index
+the kernels read each scratch position's bins through the row index
 (`row_idx`) instead of materializing the gathered [F, capacity] copy.
 
 Over the sparse store `hist_sparse_multileaf` runs the CUDA kernels K7
@@ -42,7 +47,7 @@ bin and the int8 dequantize applied.  On the CPU it takes
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,17 +96,18 @@ def _operands(vals: torch.Tensor, input_dtype: str) -> torch.Tensor:
     return vals
 
 
-def _rows_hist_plain(gb_t: torch.Tensor, vals: torch.Tensor,
-                     B: int) -> torch.Tensor:
+def _rows_hist_plain(gb_t: torch.Tensor, vals: torch.Tensor, B: int,
+                     nb: Optional[int] = None) -> torch.Tensor:
     """[F, M, B] float32 sums of vals [M, C] over the positions whose bin
-    gb_t [F, C] falls in each bin; bins outside [0, B) add nothing."""
+    gb_t [F, C] falls in each bin; bins outside [0, nb) add nothing (nb
+    defaults to B)."""
     F, C = gb_t.shape
     M = vals.shape[0]
     dev = gb_t.device
     # out-of-range bins add into one extra cell that is sliced off
     out = torch.zeros(F * M * B + 1, dtype=torch.float32, device=dev)
     b = gb_t.long()
-    ok = ((b >= 0) & (b < B)).reshape(-1)
+    ok = ((b >= 0) & (b < min(B, nb or B))).reshape(-1)
     base = (torch.arange(F, device=dev)[:, None] * (M * B) + b).reshape(-1)
     dump = torch.full((), F * M * B, device=dev)
     for m in range(M):
@@ -110,29 +116,96 @@ def _rows_hist_plain(gb_t: torch.Tensor, vals: torch.Tensor,
     return out[:F * M * B].view(F, M, B)
 
 
+# K5's work (csrc/hist_gathered.cu), sized by the positions it reads:
+# at least K5_MIN_ROWS positions a block, up to K5_BLOCKS_PER_SM blocks an
+# SM over the feature tiles; a feature tile of up to 64 features, with a
+# copy of it for each of the 16 warps when they fit K5_WARP_COPIES_SMEM,
+# else one copy within K5_SMEM
+K5_MIN_ROWS = 512
+K5_BLOCKS_PER_SM = 2
+K5_WARP_COPIES_SMEM = 110 * 1024
+K5_SMEM = 100 * 1024
+_K5_WARPS = 16
+
+# bytes of a bin in the feeds K5 reads
+_BIN_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
+
+
+def _k5_tile_words(f_tile: int, nb: int, warp_copies: bool) -> int:
+    """32-bit words of one K5 tile: [3, nb, f_tile rounded up to 32] with
+    a copy a warp, [f_tile, (3 nb) | 1] with one a block."""
+    if warp_copies:
+        return 3 * nb * (-(-f_tile // 32) * 32)
+    return f_tile * ((3 * nb) | 1)
+
+
+def _k5_layout(F: int, nb: int) -> Tuple[int, bool]:
+    """(features a tile, whether each warp keeps a copy of the tile)."""
+    ft = min(F, 64)
+    # the copies and 32 staged 16-byte rows a warp
+    if (_K5_WARPS * (_k5_tile_words(ft, nb, True) * 4 + 512)
+            <= K5_WARP_COPIES_SMEM):
+        return ft, True
+    return max(1, min(ft, K5_SMEM // (((3 * nb) | 1) * 4))), False
+
+
+def _k5_blocks(n_pos: int, ftiles: int, n_sm: int) -> Tuple[int, int]:
+    """(blocks a feature tile, positions a block) for n_pos positions."""
+    P = max(1, min(-(-n_pos // K5_MIN_ROWS),
+                   K5_BLOCKS_PER_SM * n_sm // ftiles))
+    per_block = -(-n_pos // P)
+    rows = -(-per_block // 32) * 32
+    return -(-n_pos // rows), rows
+
+
 def _gathered_cuda(bins: torch.Tensor, row_stride: int, feat_stride: int,
-                   F: int, idx: Optional[torch.Tensor], C: int,
+                   F: int, idx: Optional[torch.Tensor], n_pos: int,
                    g: torch.Tensor, h: torch.Tensor,
-                   m: Optional[torch.Tensor], n_live: int, B: int,
+                   m: Optional[torch.Tensor], n_live: int, B: int, nb: int,
                    input_dtype: str) -> torch.Tensor:
     """Kernel K5 (csrc/hist_gathered.cu): [F, 3, B] float32 sums of
-    (g[r], h[r], m[r] or r < n_live) over the rows r of the C positions
-    (r = idx[p], or p without an index), bin of (r, f) at
-    bins[r * row_stride + f * feat_stride]."""
-    if bins.dtype != torch.int32:
-        raise TypeError("gathered histogram kernel takes int32 bins")
-    if idx is not None and (idx.dtype != torch.int32 or idx.shape != (C,)):
-        raise TypeError("gathered histogram kernel takes int32 idx [C]")
+    (g[r], h[r], m[r] or r < n_live) over the rows r of the first n_pos
+    positions (r = idx[p], or p without an index), bin of (r, f) at
+    bins[r * row_stride + f * feat_stride] (uint8, uint16 or int32, every
+    bin below nb <= B); bins nb..B-1 of the output are zero.  Calls on
+    one stream share its partial-tile scratch (kernels.combine_buffers)."""
+    if bins.dtype not in _BIN_BYTES:
+        raise TypeError("gathered histogram kernel takes uint8, uint16 or "
+                        "int32 bins")
+    if idx is not None and (idx.dtype != torch.int32
+                            or idx.shape[0] < n_pos):
+        raise TypeError("gathered histogram kernel takes int32 idx of at "
+                        "least n_pos positions")
     for t in (g, h) + ((m,) if m is not None else ()):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError("gathered histogram kernel takes contiguous "
                             "float32 value rows")
-    out = torch.zeros((F, 3, B), dtype=torch.float32, device=bins.device)
-    if C == 0 or F == 0:
-        return out
-    kernels.call("hist_gathered", bins.data_ptr(), row_stride, feat_stride,
-                 F, kernels.ptr(idx), C, g.data_ptr(), h.data_ptr(),
-                 kernels.ptr(m), n_live, B, int(input_dtype == "bfloat16"),
+    if not 1 <= nb <= B:
+        raise ValueError(f"store bins {nb} outside [1, {B}]")
+    dev = bins.device
+    if n_pos == 0 or F == 0:
+        return torch.zeros((F, 3, B), dtype=torch.float32, device=dev)
+    f_tile, warp_copies = _k5_layout(F, nb)
+    ftiles = -(-F // f_tile)
+    P, rows = _k5_blocks(n_pos, ftiles, kernels.sm_count(dev))
+    ng = -(-P // 16)
+    item = _k5_tile_words(f_tile, nb, warp_copies)
+    # the partial tiles' slab, group slab and tickets only when blocks
+    # combine
+    slab = gslab = tickets = None
+    if P > 1:
+        n_slab = ftiles * P * item
+        sc, tk = kernels.combine_buffers(
+            dev, n_slab + (ftiles * ng * item if ng > 1 else 0),
+            ftiles * (ng + 1))
+        slab, tickets = sc.data_ptr(), tk.data_ptr()
+        gslab = slab + 4 * n_slab if ng > 1 else None
+    out = torch.empty((F, 3, B), dtype=torch.float32, device=dev)
+    kernels.call("hist_gathered", bins.data_ptr(), _BIN_BYTES[bins.dtype],
+                 row_stride, feat_stride, F, f_tile, int(warp_copies),
+                 kernels.ptr(idx), n_pos, rows, P, g.data_ptr(),
+                 h.data_ptr(), kernels.ptr(m), n_live, nb, B,
+                 int(input_dtype == "bfloat16"), slab, gslab, tickets,
                  out.data_ptr())
     kernels.LAUNCHES["hist_gathered"] += 1
     return out
@@ -160,52 +233,74 @@ def hist_pallas(gb_t: torch.Tensor, vals8: torch.Tensor, *,
         return hist_xla(gb_t.t(), vals8[:3], num_bins_padded=num_bins_padded,
                         input_dtype=input_dtype)
     F, C = gb_t.shape
-    gb_t = gb_t.contiguous()
+    gb_t = gb_t.to(torch.int32).contiguous()
     v = vals8[:3].to(torch.float32).contiguous()
     return _gathered_cuda(gb_t, 1, C, F, None, C, v[0], v[1], v[2], C,
-                          num_bins_padded, input_dtype)
+                          num_bins_padded, num_bins_padded, input_dtype)
 
 
 def _from_indices_plain(bins_t: torch.Tensor, grad_pad: torch.Tensor,
                         hess_pad: torch.Tensor, idx: torch.Tensor, B: int,
-                        input_dtype: str = "float32") -> torch.Tensor:
+                        input_dtype: str = "float32",
+                        count: Optional[int] = None,
+                        nb: Optional[int] = None) -> torch.Tensor:
     """The plain version of histogram_from_indices on any device: gather
-    the rows, then `hist_xla`'s sums."""
+    the rows of the first `count` positions (all without a count), then
+    `hist_xla`'s sums over bins below nb."""
     N = grad_pad.shape[0] - 1
+    if count is not None:
+        idx = idx[:count]
     il = idx.long()
     vals = torch.stack([grad_pad[il], hess_pad[il],
                         (idx < N).to(torch.float32)])
-    return _rows_hist_plain(bins_t[il].t(), _operands(vals, input_dtype), B)
+    return _rows_hist_plain(bins_t[il].t(), _operands(vals, input_dtype), B,
+                            nb)
 
 
 def _from_indices_cuda(bins_t: torch.Tensor, grad_pad: torch.Tensor,
                        hess_pad: torch.Tensor, idx: torch.Tensor, B: int,
-                       input_dtype: str = "float32") -> torch.Tensor:
+                       input_dtype: str = "float32",
+                       count: Optional[int] = None,
+                       nb: Optional[int] = None) -> torch.Tensor:
     """Kernel K5 with histogram_from_indices' contract: each position's
-    row bins are read through idx in the [N+1, F] store."""
+    row bins are read through idx in the [N+1, F] feed; positions from
+    `count` on are not read."""
     N = grad_pad.shape[0] - 1
     F = bins_t.shape[1]
-    return _gathered_cuda(bins_t.contiguous(), F, 1, F,
-                          idx.to(torch.int32).contiguous(), idx.shape[0],
-                          grad_pad.contiguous(), hess_pad.contiguous(), None,
-                          N, B, input_dtype)
+    n_pos = idx.shape[0] if count is None else min(int(count), idx.shape[0])
+    if idx.dtype != torch.int32:
+        idx = idx.to(torch.int32)
+    return _gathered_cuda(bins_t.contiguous(), F, 1, F, idx.contiguous(),
+                          n_pos, grad_pad.contiguous(),
+                          hess_pad.contiguous(), None, N, B, nb or B,
+                          input_dtype)
 
 
 def histogram_from_indices(bins_t: torch.Tensor, grad_pad: torch.Tensor,
                            hess_pad: torch.Tensor, idx: torch.Tensor, *,
                            num_bins_padded: int,
-                           input_dtype: str = "float32") -> torch.Tensor:
+                           input_dtype: str = "float32",
+                           count: Optional[int] = None,
+                           num_store_bins: Optional[int] = None
+                           ) -> torch.Tensor:
     """hist [F, 3, B] float32 over the rows named by `idx`.
 
-    bins_t [N+1, F] int32 bins, row N the sentinel (any value);
-    grad_pad, hess_pad [N+1] float32 with [N] == 0; idx [C] int32 row ids
-    padded with N.  Padded positions add nothing (zero gradient, mask
-    idx < N).  A CUDA tensor launches kernel K5, which reads each row's
-    bins through idx (the gathered [C, F] copy is never built); a CPU
-    tensor gathers and takes the plain version (`hist_xla`'s sums)."""
+    bins_t [N+1, F] integer bins (the exact learner's uint8 or uint16
+    feed, or int32), row N the sentinel (any value); grad_pad, hess_pad
+    [N+1] float32 with [N] == 0; idx [C] int32 row ids padded with N.
+    Padded positions add nothing (zero gradient, mask idx < N).  `count`
+    (optional) is the number of leading positions that hold rows — the
+    leaf's row count when its rows come first, as `compact_rows` puts
+    them; positions from it on are not read.  `num_store_bins`
+    (optional, default B) bounds every bin of the feed; output bins from
+    it on are zero.  A CUDA tensor launches kernel K5, which reads each
+    row's bins through idx (the gathered [C, F] copy is never built); a
+    CPU tensor gathers and takes the plain version (`hist_xla`'s
+    sums)."""
     input_dtype = _coerce_dtype(input_dtype)
     fn = _from_indices_cuda if bins_t.is_cuda else _from_indices_plain
-    return fn(bins_t, grad_pad, hess_pad, idx, num_bins_padded, input_dtype)
+    return fn(bins_t, grad_pad, hess_pad, idx, num_bins_padded, input_dtype,
+              count, num_store_bins)
 
 
 def hist_multileaf_xla(gb_t: torch.Tensor, vals: torch.Tensor, *,
@@ -275,23 +370,53 @@ def _quantize_gh(gh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
     return ghq, sg, sh
 
 
-def _hist_plain(bins: torch.Tensor, row_idx: Optional[torch.Tensor],
-                lid: torch.Tensor, vals: torch.Tensor, sl: torch.Tensor,
-                B: int, round_bf16: bool = False) -> torch.Tensor:
-    """Plain version of both kernels: [K, F, 3, B] sums of vals [3, C]
-    (int32 -> int32 exactly, float32 -> float32) over the positions whose
-    lid equals each slot's sl, binned by bins[f, row_idx[p] or p]."""
+class RowBins(NamedTuple):
+    """The rounds learner's row-major byte copy of its [F, N] store:
+    rows [N, F4] uint8 (F4 = F rounded up to 4, the pad columns zero),
+    and num_bins, a bound on every bin of the store (its largest bin
+    count).  Kernel K1 reads a row's bins from it with 32-bit loads."""
+    rows: torch.Tensor
+    num_bins: int
+
+
+def row_major_bins(bins: torch.Tensor, num_bins: int) -> RowBins:
+    """The row-major byte copy of an [F, N] store of at most 256 bins, on
+    the store's device: from the int32 store, or the int8 one holding
+    value - 128."""
+    if num_bins > 256:
+        raise ValueError(f"a byte copy holds at most 256 bins, not "
+                         f"{num_bins}")
+    F, N = bins.shape
+    rows = torch.zeros((N, -(-F // 4) * 4), dtype=torch.uint8,
+                       device=bins.device)
+    off = 128 if bins.dtype == torch.int8 else 0
+    for f in range(F):
+        rows[:, f] = (bins[f].to(torch.int32) + off).to(torch.uint8)
+    return RowBins(rows, int(num_bins))
+
+
+def _hist_pairs(bins: torch.Tensor, rows: Optional[RowBins],
+                row_idx: Optional[torch.Tensor], kk: torch.Tensor,
+                pp: torch.Tensor, vals: torch.Tensor, K: int, B: int,
+                round_bf16: bool = False) -> torch.Tensor:
+    """[K, F, 3, B] sums of vals [3, C] (int32 -> int32 exactly, float32
+    -> float32) over the (slot kk[e], position pp[e]) pairs, each pair
+    once, binned by the bins of row row_idx[p] (or p): from the byte copy
+    when given (bins below its num_bins), else from bins[f, row]."""
     F = bins.shape[0]
-    K = sl.shape[0]
     dev = bins.device
     acc = torch.int64 if not vals.is_floating_point() else torch.float32
     out = torch.zeros(K * F * 3 * B, dtype=acc, device=dev)
-    kk, pp = torch.nonzero(lid[None, :] == sl[:, None], as_tuple=True)
     if pp.numel():
-        rows = pp if row_idx is None else row_idx[pp].long()
-        off = 128 if bins.dtype == torch.int8 else 0
-        b = bins[:, rows].long() + off                        # [F, E]
-        ok = (b >= 0) & (b < B)
+        r = pp if row_idx is None else row_idx[pp].long()
+        if rows is not None:
+            b = rows.rows[r, :F].t().long()                    # [F, E]
+            hi = min(B, rows.num_bins)
+        else:
+            off = 128 if bins.dtype == torch.int8 else 0
+            b = bins[:, r].long() + off                        # [F, E]
+            hi = B
+        ok = (b >= 0) & (b < hi)
         f = torch.arange(F, device=dev)[:, None]
         v = vals[:, pp]
         if round_bf16:
@@ -304,20 +429,33 @@ def _hist_plain(bins: torch.Tensor, row_idx: Optional[torch.Tensor],
     return out.to(torch.int32) if acc == torch.int64 else out
 
 
+def _hist_plain(bins: torch.Tensor, row_idx: Optional[torch.Tensor],
+                lid: torch.Tensor, vals: torch.Tensor, sl: torch.Tensor,
+                B: int, round_bf16: bool = False,
+                rows: Optional[RowBins] = None) -> torch.Tensor:
+    """Plain version of both kernels over the masked feed: [K, F, 3, B]
+    sums of vals [3, C] (int32 -> int32 exactly, float32 -> float32) over
+    the positions whose lid equals each slot's sl, binned by
+    bins[f, row_idx[p] or p] (or the byte copy `rows`)."""
+    kk, pp = torch.nonzero(lid[None, :] == sl[:, None], as_tuple=True)
+    return _hist_pairs(bins, rows, row_idx, kk, pp, vals, sl.shape[0], B,
+                       round_bf16)
+
+
 def _hist_cuda(bins: torch.Tensor, row_idx: Optional[torch.Tensor],
                lid: torch.Tensor, vals: torch.Tensor, sl: torch.Tensor,
                B: int, round_bf16: bool = False) -> torch.Tensor:
+    """Kernel K2 (csrc/histogram.cu `hist_kernel<BinT, float>`):
+    _hist_plain's float32 sums over the [F, N] store."""
     F, n_stride = bins.shape
     K = sl.shape[0]
     C = lid.shape[0]
-    quant = not vals.is_floating_point()
     if bins.dtype not in (torch.int32, torch.int8):
         raise TypeError("histogram kernel takes int32 or int8 bins")
-    if (vals.dtype not in (torch.int32, torch.float32)
-            or vals.shape != (3, C) or lid.dtype != torch.int32
-            or sl.dtype != torch.int32):
-        raise TypeError("histogram kernel takes int32 lid/sl and [3, C] "
-                        "int32 or float32 vals")
+    if (vals.dtype != torch.float32 or vals.shape != (3, C)
+            or lid.dtype != torch.int32 or sl.dtype != torch.int32):
+        raise TypeError("histogram kernel K2 takes int32 lid/sl and [3, C] "
+                        "float32 vals")
     if row_idx is not None and (row_idx.dtype != torch.int32
                                 or row_idx.shape != (C,)):
         raise TypeError("row_idx must be int32 [C]")
@@ -333,64 +471,241 @@ def _hist_cuda(bins: torch.Tensor, row_idx: Optional[torch.Tensor],
     row_idx = None if row_idx is None else row_idx.contiguous()
     kernels.call("histogram", bins.data_ptr(), int(bins.dtype == torch.int8),
                  n_stride, F, kernels.ptr(row_idx), lid.data_ptr(),
-                 vals.data_ptr(), int(quant), C, sl.data_ptr(), K, B,
-                 int(round_bf16), out.data_ptr())
-    kernels.LAUNCHES["hist_masked_int8" if quant else "hist_masked_f32"] += 1
+                 vals.data_ptr(), C, sl.data_ptr(), K, B, int(round_bf16),
+                 out.data_ptr())
+    kernels.LAUNCHES["hist_masked_f32"] += 1
+    return out
+
+
+# K1's work (csrc/histogram.cu `hist_q_kernel`): positions a block of at
+# least K1_TILE_ROWS, up to K1_BLOCKS_PER_SM blocks an SM over the
+# feature tiles; a feature tile as wide as K1_SMEM holds over the gathered
+# feed, half that over the masked one
+K1_TILE_ROWS = 2048
+K1_BLOCKS_PER_SM = 2
+K1_SMEM = 96 * 1024
+
+
+def _k1_feature_tile(F: int, nb: int, row_feed: bool, gathered: bool) -> int:
+    """Features a K1 tile: a multiple of 4 (at most 128) over the byte
+    copy, at most 32 over the [F, N] store.  The gathered feed reads each
+    row through its index, and a second feature tile reads it again, so
+    its tile takes the whole budget; the masked feed reads rows in order
+    and takes half (twice the resident blocks an SM), which timed faster
+    on the root pass (PERF.md, section 6)."""
+    S = (3 * nb) | 1
+    ft = max(1, (K1_SMEM if gathered else K1_SMEM // 2) // (S * 4))
+    if row_feed:
+        return max(4, min(-(-F // 4) * 4, 128, ft // 4 * 4))
+    return max(1, min(F, 32, ft))
+
+
+def _k1_tile_rows(C: int, blocks: int) -> int:
+    """Positions a tile so that C positions take about `blocks` blocks,
+    at least K1_TILE_ROWS, a multiple of 32."""
+    return -(-max(K1_TILE_ROWS, -(-C // max(1, blocks))) // 32) * 32
+
+
+def segment_plan(base: torch.Tensor, tile_rows: int, n_blocks: int):
+    """The gathered feed's work plan, as kernel K1 computes it: slot k's
+    run [base[k], base[k+1]) of the scratch is cut into
+    max(1, ceil(cnt / tile_rows)) tiles, numbered slot by slot; block b
+    takes tile b.  Returns (slot, lo, hi) [n_blocks] int64: block b adds
+    positions [lo[b], hi[b]) to slot[b], and slot -1 marks a block past
+    the work.  n_blocks = ceil(capacity / tile_rows) + K bounds the
+    tiles."""
+    base = base.long()
+    K = base.numel() - 1
+    cnt = base[1:] - base[:-1]
+    P = torch.clamp((cnt + tile_rows - 1) // tile_rows, min=1)
+    end = torch.cumsum(P, 0)
+    b = torch.arange(n_blocks, dtype=torch.int64, device=base.device)
+    k = torch.clamp(torch.searchsorted(end, b, right=True), max=K - 1)
+    lo = base[k] + (b - (end[k] - P[k])) * tile_rows
+    hi = torch.minimum(base[k + 1], lo + tile_rows)
+    valid = b < end[K - 1]
+    zero = torch.zeros_like(lo)
+    return (torch.where(valid, k, torch.full_like(k, -1)),
+            torch.where(valid, lo, zero), torch.where(valid, hi, zero))
+
+
+def _k1_plan(C: int, K: int, F: int, nb: int, row_feed: bool, n_sm: int,
+             gathered: bool):
+    """(f_tile, tile_rows, n_blocks, P_masked) of one K1 launch: the
+    gathered feed's grid bounds its tiles, ceil(C / tile_rows) + K; the
+    masked feed cuts each slot's C positions into P_masked tiles."""
+    f_tile = _k1_feature_tile(F, nb, row_feed, gathered)
+    ftiles = -(-F // f_tile)
+    target = max(1, K1_BLOCKS_PER_SM * n_sm // ftiles)
+    if gathered:
+        T = _k1_tile_rows(C, target)
+        return f_tile, T, -(-C // T) + K, 0
+    T = _k1_tile_rows(C, max(1, target // K))
+    P = max(1, -(-C // T))
+    return f_tile, T, K * P, P
+
+
+def _segments_plain(bins: torch.Tensor, rows: Optional[RowBins],
+                    row_idx: Optional[torch.Tensor], vals: torch.Tensor,
+                    base: torch.Tensor, B: int) -> torch.Tensor:
+    """Plain version of kernel K1 over the gathered feed: every position
+    of slot k's run [base[k], base[k+1]) adds once to slot k."""
+    K = base.numel() - 1
+    base = base.long()
+    kk = torch.repeat_interleave(torch.arange(K, device=base.device),
+                                 base[1:] - base[:-1])
+    pp = base[0] + torch.arange(kk.numel(), dtype=torch.int64,
+                                device=base.device)
+    return _hist_pairs(bins, rows, row_idx, kk, pp, vals, K, B)
+
+
+def _hist_q_cuda(bins: torch.Tensor, rows: Optional[RowBins],
+                 row_idx: Optional[torch.Tensor], vals: torch.Tensor, B: int,
+                 *, lid: Optional[torch.Tensor] = None,
+                 sl: Optional[torch.Tensor] = None,
+                 base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel K1 (csrc/histogram.cu `hist_q_kernel`): [K, F, 3, B] int32
+    sums of vals [3, C] int32.  Gathered feed: base [K+1] bounds slot k's
+    run of positions; masked feed: lid [C] and sl [K], a position adding
+    to the slots whose leaf id it holds.  Bins from the byte copy `rows`
+    when given, else from the [F, N] store `bins` (int32 or int8).  Calls
+    on one stream share its partial-tile scratch
+    (kernels.combine_buffers)."""
+    F, n_stride = bins.shape
+    C = vals.shape[1]
+    if vals.dtype != torch.int32 or vals.shape != (3, C):
+        raise TypeError("histogram kernel K1 takes [3, C] int32 vals")
+    if row_idx is not None and (row_idx.dtype != torch.int32
+                                or row_idx.shape != (C,)):
+        raise TypeError("row_idx must be int32 [C]")
+    if base is None and (lid is None or sl is None or lid.shape != (C,)
+                         or lid.dtype != torch.int32
+                         or sl.dtype != torch.int32):
+        raise TypeError("the masked feed takes int32 lid [C] and sl [K]")
+    if rows is not None:
+        feed, src, stride = 0, rows.rows, rows.rows.shape[1]
+        nb = min(B, rows.num_bins)
+        if rows.rows.dtype != torch.uint8 or rows.rows.shape[1] < F:
+            raise TypeError("the byte copy must be [N, F4] uint8")
+    elif bins.dtype in (torch.int32, torch.int8):
+        feed = 1 if bins.dtype == torch.int32 else 2
+        src, stride, nb = bins, n_stride, B
+    else:
+        raise TypeError("histogram kernel takes int32 or int8 bins")
+    K = base.numel() - 1 if base is not None else sl.shape[0]
+    dev = bins.device
+    if K == 0 or F == 0 or (C == 0 and base is None):
+        return torch.zeros((K, F, 3, B), dtype=torch.int32, device=dev)
+    gathered = base is not None
+    f_tile, T, n_blocks, P_m = _k1_plan(C, K, F, nb, rows is not None,
+                                        kernels.sm_count(dev), gathered)
+    ftiles = -(-F // f_tile)
+    item = f_tile * ((3 * nb) | 1)
+    if gathered:
+        slab_items, gslab_items = n_blocks, -(-n_blocks // 16) + K
+        ticket_items = n_blocks + K
+    else:
+        ng = -(-P_m // 16)
+        slab_items, gslab_items, ticket_items = K * P_m, K * ng, K * (ng + 1)
+    # the slab and the group slab
+    n_slab = ftiles * slab_items * item
+    slab, tickets = kernels.combine_buffers(
+        dev, n_slab + ftiles * gslab_items * item, ftiles * ticket_items)
+    src = src.contiguous()
+    vals = vals.contiguous()
+    row_idx = None if row_idx is None else row_idx.contiguous()
+    base = None if base is None else base.to(torch.int64).contiguous()
+    lid = None if lid is None else lid.contiguous()
+    sl = None if sl is None else sl.contiguous()
+    out = torch.empty((K, F, 3, B), dtype=torch.int32, device=dev)
+    kernels.call("hist_q", src.data_ptr(), feed, stride, F, f_tile, nb, B,
+                 kernels.ptr(row_idx), vals.data_ptr(), C, kernels.ptr(base),
+                 T, kernels.ptr(lid), kernels.ptr(sl), P_m, K, n_blocks,
+                 slab.data_ptr(), slab.data_ptr() + 4 * n_slab,
+                 tickets.data_ptr(), slab_items, gslab_items, ticket_items,
+                 out.data_ptr())
+    kernels.LAUNCHES["hist_masked_int8"] += 1
     return out
 
 
 def hist_counts(bins, row_idx, lid, vals, sl, B: int,
-                round_bf16: bool = False) -> torch.Tensor:
-    """Dispatch: kernel K1 (int32 vals) / K2 (float32 vals) for CUDA
-    tensors, the plain version for CPU tensors."""
-    fn = _hist_cuda if bins.is_cuda else _hist_plain
-    return fn(bins, row_idx, lid, vals, sl, B, round_bf16)
+                round_bf16: bool = False,
+                rows: Optional[RowBins] = None) -> torch.Tensor:
+    """Dispatch of the masked feed: kernel K1 (int32 vals, the byte copy
+    `rows` when given) / K2 (float32 vals) for CUDA tensors, the plain
+    version for CPU tensors."""
+    quant = not vals.is_floating_point()
+    if not bins.is_cuda:
+        return _hist_plain(bins, row_idx, lid, vals, sl, B, round_bf16,
+                           rows if quant else None)
+    if quant:
+        return _hist_q_cuda(bins, rows, row_idx, vals, B, lid=lid, sl=sl)
+    return _hist_cuda(bins, row_idx, lid, vals, sl, B, round_bf16)
+
+
+def segment_counts(bins, rows: Optional[RowBins], row_idx, vals,
+                   base: torch.Tensor, B: int) -> torch.Tensor:
+    """Dispatch of K1 over the gathered feed (int32 vals, slot k's
+    positions [base[k], base[k+1])): the kernel for CUDA tensors, its
+    plain version for CPU tensors."""
+    if bins.is_cuda:
+        return _hist_q_cuda(bins, rows, row_idx, vals, B, base=base)
+    return _segments_plain(bins, rows, row_idx, vals, base, B)
+
+
+def _int8_ok(C: int) -> bool:
+    """int8 eligibility of a dense pass over C positions (the
+    int32-exactness bound), warning when it is refused."""
+    if C > INT8_MAX_ROWS:
+        log.warning("histogram_dtype=int8 disabled for this pass: "
+                    f"{C} rows exceeds the int32-exactness bound "
+                    "(16M rows per device); using bfloat16")
+        return False
+    return True
+
+
+def _dequantize(h: torch.Tensor, sg: torch.Tensor,
+                sh: torch.Tensor) -> torch.Tensor:
+    """[K, F, 3, B] int32 sums -> float32, (grad, hess) scaled once."""
+    h = h.to(torch.float32)
+    return torch.stack([h[:, :, 0] * sg, h[:, :, 1] * sh, h[:, :, 2]], dim=2)
 
 
 def hist_multileaf_masked(gb_t: torch.Tensor, lid: torch.Tensor,
                           gh8: torch.Tensor, sl: torch.Tensor, *,
                           num_bins_padded: int,
                           input_dtype: str = "float32",
-                          row_idx: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          row_idx: Optional[torch.Tensor] = None,
+                          rows: Optional[RowBins] = None) -> torch.Tensor:
     """Histogram K leaves in one pass, masks built on the fly.
 
     gb_t [F, N] int bins (int8 = value-128 storage); lid [C] int32 leaf
     id per position; gh8 [>=3, C] f32 (grad·rm, hess·rm, rm); sl [K]
     int32 leaf ids to histogram (-1 = empty slot).  Position p reads
     bins column row_idx[p] when row_idx is given, else column p.
-    Returns [K, F, 3, B] f32.
+    Returns [K, F, 3, B] f32.  `rows` (optional) is the store's
+    row-major byte copy, which the int8 path reads instead.
 
     input_dtype "int8" quantizes grad/hess per pass (`_quantize_gh`),
     accumulates exactly in int32 (K1) and dequantizes once; "float32" /
     "bfloat16" accumulate in float32 (K2), bfloat16 rounding the
     operands first."""
-    C = lid.shape[0]
     B = num_bins_padded
-    quant = input_dtype == "int8"
-    if quant and C > INT8_MAX_ROWS:
-        log.warning("histogram_dtype=int8 disabled for this pass: "
-                    f"{C} rows exceeds the int32-exactness bound "
-                    "(16M rows per device); using bfloat16")
-        quant = False
+    if input_dtype == "int8":
+        if _int8_ok(lid.shape[0]):
+            ghq, sg, sh = _quantize_gh(gh8)
+            return _dequantize(hist_counts(gb_t, row_idx, lid, ghq, sl, B,
+                                           rows=rows), sg, sh)
         input_dtype = "bfloat16"
-    if quant:
-        ghq, sg, sh = _quantize_gh(gh8)
-        h = hist_counts(gb_t, row_idx, lid, ghq, sl, B).to(torch.float32)
-        return torch.stack([h[:, :, 0] * sg, h[:, :, 1] * sh, h[:, :, 2]],
-                           dim=2)
     vals = gh8[:3].to(torch.float32)
     return hist_counts(gb_t, row_idx, lid, vals, sl, B,
                        round_bf16=input_dtype == "bfloat16")
 
 
-def gather_segments(perm: torch.Tensor, seg_off: torch.Tensor,
-                    seg_cnt: torch.Tensor, *, capacity: int):
-    """Concatenate K contiguous segments of the row permutation `perm`
-    into one [capacity] scratch layout.  Returns (idx [capacity] int32
-    row ids — clamped but arbitrary past the live rows, slot [capacity]
-    int32 slot id per position with -2 marking unused positions, total
-    rows).  sum(seg_cnt) must not exceed capacity."""
+def _gather_segments(perm: torch.Tensor, seg_off: torch.Tensor,
+                     seg_cnt: torch.Tensor, capacity: int):
+    """gather_segments, plus base [K+1] int64: slot k's positions are
+    [base[k], base[k+1]) of the scratch."""
     K = seg_off.shape[0]
     dev = perm.device
     base = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
@@ -404,28 +719,46 @@ def gather_segments(perm: torch.Tensor, seg_off: torch.Tensor,
     pos = torch.clamp(pos, 0, perm.shape[0] - 1)
     idx = perm[pos].to(torch.int32)
     slot = torch.where(valid, sc, torch.full_like(sc, -2)).to(torch.int32)
-    return idx, slot, total
+    return idx, slot, total, base
+
+
+def gather_segments(perm: torch.Tensor, seg_off: torch.Tensor,
+                    seg_cnt: torch.Tensor, *, capacity: int):
+    """Concatenate K contiguous segments of the row permutation `perm`
+    into one [capacity] scratch layout.  Returns (idx [capacity] int32
+    row ids — clamped but arbitrary past the live rows, slot [capacity]
+    int32 slot id per position with -2 marking unused positions, total
+    rows).  sum(seg_cnt) must not exceed capacity."""
+    return _gather_segments(perm, seg_off, seg_cnt, capacity)[:3]
 
 
 def hist_multileaf_gathered(bins_fn: torch.Tensor, gh8: torch.Tensor,
                             perm: torch.Tensor, seg_off: torch.Tensor,
                             seg_cnt: torch.Tensor, *, capacity: int,
                             num_bins_padded: int,
-                            input_dtype: str = "float32") -> torch.Tensor:
+                            input_dtype: str = "float32",
+                            rows: Optional[RowBins] = None) -> torch.Tensor:
     """Histogram K leaf-contiguous row segments in one pass over a
     [capacity] scratch: slot k holds segment k's histogram, exactly
     hist_multileaf_masked's output for that leaf.  On the int8 path the
-    quantization scales derive from the gathered rows only, as in JAX.
-    The kernel reads bins through the gathered row ids; only the
-    [3, capacity] gradient rows are gathered here."""
+    quantization scales derive from the gathered rows only, as in JAX,
+    and kernel K1 walks each slot's run of the scratch, [base[k],
+    base[k+1]), reading bins through the gathered row ids (from the byte
+    copy `rows` when given); only the [3, capacity] gradient rows are
+    gathered here.  float32 / bfloat16 take K2 over the slot ids."""
     K = seg_off.shape[0]
-    idx, slot, _ = gather_segments(perm, seg_off, seg_cnt,
-                                   capacity=capacity)
+    B = num_bins_padded
+    idx, slot, _, base = _gather_segments(perm, seg_off, seg_cnt, capacity)
     live = (slot >= 0).to(torch.float32)
     ghg = gh8[:3][:, idx.long()] * live[None, :]
+    if input_dtype == "int8":
+        if _int8_ok(capacity):
+            ghq, sg, sh = _quantize_gh(ghg)
+            return _dequantize(segment_counts(bins_fn, rows, idx, ghq, base,
+                                              B), sg, sh)
+        input_dtype = "bfloat16"
     sl = torch.arange(K, dtype=torch.int32, device=bins_fn.device)
-    return hist_multileaf_masked(bins_fn, slot, ghg, sl,
-                                 num_bins_padded=num_bins_padded,
+    return hist_multileaf_masked(bins_fn, slot, ghg, sl, num_bins_padded=B,
                                  input_dtype=input_dtype, row_idx=idx)
 
 

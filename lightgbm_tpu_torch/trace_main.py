@@ -31,7 +31,8 @@ import torch
 TRACED = 3
 WARMUP = 2
 # the kernel symbols of csrc/, by the name chip_smoke.py reports
-OWN_KERNELS = {"hist_kernel": "hist_masked (K1/K2)",
+OWN_KERNELS = {"hist_q_kernel": "hist_masked_int8 (K1)",
+               "hist_kernel": "hist_masked_f32 (K2)",
                "lookup_kernel": "table_lookup (K3)",
                "partition_kernel": "partition_rows (K4)",
                "hist_sparse_kernel": "hist_sparse (K7/K8)",

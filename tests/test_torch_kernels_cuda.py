@@ -20,9 +20,11 @@ version reorder, so a stored cell agrees within n * 2^-23 * sum|x| of
 its own n entries; a zero bin (slot total minus the column's stored
 sums, each reordered on both sides) within n * 2^-22 * sum|x| of the
 slot's n rows.  With dyadic gradients every partial sum is exact and K8
-is bitwise.  K5 (gathered-row histogram) and K6 (M-row histogram) add
-with float atomics too and are held to the same n * 2^-23 * sum|x| per
-cell, bitwise on dyadic values, their count channel always bitwise.
+is bitwise.  K5 (gathered-row histogram) sums each cell in a fixed
+order that differs from its plain version's, and K6 (M-row histogram)
+adds with float atomics; both are held to the same n * 2^-23 * sum|x|
+per cell, bitwise on dyadic values, their count channel always bitwise;
+K5 is also bitwise from run to run.
 """
 import numpy as np
 import pytest
@@ -91,6 +93,107 @@ def test_hist_gathered_kernel_vs_plain(dev):
     out = th.hist_multileaf_gathered(bins.to(dev), gh.to(dev), perm.to(dev),
                                      so.to(dev), sn.to(dev), **kw).cpu()
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
+
+
+def _segment_case(seed, K, capacity, total, F=28, nb=255, empty=(1,)):
+    """Bins [F, N], the row-major byte copy, a scratch of `capacity`
+    positions whose first `total` fall in K slot runs (the `empty` slots
+    hold none), row ids and quantized values (zero past the runs)."""
+    rng = np.random.RandomState(seed)
+    N = capacity + 1000
+    gb = rng.randint(0, nb, size=(F, N)).astype(np.int32)
+    w = rng.rand(K)
+    w[[e for e in empty if e < K]] = 0
+    cnt = rng.multinomial(total, w / w.sum())
+    base = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int64)
+    row_idx = rng.randint(0, N, size=capacity).astype(np.int32)
+    vals = np.zeros((3, capacity), np.int32)
+    vals[0, :total] = rng.randint(-127, 128, total)
+    vals[1, :total] = rng.randint(0, 128, total)
+    vals[2, :total] = 1
+    return [torch.as_tensor(x) for x in (gb, base, row_idx, vals)]
+
+
+@pytest.mark.parametrize("K,capacity,total,tile,feed,F,nb", [
+    (84, 60_000, 57_000, None, "rows32", 28, 255),   # the learner's pass
+    (15, 60_000, 40_000, 256, "rows8", 28, 255),     # slots over >16 blocks
+    (1, 50_000, 50_000, 512, "cols32", 28, 255),     # one slot, 98 blocks
+    (7, 30_000, 20_000, 256, "cols8", 28, 255),      # capacity > total
+    (84, 60_000, 57_000, None, "rows32", 40, 7),     # the onehot store
+    (15, 60_000, 40_000, 256, "rows8", 40, 7),
+])
+def test_hist_q_kernel_segments_vs_plain(dev, monkeypatch, K, capacity,
+                                         total, tile, feed, F, nb):
+    """K1 over the gathered feed's segment plan, bitwise equal to its
+    plain version over the runs' bounds, to the masked-feed one over slot
+    ids, and from run to run; small tiles split slots across blocks."""
+    if tile is not None:
+        monkeypatch.setattr(th, "K1_TILE_ROWS", tile)
+    gb, base, row_idx, vals = _segment_case(K + capacity, K, capacity, total,
+                                            F=F, nb=nb)
+    bins = gb if feed.endswith("32") else (gb - 128).to(torch.int8)
+    rows = th.row_major_bins(bins, nb) if feed.startswith("rows") else None
+    ref = th._segments_plain(bins, rows, row_idx, vals, base, 256)
+    slot = torch.full((capacity,), -2, dtype=torch.int32)
+    cnt = (base[1:] - base[:-1]).numpy()
+    slot[:total] = torch.as_tensor(np.repeat(np.arange(K), cnt).astype(
+        np.int32))
+    masked = th._hist_plain(bins, row_idx, slot, vals,
+                            torch.arange(K, dtype=torch.int32), 256)
+    np.testing.assert_array_equal(ref.numpy(), masked.numpy())
+    rd = None if rows is None else th.RowBins(rows.rows.to(dev),
+                                              rows.num_bins)
+    before = kernels.LAUNCHES["hist_masked_int8"]
+    out = [th.segment_counts(bins.to(dev), rd, row_idx.to(dev),
+                             vals.to(dev), base.to(dev), 256).cpu()
+           for _ in range(2)]
+    assert kernels.LAUNCHES["hist_masked_int8"] == before + 2
+    np.testing.assert_array_equal(out[0].numpy(), ref.numpy())
+    np.testing.assert_array_equal(out[1].numpy(), ref.numpy())
+
+
+def test_combine_buffers_per_stream(dev):
+    """Calls on one stream share the K1/K5 combine scratch and tickets;
+    a call on another stream gets a pair of its own, tickets zeroed."""
+    d = torch.empty(1, device=dev).device
+    a = kernels.combine_buffers(d, 10, 10)
+    assert kernels.combine_buffers(d, 10, 10) is a
+    with torch.cuda.stream(torch.cuda.Stream()):
+        b = kernels.combine_buffers(d, 10, 10)
+    assert b[0].data_ptr() != a[0].data_ptr()
+    assert b[1].data_ptr() != a[1].data_ptr()
+    assert not b[1].any()
+
+
+@pytest.mark.parametrize("K,C,tile,feed,F,nb", [
+    (1, 200_003, None, "rows32", 28, 255),      # the root pass
+    (1, 100_003, 1024, "cols32", 28, 255),      # 98 tiles, two levels
+    (6, 50_000, 2048, "rows8", 28, 255),        # K > 1 keeps a leaf-id test
+    (1, 200_003, None, "rows32", 40, 7),        # the onehot root pass
+])
+def test_hist_q_kernel_masked_vs_plain(dev, monkeypatch, K, C, tile, feed,
+                                       F, nb):
+    if tile is not None:
+        monkeypatch.setattr(th, "K1_TILE_ROWS", tile)
+    rng = np.random.RandomState(C + K)
+    gb = torch.as_tensor(rng.randint(0, nb, size=(F, C)).astype(np.int32))
+    bins = gb if feed.endswith("32") else (gb - 128).to(torch.int8)
+    rows = th.row_major_bins(bins, nb) if feed.startswith("rows") else None
+    lid = torch.as_tensor(rng.randint(-1, K + 2, size=C).astype(np.int32))
+    sl = torch.arange(K, dtype=torch.int32)
+    if K > 1:
+        sl[2] = -1                                   # an empty slot
+    vals = torch.as_tensor(np.stack([rng.randint(-127, 128, C),
+                                     rng.randint(0, 128, C),
+                                     rng.rand(C) < 0.9]).astype(np.int32))
+    ref = th._hist_plain(bins, None, lid, vals, sl, 256)
+    rd = None if rows is None else th.RowBins(rows.rows.to(dev),
+                                              rows.num_bins)
+    out = [th._hist_q_cuda(bins.to(dev), rd, None, vals.to(dev), 256,
+                           lid=lid.to(dev), sl=sl.to(dev)).cpu()
+           for _ in range(2)]
+    np.testing.assert_array_equal(out[0].numpy(), ref.numpy())
+    np.testing.assert_array_equal(out[1].numpy(), ref.numpy())
 
 
 @pytest.mark.parametrize("int8_bins", [False, True])
@@ -250,12 +353,30 @@ def test_cuda_tensor_never_takes_the_plain_version(dev, monkeypatch):
             th.hist_sparse_multileaf(
                 (cols, bins, zb), lid, gh, sl, num_columns_padded=40,
                 num_bins_padded=64, input_dtype=input_dtype)
+    # K1 over the masked and the gathered feed, from the store and from
+    # its byte copy; K5 over a byte feed with a live count
+    gb, base, row_idx, vals = [x.to(dev) for x in _segment_case(
+        1, 5, 2_000, 1_500)]
+    rows = th.row_major_bins(gb, 255)
+    for rd in (None, rows):
+        with pytest.raises(RuntimeError, match="launch refused"):
+            th.segment_counts(gb, rd, row_idx, vals, base, 256)
+        with pytest.raises(RuntimeError, match="launch refused"):
+            th.hist_multileaf_masked(
+                gb, torch.zeros(2_000, dtype=torch.int32, device=dev),
+                vals.float(), torch.zeros(1, dtype=torch.int32, device=dev),
+                num_bins_padded=256, input_dtype="int8", rows=rd)
+    bt, g, h, idx = [x.to(dev) for x in _gathered_case(
+        1_000, 40, 7, 1_024, 900, 2, False, np.uint8)]
+    with pytest.raises(RuntimeError, match="launch refused"):
+        th.histogram_from_indices(bt, g, h, idx, num_bins_padded=128,
+                                  count=900, num_store_bins=7)
 
 
-def _gathered_case(N, F, nb, cap, live, seed, dyadic):
+def _gathered_case(N, F, nb, cap, live, seed, dyadic, dtype=np.int32):
     rng = np.random.RandomState(seed)
     bt = np.concatenate([rng.randint(0, nb, size=(N, F)),
-                         np.zeros((1, F))]).astype(np.int32)
+                         np.zeros((1, F))]).astype(dtype)
     g, h = rng.randn(N), rng.rand(N)
     if dyadic:
         g, h = np.round(g * 64) / 64, np.round(h * 64) / 256
@@ -266,27 +387,39 @@ def _gathered_case(N, F, nb, cap, live, seed, dyadic):
     return [torch.as_tensor(x) for x in (bt, g, h, idx)]
 
 
-@pytest.mark.parametrize("N,F,nb,B,cap,live,dyadic", [
-    (100_003, 40, 7, 128, 131_072, 100_003, True),    # onehot store, root
-    (100_003, 40, 7, 128, 65_536, 60_000, False),     # a mid-tree leaf
-    (100_003, 28, 255, 256, 131_072, 99_000, False),  # north-star store
-    (5_000, 300, 250, 256, 4_096, 3_000, False),      # feature tiles
+@pytest.mark.parametrize("N,F,nb,B,cap,live,dyadic,dtype,count,min_rows", [
+    (100_003, 40, 7, 128, 131_072, 100_003, True, np.int32, None, None),
+    (100_003, 40, 7, 128, 65_536, 60_000, False, np.int32, None, None),
+    (100_003, 28, 255, 256, 131_072, 99_000, False, np.int32, None, None),
+    (5_000, 300, 250, 256, 4_096, 3_000, False, np.int32, None, None),
+    # the exact learner's byte feeds, with the live count
+    (100_003, 40, 7, 128, 131_072, 100_003, True, np.uint8, 100_003, None),
+    (100_003, 40, 7, 128, 65_536, 60_000, False, np.uint8, 60_000, None),
+    (60_000, 28, 255, 256, 65_536, 60_000, True, np.uint8, 60_000, 256),
+    (30_000, 12, 300, 384, 32_768, 20_000, False, np.uint16, 20_000, None),
+    # 235 blocks a feature tile: the combine's two levels
+    (60_000, 40, 7, 128, 65_536, 60_000, False, np.uint8, 60_000, 256),
 ])
-def test_hist_from_indices_kernel_vs_plain(dev, N, F, nb, B, cap, live,
-                                            dyadic):
-    args = _gathered_case(N, F, nb, cap, live, N + F, dyadic)
-    ref = th.histogram_from_indices(*args, num_bins_padded=B)
+def test_hist_from_indices_kernel_vs_plain(dev, monkeypatch, N, F, nb, B,
+                                           cap, live, dyadic, dtype, count,
+                                           min_rows):
+    if min_rows is not None:
+        monkeypatch.setattr(th, "K5_MIN_ROWS", min_rows)
+    args = _gathered_case(N, F, nb, cap, live, N + F, dyadic, dtype)
+    kw = dict(num_bins_padded=B, count=count,
+              num_store_bins=nb if count is not None else None)
+    ref = th.histogram_from_indices(*args, **kw)
     before = kernels.LAUNCHES["hist_gathered"]
-    out = th.histogram_from_indices(*[a.to(dev) for a in args],
-                                    num_bins_padded=B).cpu()
-    assert kernels.LAUNCHES["hist_gathered"] == before + 1
+    out = th.histogram_from_indices(*[a.to(dev) for a in args], **kw).cpu()
+    again = th.histogram_from_indices(*[a.to(dev) for a in args], **kw).cpu()
+    assert kernels.LAUNCHES["hist_gathered"] == before + 2
+    np.testing.assert_array_equal(out.numpy(), again.numpy())
     np.testing.assert_array_equal(out[:, 2].numpy(), ref[:, 2].numpy())
     if dyadic:
         np.testing.assert_array_equal(out.numpy(), ref.numpy())
     else:
         bt, g, h, idx = args
-        s = th.histogram_from_indices(bt, g.abs(), h, idx,
-                                      num_bins_padded=B).double()
+        s = th.histogram_from_indices(bt, g.abs(), h, idx, **kw).double()
         tol = s[:, 2:3] * 2.0 ** -23 * s
         assert bool(((out.double() - ref.double()).abs() <= tol).all())
 
