@@ -15,19 +15,19 @@ Phases (any failure exits non-zero and prints no result line):
              plain version over the runs' bounds and to the masked-feed
              one, and bitwise from run to run; K1 on a tree's root pass
              (masked feed, one slot, every row), bitwise the same way; K2
-             (float32 histogram, its earlier design, tolerance below) on
-             the same
-             passes (dyadic values on the root pass, so K2 is bitwise
-             there); K3
-             (lookup fused with the score add, and one level of the
-             valid-set walk, bitwise), K4 (row partition, bitwise); median
-             times of kernel, plain version and, where one exists, a
-             single PyTorch call computing the same function (library_ms;
-             K3 has none — one index_select, which neither adds into the
-             score nor zeroes out-of-range ids, is printed as a note).  The
-             {"kernels"} line reports the gathered pass for K1/K2 and the
-             score add for K3; the other shapes are printed on their own
-             lines.
+             (float32 histogram, one owner thread a cell) on the same
+             gathered pass from the byte copy and both [F, N] stores,
+             within K2_ATOL of both plain versions and bitwise from run to
+             run, and on the root pass with dyadic values, bitwise; K3
+             (lookup fused with the
+             score add, and one level of the valid-set walk, bitwise), K4
+             (row partition, bitwise); median times of kernel, plain
+             version and, where one exists, a single PyTorch call
+             computing the same function (library_ms; K3 has none — one
+             index_select, which neither adds into the score nor zeroes
+             out-of-range ids, is printed as a note).  The {"kernels"}
+             line reports the gathered pass for K1/K2 and the score add
+             for K3; the other shapes are printed on their own lines.
 3. main    — lightgbm_tpu_torch.train on synth_higgs(2_000_000) x 28
              (255 leaves, max_bin 255, int8 histograms, a 200k-row valid
              set scored with AUC each iteration; 2 warm-up and 10 timed
@@ -37,11 +37,13 @@ Phases (any failure exits non-zero and prints no result line):
              Booster.predict; launch counts are
              zeroed before and read after, and every kernel of the path
              must have launched.  The float32-histogram path is driven
-             the same way (1 warm-up, 2 timed) so that K2 launches.  Then
-             one tree replayed: a one-tree train with K1's wrapper
-             recording each call's inputs, every call then held bitwise
-             against its plain version, timed, and given its bound; the
-             per-tree sums are printed.
+             the same way (2 warm-up, 10 timed; K2 must launch and the
+             valid AUC exceed 0.75).  Then one tree of each replayed: a
+             one-tree train with K1's (int8) or K2's (float32) wrapper
+             recording each call's inputs, every call then held against
+             its plain version (K1 bitwise, K2 within n * 2^-23 * sum|x|
+             a cell) and run twice bitwise, timed, and given its bound;
+             the per-tree sums are printed.
 4. ctr set-up — synth_ctr(500_000) x 50,000 hashed-count features at
              density 0.01 (scipy CSR, 20-row queries) through
              lightgbm_tpu_torch.Dataset with CTR_PARAMS (sparse_store=csr):
@@ -132,11 +134,11 @@ Phases (any failure exits non-zero and prints no result line):
 
 Every kernel's ms is timed by CUDA events around each call, the method
 of earlier versions of this script; it includes the wrapper's host
-enqueue where that takes longer than the kernel.  K1 and K5 are also
-timed two more ways: graph_ms, the device time of one call with no host
-in between, from a CUDA graph of 10 calls replayed between events (in
-their {"kernels"} rows too, null in the others); host_us, the wrapper's
-host time a call.
+enqueue where that takes longer than the kernel.  K1-K5 are also timed
+as graph_ms, the device time of one call with no host in between, from a
+CUDA graph of 10 calls replayed between events (in their {"kernels"}
+rows too, null in the others); K1, K2 and K5 also as host_us, the
+wrapper's host time a call.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and last {"ok": true, "device": {...}}.  Exits with 2 and no result when
@@ -159,9 +161,10 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
-# K2 tolerance: float atomics add a cell's values in a run-dependent
-# order; n f32 additions reorder within n * 2^-24 * sum|x|, which for the
-# ~60 rows of |x| <= 4 that a cell receives here stays below 1e-3
+# K2 tolerance on phase 2's gathered pass: K2 sums a cell in a fixed
+# order, its plain version's index_add_ in another; n f32 additions
+# reorder within n * 2^-24 * sum|x|, which for the ~60 rows of |x| <= 4
+# that a cell receives here stays below 1e-3
 K2_ATOL = 1e-3
 
 # shapes: a gathered histogram pass at the capacity tier of a 10.5M-row
@@ -426,38 +429,59 @@ def phase_kernels(torch, kernels, H, LK, P):
           f"bound_ms={bms:.4f} ({by})", flush=True)
     del ref, got
 
-    # K2, the masked kernel over the slot ids
+    # K2 over the same segment plan: from the byte copy and from both
+    # [F, N] stores, within K2_ATOL of its plain version over the runs'
+    # bounds and of the masked-feed one, and bitwise from run to run
+    ref = H._hist_plain(bins32, row_idx, lid, gh, sl, B)
     errs = []
-    for bins in (bins32, bins8):
-        got = H._hist_cuda(bins, row_idx, lid, gh, sl, B)
-        ref = H._hist_plain(bins, row_idx, lid, gh, sl, B)
+    for label, bins, rws in (("byte copy", bins32, rows32),
+                             ("int32 [F, N]", bins32, None),
+                             ("int8 [F, N]", bins8, None)):
+        got = H._hist_f_cuda(bins, rws, row_idx, gh, B, base=base)
+        again = H._hist_f_cuda(bins, rws, row_idx, gh, B, base=base)
+        plan_ref = H._segments_plain(bins, rws, row_idx, gh, base, B)
         torch.cuda.synchronize()
-        err = (got.double() - ref.double()).abs().max().item()
+        err = max((got.double() - r.double()).abs().max().item()
+                  for r in (ref, plan_ref))
         errs.append(err)
         if not err <= K2_ATOL:
-            fail(f"hist_masked_f32 ({bins.dtype} bins) max |diff| {err} > "
-                 f"{K2_ATOL}")
-    ms = time_ms(torch, lambda: H._hist_cuda(bins32, row_idx, lid, gh, sl, B),
-                 20)
-    plain = time_ms(torch, lambda: H._hist_plain(bins32, row_idx, lid, gh,
-                                                 sl, B), 3, 1)
+            fail(f"hist_masked_f32 gathered pass ({label}) max |diff| {err} "
+                 f"> {K2_ATOL}")
+        if not torch.equal(got, again):
+            fail(f"hist_masked_f32 gathered pass ({label}) differs from run "
+                 "to run")
+    del plan_ref, again
+
+    def k2_gathered():
+        return H._hist_f_cuda(bins32, rows32, row_idx, gh, B, base=base)
+    ms = time_ms(torch, k2_gathered, 20)
+    graph = graph_ms(torch, k2_gathered)
+    host = host_us(torch, k2_gathered)
+    plain = time_ms(torch, lambda: H._segments_plain(
+        bins32, rows32, row_idx, gh, base, B), 3, 1)
     lib = time_ms(torch, library_hist(gh, torch.float32), 5, 1)
-    bms, by = bound_ms(C * 4 * 2 + K * 4 + n_match * (F * 4 + 12)
+    # the same bytes as K1's pass: byte rows, row id and 3 values of the
+    # positions in a run, the bounds, the [K, F, 3, B] float32 output
+    bms, by = bound_ms(n_match * (F4 + 4 + 12) + (K + 1) * 8
                        + K * F * 3 * B * 4, 3.0 * F * n_match)
+    lay = H._k2_layout(F, 255, True, K)
     rows.append(dict(name="hist_masked_f32", route="cuda",
                      source="lightgbm_tpu_torch/csrc/histogram.cu",
                      replaces="lightgbm_tpu/ops/histogram.py:443",
-                     max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                     bound_ms=bms, bound_by=by, library_ms=lib))
-    print(f"[kernels] hist_masked_f32: C={C} F={F} K={K} B={B} "
-          f"max_abs_err={max(errs):.3g} ms={ms:.4f} plain_ms={plain:.4f} "
-          f"library_ms={lib:.4f} bound_ms={bms:.4f} ({by})", flush=True)
+                     max_abs_err=max(errs), ms=ms, graph_ms=graph,
+                     plain_ms=plain, bound_ms=bms, bound_by=by,
+                     library_ms=lib))
+    print(f"[kernels] hist_masked_f32 (gathered pass): C={C} F={F} K={K} "
+          f"B={B} rows={n_match} f_tile={lay[0]} "
+          f"max_abs_err={max(errs):.3g} ms={ms:.4f} graph_ms={graph:.4f} "
+          f"host_us={host:.1f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+          f"bound_ms={bms:.4f} ({by})", flush=True)
     del ref, got, rows8
 
     # ---- K1 / K2: each tree's root pass, the masked feed (no row index),
     # one slot, every training row in leaf 0.  grad and hess are dyadic
     # (multiples of 2^-6 and 2^-8, |g| < 2^4) so that every partial sum of
-    # a cell (~N/255 rows) is exact in f32: any order of the float atomics
+    # a cell (~N/255 rows) is exact in f32: any order of the float adds
     # gives the same sums, and K2 is held bitwise here as well ----------
     Nr = MAIN_ROWS
     pbins = bins32[:, :Nr].contiguous()
@@ -497,23 +521,31 @@ def phase_kernels(torch, kernels, H, LK, P):
           f"host_us={host:.1f} plain_ms={plain:.4f} bound_ms={bms:.4f} "
           f"({by})", flush=True)
     errs = []
-    for bins in (pbins, (pbins - 128).to(torch.int8)):
-        got = H._hist_cuda(bins, None, rlid, rgh, rsl, B)
+    for label, bins, rws in (("byte copy", pbins, prows),
+                             ("int32 [F, N]", pbins, None),
+                             ("int8 [F, N]", (pbins - 128).to(torch.int8),
+                              None)):
+        got = H._hist_f_cuda(bins, rws, None, rgh, B, lid=rlid, sl=rsl)
+        again = H._hist_f_cuda(bins, rws, None, rgh, B, lid=rlid, sl=rsl)
         ref = H._hist_plain(bins, None, rlid, rgh, rsl, B)
         torch.cuda.synchronize()
         errs.append((got.double() - ref.double()).abs().max().item())
-        if not torch.equal(got, ref):
-            fail(f"hist_masked_f32 root pass ({bins.dtype} bins) differs "
-                 f"from its plain version: max |diff| {errs[-1]}")
-    ms = time_ms(torch, lambda: H._hist_cuda(pbins, None, rlid, rgh, rsl, B),
-                 20)
+        if not (torch.equal(got, ref) and torch.equal(got, again)):
+            fail(f"hist_masked_f32 root pass ({label}) differs from its "
+                 f"plain version: max |diff| {errs[-1]}")
+
+    def k2_root():
+        return H._hist_f_cuda(pbins, prows, None, rgh, B, lid=rlid, sl=rsl)
+    ms = time_ms(torch, k2_root, 20)
+    graph = graph_ms(torch, k2_root)
+    host = host_us(torch, k2_root)
     plain = time_ms(torch, lambda: H._hist_plain(pbins, None, rlid, rgh, rsl,
-                                                 B), 3, 1)
-    bms, by = bound_ms(Nr * (4 + F * 4 + 12) + 4 + F * 3 * B * 4,
-                       3.0 * F * Nr)
+                                                 B, rows=prows), 3, 1)
+    bms, by = bound_ms(Nr * (F4 + 4 + 12) + 4 + F * 3 * B * 4, 3.0 * F * Nr)
     print(f"[kernels] hist_masked_f32 root pass: C=N={Nr} F={F} K=1 B={B} "
-          f"max_abs_err={max(errs):.3g} ms={ms:.4f} plain_ms={plain:.4f} "
-          f"bound_ms={bms:.4f} ({by})", flush=True)
+          f"max_abs_err={max(errs):.3g} ms={ms:.4f} graph_ms={graph:.4f} "
+          f"host_us={host:.1f} plain_ms={plain:.4f} bound_ms={bms:.4f} "
+          f"({by})", flush=True)
     del prows, got, ref
 
     # ---- K3: the training-score add, T=1, S=255, N=2M -------------------
@@ -528,6 +560,7 @@ def phase_kernels(torch, kernels, H, LK, P):
     if not torch.equal(got, ref):
         fail(f"table_lookup differs from its plain version: {err}")
     ms = time_ms(torch, lambda: LK._lookup_cuda(table, ids, score), 50)
+    graph = graph_ms(torch, lambda: LK._lookup_cuda(table, ids, score))
     plain = time_ms(torch, lambda: LK._lookup_plain(table, ids, score), 10)
     # no single PyTorch call adds into the score and zeroes out-of-range
     # ids, so K3 has no library time; one index_select over in-range ids
@@ -538,10 +571,11 @@ def phase_kernels(torch, kernels, H, LK, P):
     rows.append(dict(name="table_lookup", route="cuda",
                      source="lightgbm_tpu_torch/csrc/lookup.cu",
                      replaces="lightgbm_tpu/ops/lookup.py:23",
-                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                     bound_by=by, library_ms=None))
+                     max_abs_err=err, ms=ms, graph_ms=graph, plain_ms=plain,
+                     bound_ms=bms, bound_by=by, library_ms=None))
     print(f"[kernels] table_lookup (fused add): T=1 S=255 N={Nr} "
-          f"max_abs_err={err} ms={ms:.4f} plain_ms={plain:.4f} "
+          f"max_abs_err={err} ms={ms:.4f} graph_ms={graph:.4f} "
+          f"plain_ms={plain:.4f} "
           f"index_select_ms={sel:.4f} bound_ms={bms:.4f} ({by})",
           flush=True)
 
@@ -588,15 +622,18 @@ def phase_kernels(torch, kernels, H, LK, P):
             fail(f"partition_rows ({b.dtype} bins) differs from its plain "
                  f"version: {errs[-1]}")
     ms = time_ms(torch, lambda: P._partition_cuda(pbins, plid, tblt), 50)
+    graph = graph_ms(torch, lambda: P._partition_cuda(pbins, plid, tblt))
     plain = time_ms(torch, lambda: P._partition_plain(pbins, plid, tblt), 10)
     bms, by = bound_ms(Nr * 4 + Nr * 4 + 7 * S * 4 + Nr * 4, 8.0 * Nr)
     rows.append(dict(name="partition_rows", route="cuda",
                      source="lightgbm_tpu_torch/csrc/partition.cu",
                      replaces="lightgbm_tpu/ops/partition.py:76",
-                     max_abs_err=float(max(errs)), ms=ms, plain_ms=plain,
-                     bound_ms=bms, bound_by=by, library_ms=None))
+                     max_abs_err=float(max(errs)), ms=ms, graph_ms=graph,
+                     plain_ms=plain, bound_ms=bms, bound_by=by,
+                     library_ms=None))
     print(f"[kernels] partition_rows: S={S} N={Nr} F={F} ms={ms:.4f} "
-          f"plain_ms={plain:.4f} bound_ms={bms:.4f} ({by})", flush=True)
+          f"graph_ms={graph:.4f} plain_ms={plain:.4f} bound_ms={bms:.4f} "
+          f"({by})", flush=True)
     return rows
 
 
@@ -952,13 +989,16 @@ def phase_main(torch, lt, kernels):
           flush=True)
     if walk_err > 1e-4:
         fail(f"device valid scores disagree with the host walk: {walk_err}")
-    _, st32, _, _ = drive(torch, lt, kernels,
-                          dict(params, histogram_dtype="float32"), X, y,
-                          Xv, yv, 1, 2)
+    params32 = dict(params, histogram_dtype="float32")
+    _, st32, _, _ = drive(torch, lt, kernels, params32, X, y, Xv, yv, 2, 10)
     print(f"[main] float32: {json.dumps(st32)}", flush=True)
+    print(f"[main] float32: s/iter {st32['s_per_iter']:.4f} valid AUC "
+          f"{st32['auc']:.6f}", flush=True)
     for k in ("hist_masked_f32", "table_lookup", "partition_rows"):
         if st32["launches"][k] <= 0:
             fail(f"main path (float32) never launched {k}")
+    if not (math.isfinite(st32["auc"]) and st32["auc"] > 0.75):
+        fail(f"float32 valid AUC {st32['auc']} is not a trained model's")
     return st, st32, params, ds
 
 
@@ -985,56 +1025,78 @@ def tree_sums(per, label):
     print(f"[tree replay] {label} per tree: {json.dumps(tree)}", flush=True)
 
 
-def phase_k1_tree(torch, lt, H, params, ds, label):
-    """Kernel K1 on every call of one tree of the rounds learner (int8):
-    the wrapper records each call's inputs during a one-tree train; each
-    call is then held bitwise against its plain version (over the slot
-    runs' bounds for the gathered feed, the leaf ids for the masked one)
-    and run twice bitwise, timed, and given its bound."""
-    real = H._hist_q_cuda
+def reorder_tol(torch, plain_fn, vals):
+    """Per-cell bound on a float histogram's reordering: n * 2^-23 *
+    sum|x| over the cell's n positions (n float additions in any order
+    lie within n * 2^-24 * sum|x| of the exact sum, and the kernel and
+    the plain version's index_add_ both reorder); `plain_fn(v)` sums
+    the values v [3, C] as the checked call does."""
+    s = plain_fn(torch.stack([vals[0].abs(), vals[1].abs(),
+                              torch.ones_like(vals[2])])).double()
+    return s[:, :, 2:3] * 2.0 ** -23 * s
+
+
+def phase_rounds_tree(torch, lt, H, params, ds, label):
+    """The dense histogram kernel of the rounds learner on every call of
+    one tree: K1 when params ask for int8 histograms, K2 for float32.
+    The wrapper records each call's inputs during a one-tree train; each
+    call is then held against its plain version (over the slot runs'
+    bounds for the gathered feed, the leaf ids for the masked one) and
+    run twice: K1 bitwise, K2 within n * 2^-23 * sum|x| a cell
+    (`reorder_tol`) and bitwise from run to run; then timed and given
+    its bound."""
+    name = "_hist_f_cuda" if params.get("histogram_dtype") == "float32" \
+        else "_hist_q_cuda"
+    kname = "hist_masked_f32" if name == "_hist_f_cuda" \
+        else "hist_masked_int8"
+    real = getattr(H, name)
     calls = []
 
-    def record(bins, rows, row_idx, vals, B, *, lid=None, sl=None,
-               base=None):
+    def record(bins, rows, row_idx, vals, B, **kw):
         calls.append((bins, rows, None if row_idx is None
                       else row_idx.clone(), vals.clone(), B,
-                      None if lid is None else lid.clone(),
-                      None if sl is None else sl.clone(),
-                      None if base is None else base.clone()))
-        return real(bins, rows, row_idx, vals, B, lid=lid, sl=sl, base=base)
-    H._hist_q_cuda = record
+                      {k: v.clone() if torch.is_tensor(v) else v
+                       for k, v in kw.items()}))
+        return real(bins, rows, row_idx, vals, B, **kw)
+    setattr(H, name, record)
     try:
         lt.train(params, ds, 1)
     finally:
-        H._hist_q_cuda = real
+        setattr(H, name, real)
     per = []
-    for i, (bins, rows, row_idx, vals, B, lid, sl, base) in enumerate(calls):
+    for i, (bins, rows, row_idx, vals, B, kw) in enumerate(calls):
+        lid, sl, base = kw.get("lid"), kw.get("sl"), kw.get("base")
+        rb = kw.get("round_bf16", False)
         F, C = bins.shape[0], vals.shape[1]
+
+        def run():
+            return real(bins, rows, row_idx, vals, B, **kw)
         F4 = rows.rows.shape[1] if rows is not None else \
             F * bins.element_size()
         if base is not None:
-            def run():
-                return real(bins, rows, row_idx, vals, B, base=base)
-
-            def plain_fn():
-                return H._segments_plain(bins, rows, row_idx, vals, base, B)
+            def plain_fn(v=vals):
+                return H._segments_plain(bins, rows, row_idx, v, base, B,
+                                         rb)
             K, n = base.numel() - 1, int(base[-1])
             nbytes = n * (F4 + 4 + 12) + (K + 1) * 8
         else:
-            def run():
-                return real(bins, rows, row_idx, vals, B, lid=lid, sl=sl)
-
-            def plain_fn():
-                return H._hist_plain(bins, row_idx, lid, vals, sl, B,
+            def plain_fn(v=vals):
+                return H._hist_plain(bins, row_idx, lid, v, sl, B, rb,
                                      rows=rows)
             K = sl.numel()
             n = int(torch.isin(lid, sl).sum())
             nbytes = C * 4 + n * (F4 + 12)
         got, again, ref = run(), run(), plain_fn()
         torch.cuda.synchronize()
-        if not (torch.equal(got, ref) and torch.equal(got, again)):
-            fail(f"hist_masked_int8 on call {i} of the {label} tree "
-                 "differs from its plain version")
+        err = (got.double() - ref.double()).abs().max().item()
+        if vals.is_floating_point():
+            ok = bool(((got.double() - ref.double()).abs()
+                       <= reorder_tol(torch, plain_fn, vals)).all())
+        else:
+            ok = torch.equal(got, ref)
+        if not (ok and torch.equal(got, again)):
+            fail(f"{kname} on call {i} of the {label} tree differs from its "
+                 f"plain version (max |diff| {err})")
         del got, again, ref
         ms = time_ms(torch, run, 10)
         graph = graph_ms(torch, run, 5)
@@ -1042,16 +1104,16 @@ def phase_k1_tree(torch, lt, H, params, ds, label):
         bms, by = bound_ms(nbytes + K * F * 3 * B * 4, 3.0 * F * n)
         per.append(dict(feed="gathered" if base is not None else "masked",
                         K=K, rows=n, nb=rows.num_bins if rows is not None
-                        else B, ms=ms, graph_ms=graph, plain_ms=plain,
-                        bound_ms=bms, bound_by=by))
-        print(f"[tree replay] hist_masked_int8 ({label}) call {i}: "
+                        else B, max_abs_err=err, ms=ms, graph_ms=graph,
+                        plain_ms=plain, bound_ms=bms, bound_by=by))
+        print(f"[tree replay] {kname} ({label}) call {i}: "
               f"{json.dumps(per[-1])}", flush=True)
     del calls
     gc.collect()
     torch.cuda.empty_cache()
     if not per:
-        fail(f"the {label} tree launched no hist_masked_int8")
-    tree_sums(per, f"hist_masked_int8 ({label})")
+        fail(f"the {label} tree launched no {kname}")
+    tree_sums(per, f"{kname} ({label})")
 
 
 def phase_k5_tree(torch, lt, H, params, ds):
@@ -1497,7 +1559,9 @@ def main() -> None:
     for r in rows:
         src = st32 if r["name"] == "hist_masked_f32" else st
         r["launches"] = src["launches"][r["name"]]
-    phase_k1_tree(torch, lt, H, ns_params, ns_ds, "north-star")
+    phase_rounds_tree(torch, lt, H, ns_params, ns_ds, "north-star")
+    phase_rounds_tree(torch, lt, H, dict(ns_params, histogram_dtype="float32"),
+                      ns_ds, "north-star, float32")
     del ns_ds
     gc.collect()
     torch.cuda.empty_cache()
@@ -1533,7 +1597,7 @@ def main() -> None:
         r["launches"] = ex["launches"][r["name"]]
     rows += gathered_rows
     phase_k5_tree(torch, lt, H, params, ds)
-    phase_k1_tree(torch, lt, H, params, ds, "onehot, rounds learner")
+    phase_rounds_tree(torch, lt, H, params, ds, "onehot, rounds learner")
     del ds, vs, Xv
     gc.collect()
     torch.cuda.empty_cache()

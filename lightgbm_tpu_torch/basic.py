@@ -28,6 +28,15 @@ def _is_scipy_sparse(data) -> bool:
     return spm.issparse(data)
 
 
+def _refuse_unported_boosting(btype: str) -> None:
+    """Only plain gbdt (alias tree) is ported; GOSS and DART would
+    otherwise train plain GBDT without a word."""
+    if btype not in ("gbdt", "tree"):
+        raise NotImplementedError(
+            f"boosting={btype} is not ported yet: this slice trains gbdt "
+            "only (ROADMAP.md §A item 10)")
+
+
 def _to_numpy(data) -> np.ndarray:
     if hasattr(data, "values"):  # pandas DataFrame/Series
         return np.asarray(data.values, dtype=np.float64)
@@ -109,6 +118,7 @@ class Booster:
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("train_set should be Dataset instance")
+            _refuse_unported_boosting(cfg.boosting_type)
             train_set.construct(params)
             self._gbdt = GBDT(cfg)
             self._gbdt.reset_training_data(train_set._inner)
@@ -117,6 +127,12 @@ class Booster:
             if model_str is None:
                 with open(model_file) as f:
                     model_str = f.read()
+            # a model string names its boosting type on its first line
+            # (lightgbm_tpu/boosting/gbdt.py `create_boosting`)
+            first = model_str.split("\n", 1)[0].strip()
+            _refuse_unported_boosting(
+                first if first in ("gbdt", "tree", "goss", "dart")
+                else cfg.boosting_type)
             self._gbdt = GBDT(cfg)
             self._gbdt.load_model_from_string(model_str)
             self.train_set = None

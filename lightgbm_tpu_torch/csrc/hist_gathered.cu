@@ -302,7 +302,7 @@ hist_gathered_kernel(const BinT* __restrict__ bins, long long row_stride,
   const int ng = tile_combine::groups(P);
   const long long item_words =
       TileK5(nb, f_tile, kWarpCopies, m != nullptr).words();
-  if (!tile_combine::combine(
+  if (!tile_combine::combine<kThreads>(
           sh, words, t, P, slab + (long long)tile * P * item_words,
           gslab + (long long)tile * ng * item_words,
           tickets + tile * (ng + 1), lay))

@@ -29,10 +29,14 @@ def train(params: Dict[str, Any], train_set: Dataset,
           callbacks: Optional[List[Callable]] = None) -> Booster:
     """Train a booster.  With valid sets, every iteration evaluates their
     metrics; `evals_result` (when given) collects them as
-    {set name: {metric: [value per iteration]}}.  Each callback is called
-    with a CallbackEnv before the iteration when its `before_iteration`
-    attribute is true, else after the iteration's evaluation, in the
-    order of their `order` attribute."""
+    {set name: {metric: [value per iteration]}}.  The training set given
+    among `valid_sets` (or `is_training_metric=True`) is evaluated too,
+    under the name "training" and ahead of the others.  Each callback is
+    called with a CallbackEnv before the iteration when its
+    `before_iteration` attribute is true, else after the iteration's
+    evaluation, in the order of their `order` attribute.  The iteration
+    that finds no split is still evaluated and reported to the callbacks;
+    then training stops."""
     params = dict(params or {})
     for alias in ("num_iterations", "num_iteration", "num_trees", "num_tree",
                   "num_rounds", "num_round"):
@@ -40,11 +44,13 @@ def train(params: Dict[str, Any], train_set: Dataset,
             num_boost_round = int(params.pop(alias))
             break
     booster = Booster(params=params, train_set=train_set)
+    eval_train = booster._gbdt.config.is_training_metric
     if valid_sets is not None:
         if isinstance(valid_sets, Dataset):
             valid_sets = [valid_sets]
         for i, vs in enumerate(valid_sets):
             if vs is train_set:
+                eval_train = True
                 continue
             name = (valid_names[i] if valid_names is not None
                     and i < len(valid_names) else f"valid_{i}")
@@ -62,9 +68,9 @@ def train(params: Dict[str, Any], train_set: Dataset,
         for cb in cbs_before:
             cb(env)
         finished = booster.update()
-        if finished:
-            break
-        res = booster.eval_valid() if booster._valid_names else []
+        res = booster.eval_train() if eval_train else []
+        if booster._valid_names:
+            res += booster.eval_valid()
         if evals_result is not None:
             for set_name, metric, value, _ in res:
                 evals_result.setdefault(set_name, {}).setdefault(
@@ -72,5 +78,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
         env = env._replace(evaluation_result_list=res)
         for cb in cbs_after:
             cb(env)
+        if finished:
+            break
     booster.best_iteration = booster.current_iteration()
     return booster

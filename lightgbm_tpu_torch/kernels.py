@@ -34,11 +34,12 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 # every function returns the cudaError_t of its launch (0 = success)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
-    "histogram": ("histogram", "lgbt_hist_multileaf",
-                  [_P, _I, _L, _I, _P, _P, _P, _L, _P, _I, _I, _I, _P, _P]),
     "hist_q": ("histogram", "lgbt_hist_q",
                [_P, _I, _L, _I, _I, _I, _I, _P, _P, _L, _P, _L, _P, _P, _I,
                 _I, _I, _P, _P, _P, _L, _L, _L, _P, _P]),
+    "hist_f": ("histogram", "lgbt_hist_f",
+               [_P, _I, _L, _I, _I, _I, _I, _I, _P, _P, _I, _L, _P, _L, _P,
+                _P, _I, _I, _I, _P, _P, _P, _L, _L, _L, _P, _P]),
     "lookup": ("lookup", "lgbt_table_lookup",
                [_P, _I, _I, _P, _L, _P, _P, _P]),
     "partition": ("partition", "lgbt_partition_rows",

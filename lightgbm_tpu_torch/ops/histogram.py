@@ -21,15 +21,16 @@ sum_hess, count) per slot, feature (store column) and bin.
 
 The TPU kernels built one-hot matrices and contracted them on the MXU;
 the CUDA kernels (csrc/histogram.cu) add each row into a per-block
-shared-memory histogram instead.  K1 (int8 gradients) accumulates
-exactly in int32, so it is bitwise equal to its plain version and to the
-JAX kernel; it reads a row's bins from the learner's row-major byte copy
-of the store (`RowBins`, `row_major_bins`) and, over the gathered feed,
-walks each slot's run of the scratch in tiles (`segment_plan`; its plain
-version `_segments_plain` sums each run straight from its bounds).  K2
-(float32 /
-bfloat16 operands) accumulates with float atomics, whose order varies
-run to run.
+shared-memory histogram instead.  Both walk each slot's run of the
+gathered feed's scratch in tiles (`segment_plan`; the plain version
+`_segments_plain` sums each run straight from its bounds) and read a
+row's bins from the learner's row-major byte copy of the store
+(`RowBins`, `row_major_bins`) when there is one.  K1 (int8 gradients)
+accumulates exactly in int32, so it is bitwise equal to its plain
+version and to the JAX kernel.  K2 (float32 / bfloat16 operands) gives
+every float cell one owner thread and adds in a fixed order, so its
+sums are the same from run to run; they differ from the plain version's
+index_add_ order by float rounding only.
 
 int8 quantization (`_quantize_gh`) and the dequantize stay outside the
 kernel, as plain torch ops, exactly as in JAX.  In the gathered row feed
@@ -442,41 +443,6 @@ def _hist_plain(bins: torch.Tensor, row_idx: Optional[torch.Tensor],
                        round_bf16)
 
 
-def _hist_cuda(bins: torch.Tensor, row_idx: Optional[torch.Tensor],
-               lid: torch.Tensor, vals: torch.Tensor, sl: torch.Tensor,
-               B: int, round_bf16: bool = False) -> torch.Tensor:
-    """Kernel K2 (csrc/histogram.cu `hist_kernel<BinT, float>`):
-    _hist_plain's float32 sums over the [F, N] store."""
-    F, n_stride = bins.shape
-    K = sl.shape[0]
-    C = lid.shape[0]
-    if bins.dtype not in (torch.int32, torch.int8):
-        raise TypeError("histogram kernel takes int32 or int8 bins")
-    if (vals.dtype != torch.float32 or vals.shape != (3, C)
-            or lid.dtype != torch.int32 or sl.dtype != torch.int32):
-        raise TypeError("histogram kernel K2 takes int32 lid/sl and [3, C] "
-                        "float32 vals")
-    if row_idx is not None and (row_idx.dtype != torch.int32
-                                or row_idx.shape != (C,)):
-        raise TypeError("row_idx must be int32 [C]")
-    if 3 * B * 4 > 96 * 1024:
-        raise ValueError(f"histogram kernel supports B <= 8192, got {B}")
-    out = torch.zeros((K, F, 3, B), dtype=vals.dtype, device=bins.device)
-    if C == 0 or K == 0 or F == 0:
-        return out
-    bins = bins.contiguous()
-    vals = vals.contiguous()
-    lid = lid.contiguous()
-    sl = sl.contiguous()
-    row_idx = None if row_idx is None else row_idx.contiguous()
-    kernels.call("histogram", bins.data_ptr(), int(bins.dtype == torch.int8),
-                 n_stride, F, kernels.ptr(row_idx), lid.data_ptr(),
-                 vals.data_ptr(), C, sl.data_ptr(), K, B, int(round_bf16),
-                 out.data_ptr())
-    kernels.LAUNCHES["hist_masked_f32"] += 1
-    return out
-
-
 # K1's work (csrc/histogram.cu `hist_q_kernel`): positions a block of at
 # least K1_TILE_ROWS, up to K1_BLOCKS_PER_SM blocks an SM over the
 # feature tiles; a feature tile as wide as K1_SMEM holds over the gathered
@@ -547,16 +513,65 @@ def _k1_plan(C: int, K: int, F: int, nb: int, row_feed: bool, n_sm: int,
 
 def _segments_plain(bins: torch.Tensor, rows: Optional[RowBins],
                     row_idx: Optional[torch.Tensor], vals: torch.Tensor,
-                    base: torch.Tensor, B: int) -> torch.Tensor:
-    """Plain version of kernel K1 over the gathered feed: every position
-    of slot k's run [base[k], base[k+1]) adds once to slot k."""
+                    base: torch.Tensor, B: int,
+                    round_bf16: bool = False) -> torch.Tensor:
+    """Plain version of kernels K1 (int32 vals) and K2 (float32 vals,
+    rounded to bfloat16 first when round_bf16) over the gathered feed:
+    every position of slot k's run [base[k], base[k+1]) adds once to
+    slot k."""
     K = base.numel() - 1
     base = base.long()
     kk = torch.repeat_interleave(torch.arange(K, device=base.device),
                                  base[1:] - base[:-1])
     pp = base[0] + torch.arange(kk.numel(), dtype=torch.int64,
                                 device=base.device)
-    return _hist_pairs(bins, rows, row_idx, kk, pp, vals, K, B)
+    return _hist_pairs(bins, rows, row_idx, kk, pp, vals, K, B, round_bf16)
+
+
+def _row_feed(bins: torch.Tensor, rows: Optional[RowBins], B: int):
+    """(feed, source, stride, nb) of a K1/K2 launch: the byte copy when
+    given (feed 0, bins below its num_bins), else the [F, N] store in
+    int32 (1) or int8 (2)."""
+    if rows is not None:
+        if rows.rows.dtype != torch.uint8 or rows.rows.shape[1] < bins.shape[0]:
+            raise TypeError("the byte copy must be [N, F4] uint8")
+        return 0, rows.rows, rows.rows.shape[1], min(B, rows.num_bins)
+    if bins.dtype == torch.int32:
+        return 1, bins, bins.shape[1], B
+    if bins.dtype == torch.int8:
+        return 2, bins, bins.shape[1], B
+    raise TypeError("histogram kernel takes int32 or int8 bins")
+
+
+def _check_feed(vals: torch.Tensor, row_idx: Optional[torch.Tensor],
+                lid: Optional[torch.Tensor], sl: Optional[torch.Tensor],
+                base: Optional[torch.Tensor]) -> None:
+    C = vals.shape[1]
+    if row_idx is not None and (row_idx.dtype != torch.int32
+                                or row_idx.shape != (C,)):
+        raise TypeError("row_idx must be int32 [C]")
+    if base is None and (lid is None or sl is None or lid.shape != (C,)
+                         or lid.dtype != torch.int32
+                         or sl.dtype != torch.int32):
+        raise TypeError("the masked feed takes int32 lid [C] and sl [K]")
+
+
+def _combine_scratch(dev: torch.device, gathered: bool, K: int,
+                     n_blocks: int, P_m: int, ftiles: int, item: int):
+    """The partial-tile slab, group slab and tickets of a K1/K2 launch
+    (kernels.combine_buffers): (slab pointer, group slab pointer, tickets
+    pointer, slab items, group items, ticket items) per feature tile."""
+    if gathered:
+        slab_items, gslab_items = n_blocks, -(-n_blocks // 16) + K
+        ticket_items = n_blocks + K
+    else:
+        ng = -(-P_m // 16)
+        slab_items, gslab_items, ticket_items = K * P_m, K * ng, K * (ng + 1)
+    n_slab = ftiles * slab_items * item
+    slab, tickets = kernels.combine_buffers(
+        dev, n_slab + ftiles * gslab_items * item, ftiles * ticket_items)
+    return (slab.data_ptr(), slab.data_ptr() + 4 * n_slab, tickets.data_ptr(),
+            slab_items, gslab_items, ticket_items)
 
 
 def _hist_q_cuda(bins: torch.Tensor, rows: Optional[RowBins],
@@ -571,27 +586,12 @@ def _hist_q_cuda(bins: torch.Tensor, rows: Optional[RowBins],
     when given, else from the [F, N] store `bins` (int32 or int8).  Calls
     on one stream share its partial-tile scratch
     (kernels.combine_buffers)."""
-    F, n_stride = bins.shape
+    F = bins.shape[0]
     C = vals.shape[1]
     if vals.dtype != torch.int32 or vals.shape != (3, C):
         raise TypeError("histogram kernel K1 takes [3, C] int32 vals")
-    if row_idx is not None and (row_idx.dtype != torch.int32
-                                or row_idx.shape != (C,)):
-        raise TypeError("row_idx must be int32 [C]")
-    if base is None and (lid is None or sl is None or lid.shape != (C,)
-                         or lid.dtype != torch.int32
-                         or sl.dtype != torch.int32):
-        raise TypeError("the masked feed takes int32 lid [C] and sl [K]")
-    if rows is not None:
-        feed, src, stride = 0, rows.rows, rows.rows.shape[1]
-        nb = min(B, rows.num_bins)
-        if rows.rows.dtype != torch.uint8 or rows.rows.shape[1] < F:
-            raise TypeError("the byte copy must be [N, F4] uint8")
-    elif bins.dtype in (torch.int32, torch.int8):
-        feed = 1 if bins.dtype == torch.int32 else 2
-        src, stride, nb = bins, n_stride, B
-    else:
-        raise TypeError("histogram kernel takes int32 or int8 bins")
+    _check_feed(vals, row_idx, lid, sl, base)
+    feed, src, stride, nb = _row_feed(bins, rows, B)
     K = base.numel() - 1 if base is not None else sl.shape[0]
     dev = bins.device
     if K == 0 or F == 0 or (C == 0 and base is None):
@@ -599,18 +599,8 @@ def _hist_q_cuda(bins: torch.Tensor, rows: Optional[RowBins],
     gathered = base is not None
     f_tile, T, n_blocks, P_m = _k1_plan(C, K, F, nb, rows is not None,
                                         kernels.sm_count(dev), gathered)
-    ftiles = -(-F // f_tile)
-    item = f_tile * ((3 * nb) | 1)
-    if gathered:
-        slab_items, gslab_items = n_blocks, -(-n_blocks // 16) + K
-        ticket_items = n_blocks + K
-    else:
-        ng = -(-P_m // 16)
-        slab_items, gslab_items, ticket_items = K * P_m, K * ng, K * (ng + 1)
-    # the slab and the group slab
-    n_slab = ftiles * slab_items * item
-    slab, tickets = kernels.combine_buffers(
-        dev, n_slab + ftiles * gslab_items * item, ftiles * ticket_items)
+    scratch = _combine_scratch(dev, gathered, K, n_blocks, P_m,
+                               -(-F // f_tile), f_tile * ((3 * nb) | 1))
     src = src.contiguous()
     vals = vals.contiguous()
     row_idx = None if row_idx is None else row_idx.contiguous()
@@ -621,36 +611,131 @@ def _hist_q_cuda(bins: torch.Tensor, rows: Optional[RowBins],
     kernels.call("hist_q", src.data_ptr(), feed, stride, F, f_tile, nb, B,
                  kernels.ptr(row_idx), vals.data_ptr(), C, kernels.ptr(base),
                  T, kernels.ptr(lid), kernels.ptr(sl), P_m, K, n_blocks,
-                 slab.data_ptr(), slab.data_ptr() + 4 * n_slab,
-                 tickets.data_ptr(), slab_items, gslab_items, ticket_items,
-                 out.data_ptr())
+                 *scratch, out.data_ptr())
     kernels.LAUNCHES["hist_masked_int8"] += 1
+    return out
+
+
+# K2's work (csrc/histogram.cu `hist_owned_kernel`): blocks of 128
+# threads, each with one copy of its feature tile, 3 (nb + 1) ls words,
+# within K2_SMEM with the staged batches; positions a block of at least
+# K2_TILE_ROWS, the grid about one wave of the blocks resident at once
+K2_TILE_ROWS = 2048
+K2_SMEM = 227 * 1024
+_K2_BATCH = 128
+# blocks an SM at most (the kernel's launch bounds)
+_K2_PER_SM = 4
+
+
+def _k2_layout(F: int, nb: int, row_feed: bool, K: int):
+    """(f_tile, ls, smem bytes) of a K2 launch: the features of a block's
+    tile (a multiple of 4 over the byte copy, at most 32), the lane
+    stride of its copy (the power of two at or above it) and the shared
+    memory: the copy (3 planes of nb + 1 bins, the last a trash bin),
+    two batches of values and rows (16 bytes a position), a batch of
+    16-bit bins (a padded row a feature, and a sentinel row) and the
+    K + 1 segment bounds of the gathered feed.  The tile narrows until
+    the copy fits."""
+    step = 4 if row_feed else 1
+    ft = min(32, -(-F // step) * step)
+    while True:
+        ls = 1 << (ft - 1).bit_length()
+        smem = (-(-3 * (nb + 1) * ls // 4) * 16 + 2 * _K2_BATCH * 16
+                + (ft + 1) * (_K2_BATCH + 4) * 2 + (K + 1) * 8)
+        if smem <= K2_SMEM:
+            return ft, ls, smem
+        if ft == step:
+            raise ValueError(f"histogram kernel K2 holds no copy of {nb} "
+                             "bins in shared memory")
+        ft = max(step, ft // 2 // step * step)
+
+
+def _k2_plan(C: int, K: int, F: int, nb: int, row_feed: bool, n_sm: int,
+             gathered: bool):
+    """(f_tile, ls, tile_rows, n_blocks, P_masked) of one K2 launch, cut
+    as K1's (`_k1_plan`) for one wave of resident blocks."""
+    f_tile, ls, smem = _k2_layout(F, nb, row_feed, K if gathered else 0)
+    ftiles = -(-F // f_tile)
+    resident = max(1, min(_K2_PER_SM, (228 * 1024) // (smem + 1024)))
+    target = max(1, resident * n_sm // ftiles)
+    rows_min = max(_K2_BATCH, K2_TILE_ROWS)
+    if gathered:
+        T = -(-max(rows_min, -(-C // target)) // _K2_BATCH) * _K2_BATCH
+        return f_tile, ls, T, -(-C // T) + K, 0
+    T = -(-max(rows_min, -(-C // max(1, target // K))) // _K2_BATCH) \
+        * _K2_BATCH
+    P = max(1, -(-C // T))
+    return f_tile, ls, T, K * P, P
+
+
+def _hist_f_cuda(bins: torch.Tensor, rows: Optional[RowBins],
+                 row_idx: Optional[torch.Tensor], vals: torch.Tensor, B: int,
+                 *, lid: Optional[torch.Tensor] = None,
+                 sl: Optional[torch.Tensor] = None,
+                 base: Optional[torch.Tensor] = None,
+                 round_bf16: bool = False) -> torch.Tensor:
+    """Kernel K2 (csrc/histogram.cu `hist_owned_kernel`): [K, F, 3, B]
+    float32 sums of vals [3, C] float32 (rounded to bfloat16 first when
+    round_bf16), over the gathered feed (base) or the masked one (lid,
+    sl), bins from the byte copy `rows` when given, as `_hist_q_cuda`.
+    Each cell is summed in a fixed order: two calls give the same bits."""
+    F = bins.shape[0]
+    C = vals.shape[1]
+    if vals.dtype != torch.float32 or vals.shape != (3, C):
+        raise TypeError("histogram kernel K2 takes [3, C] float32 vals")
+    _check_feed(vals, row_idx, lid, sl, base)
+    feed, src, stride, nb = _row_feed(bins, rows, B)
+    K = base.numel() - 1 if base is not None else sl.shape[0]
+    dev = bins.device
+    if K == 0 or F == 0 or (C == 0 and base is None):
+        return torch.zeros((K, F, 3, B), dtype=torch.float32, device=dev)
+    gathered = base is not None
+    f_tile, ls, T, n_blocks, P_m = _k2_plan(
+        C, K, F, nb, rows is not None, kernels.sm_count(dev), gathered)
+    scratch = _combine_scratch(dev, gathered, K, n_blocks, P_m,
+                               -(-F // f_tile), 3 * (nb + 1) * ls)
+    src = src.contiguous()
+    vals = vals.contiguous()
+    row_idx = None if row_idx is None else row_idx.contiguous()
+    base = None if base is None else base.to(torch.int64).contiguous()
+    lid = None if lid is None else lid.contiguous()
+    sl = None if sl is None else sl.contiguous()
+    out = torch.empty((K, F, 3, B), dtype=torch.float32, device=dev)
+    kernels.call("hist_f", src.data_ptr(), feed, stride, F, f_tile, ls, nb,
+                 B, kernels.ptr(row_idx), vals.data_ptr(),
+                 int(round_bf16), C, kernels.ptr(base), T, kernels.ptr(lid),
+                 kernels.ptr(sl), P_m, K, n_blocks, *scratch, out.data_ptr())
+    kernels.LAUNCHES["hist_masked_f32"] += 1
     return out
 
 
 def hist_counts(bins, row_idx, lid, vals, sl, B: int,
                 round_bf16: bool = False,
                 rows: Optional[RowBins] = None) -> torch.Tensor:
-    """Dispatch of the masked feed: kernel K1 (int32 vals, the byte copy
-    `rows` when given) / K2 (float32 vals) for CUDA tensors, the plain
-    version for CPU tensors."""
-    quant = not vals.is_floating_point()
+    """Dispatch of the masked feed: kernel K1 (int32 vals) / K2 (float32
+    vals) for CUDA tensors, the plain version for CPU tensors; bins from
+    the byte copy `rows` when given."""
     if not bins.is_cuda:
-        return _hist_plain(bins, row_idx, lid, vals, sl, B, round_bf16,
-                           rows if quant else None)
-    if quant:
-        return _hist_q_cuda(bins, rows, row_idx, vals, B, lid=lid, sl=sl)
-    return _hist_cuda(bins, row_idx, lid, vals, sl, B, round_bf16)
+        return _hist_plain(bins, row_idx, lid, vals, sl, B, round_bf16, rows)
+    if vals.is_floating_point():
+        return _hist_f_cuda(bins, rows, row_idx, vals, B, lid=lid, sl=sl,
+                            round_bf16=round_bf16)
+    return _hist_q_cuda(bins, rows, row_idx, vals, B, lid=lid, sl=sl)
 
 
 def segment_counts(bins, rows: Optional[RowBins], row_idx, vals,
-                   base: torch.Tensor, B: int) -> torch.Tensor:
-    """Dispatch of K1 over the gathered feed (int32 vals, slot k's
-    positions [base[k], base[k+1])): the kernel for CUDA tensors, its
-    plain version for CPU tensors."""
-    if bins.is_cuda:
-        return _hist_q_cuda(bins, rows, row_idx, vals, B, base=base)
-    return _segments_plain(bins, rows, row_idx, vals, base, B)
+                   base: torch.Tensor, B: int,
+                   round_bf16: bool = False) -> torch.Tensor:
+    """Dispatch of the gathered feed (slot k's positions [base[k],
+    base[k+1])): kernel K1 (int32 vals) / K2 (float32 vals) for CUDA
+    tensors, their plain version for CPU tensors."""
+    if not bins.is_cuda:
+        return _segments_plain(bins, rows, row_idx, vals, base, B,
+                               round_bf16)
+    if vals.is_floating_point():
+        return _hist_f_cuda(bins, rows, row_idx, vals, B, base=base,
+                            round_bf16=round_bf16)
+    return _hist_q_cuda(bins, rows, row_idx, vals, B, base=base)
 
 
 def _int8_ok(C: int) -> bool:
@@ -684,7 +769,7 @@ def hist_multileaf_masked(gb_t: torch.Tensor, lid: torch.Tensor,
     int32 leaf ids to histogram (-1 = empty slot).  Position p reads
     bins column row_idx[p] when row_idx is given, else column p.
     Returns [K, F, 3, B] f32.  `rows` (optional) is the store's
-    row-major byte copy, which the int8 path reads instead.
+    row-major byte copy, which the kernels read instead.
 
     input_dtype "int8" quantizes grad/hess per pass (`_quantize_gh`),
     accumulates exactly in int32 (K1) and dequantizes once; "float32" /
@@ -699,25 +784,35 @@ def hist_multileaf_masked(gb_t: torch.Tensor, lid: torch.Tensor,
         input_dtype = "bfloat16"
     vals = gh8[:3].to(torch.float32)
     return hist_counts(gb_t, row_idx, lid, vals, sl, B,
-                       round_bf16=input_dtype == "bfloat16")
+                       round_bf16=input_dtype == "bfloat16", rows=rows)
 
 
-def _gather_segments(perm: torch.Tensor, seg_off: torch.Tensor,
-                     seg_cnt: torch.Tensor, capacity: int):
-    """gather_segments, plus base [K+1] int64: slot k's positions are
-    [base[k], base[k+1]) of the scratch."""
+def _gather_rows(perm: torch.Tensor, seg_off: torch.Tensor,
+                 seg_cnt: torch.Tensor, capacity: int):
+    """The rows of gather_segments' scratch: (idx [capacity] int32, sc
+    [capacity] int64 each position's slot, clamped to K-1 past the live
+    positions, valid [capacity] bool (position < total), total, base
+    [K+1] int64: slot k's positions are [base[k], base[k+1]))."""
     K = seg_off.shape[0]
     dev = perm.device
     base = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                       torch.cumsum(seg_cnt.long(), 0)])
     total = base[K]
     j = torch.arange(capacity, dtype=torch.int64, device=dev)
-    slot = torch.searchsorted(base[1:].contiguous(), j, right=True)
-    valid = j < total
-    sc = torch.clamp(slot, max=K - 1)
+    sc = torch.clamp(torch.searchsorted(base[1:].contiguous(), j,
+                                        right=True), max=K - 1)
     pos = seg_off.long()[sc] + (j - base[sc])
     pos = torch.clamp(pos, 0, perm.shape[0] - 1)
     idx = perm[pos].to(torch.int32)
+    return idx, sc, j < total, total, base
+
+
+def _gather_segments(perm: torch.Tensor, seg_off: torch.Tensor,
+                     seg_cnt: torch.Tensor, capacity: int):
+    """gather_segments, plus base [K+1] int64: slot k's positions are
+    [base[k], base[k+1]) of the scratch."""
+    idx, sc, valid, total, base = _gather_rows(perm, seg_off, seg_cnt,
+                                               capacity)
     slot = torch.where(valid, sc, torch.full_like(sc, -2)).to(torch.int32)
     return idx, slot, total, base
 
@@ -740,26 +835,25 @@ def hist_multileaf_gathered(bins_fn: torch.Tensor, gh8: torch.Tensor,
                             rows: Optional[RowBins] = None) -> torch.Tensor:
     """Histogram K leaf-contiguous row segments in one pass over a
     [capacity] scratch: slot k holds segment k's histogram, exactly
-    hist_multileaf_masked's output for that leaf.  On the int8 path the
-    quantization scales derive from the gathered rows only, as in JAX,
-    and kernel K1 walks each slot's run of the scratch, [base[k],
-    base[k+1]), reading bins through the gathered row ids (from the byte
-    copy `rows` when given); only the [3, capacity] gradient rows are
-    gathered here.  float32 / bfloat16 take K2 over the slot ids."""
-    K = seg_off.shape[0]
+    hist_multileaf_masked's output for that leaf.  The kernel (K1 on the
+    int8 path, K2 in float32 / bfloat16) walks each slot's run of the
+    scratch, [base[k], base[k+1]), reading bins through the gathered row
+    ids (from the byte copy `rows` when given); only the [3, capacity]
+    gradient rows are gathered here.  The kernels read the slot bounds,
+    not per-position slot ids (the gather still finds each position's
+    slot to find its row).  On the int8 path the quantization scales derive from the
+    gathered rows only, as in JAX."""
     B = num_bins_padded
-    idx, slot, _, base = _gather_segments(perm, seg_off, seg_cnt, capacity)
-    live = (slot >= 0).to(torch.float32)
-    ghg = gh8[:3][:, idx.long()] * live[None, :]
+    idx, _, valid, _, base = _gather_rows(perm, seg_off, seg_cnt, capacity)
+    ghg = gh8[:3][:, idx.long()] * valid.to(torch.float32)[None, :]
     if input_dtype == "int8":
         if _int8_ok(capacity):
             ghq, sg, sh = _quantize_gh(ghg)
             return _dequantize(segment_counts(bins_fn, rows, idx, ghq, base,
                                               B), sg, sh)
         input_dtype = "bfloat16"
-    sl = torch.arange(K, dtype=torch.int32, device=bins_fn.device)
-    return hist_multileaf_masked(bins_fn, slot, ghg, sl, num_bins_padded=B,
-                                 input_dtype=input_dtype, row_idx=idx)
+    return segment_counts(bins_fn, rows, idx, ghg.to(torch.float32), base, B,
+                          round_bf16=input_dtype == "bfloat16")
 
 
 # ----------------------------------------------------------------------------

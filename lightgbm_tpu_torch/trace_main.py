@@ -1,11 +1,12 @@
 """Where the time of a boosting iteration goes, on the GPU.
 
     python -m lightgbm_tpu_torch.trace_main [--workload higgs|ctr|onehot]
-        [--rows N] [--trace PATH]
+        [--histogram-dtype int8|float32] [--rows N] [--trace PATH]
 
 Trains a configuration that chip_smoke.py runs — the north-star one
 (binary, `synth_higgs(N)` x 28, 255 leaves, max_bin 255, int8
-histograms, a valid set of N/10 rows scored with AUC each iteration),
+histograms, or float32 ones with --histogram-dtype float32, a valid set
+of N/10 rows scored with AUC each iteration),
 with `--workload ctr` the CTR one (lambdarank on `synth_ctr(N)` x 50,000
 over the sparse store, CTR_PARAMS, a 4,080-row valid set scored with
 NDCG), or with `--workload onehot` the EFB one (`synth_onehot(N)`, 240
@@ -32,7 +33,7 @@ TRACED = 3
 WARMUP = 2
 # the kernel symbols of csrc/, by the name chip_smoke.py reports
 OWN_KERNELS = {"hist_q_kernel": "hist_masked_int8 (K1)",
-               "hist_kernel": "hist_masked_f32 (K2)",
+               "hist_owned_kernel": "hist_masked_f32 (K2)",
                "lookup_kernel": "table_lookup (K3)",
                "partition_kernel": "partition_rows (K4)",
                "hist_sparse_kernel": "hist_sparse (K7/K8)",
@@ -57,6 +58,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", choices=("higgs", "ctr", "onehot"),
                     default="higgs")
+    ap.add_argument("--histogram-dtype", choices=("int8", "float32"),
+                    default="int8",
+                    help="the north-star workload's histogram_dtype")
     ap.add_argument("--rows", type=int, default=0,
                     help="training rows (default 2M higgs and onehot, "
                          "500k ctr)")
@@ -88,7 +92,8 @@ def main(argv=None) -> None:
         vs = lt.Dataset(Xv, yv, reference=ds, params=params)
     else:
         args.rows = args.rows or 2_000_000
-        params = dict(synth.NORTH_STAR_PARAMS)
+        params = dict(synth.NORTH_STAR_PARAMS,
+                      histogram_dtype=args.histogram_dtype)
         X, y = synth.synth_higgs(args.rows)
         Xv, yv = synth.synth_higgs(args.rows // 10, seed=7)
         ds = lt.Dataset(X, y, params=params)
@@ -126,6 +131,7 @@ def main(argv=None) -> None:
     out = {
         "device": torch.cuda.get_device_name(0),
         "workload": args.workload, "rows": args.rows,
+        "histogram_dtype": params.get("histogram_dtype"),
         "traced_iterations": TRACED,
         "wall_s_per_iter": wall / TRACED,
         "device_busy_s_per_iter": busy_s / TRACED,

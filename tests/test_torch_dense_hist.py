@@ -1,6 +1,6 @@
 """The dense histogram kernels as redesigned for the H100 (K5 over byte
-feeds with a live row count, K1 over the segment plan of the gathered
-feed), held against the JAX package on the CPU.
+feeds with a live row count, K1 and K2 over the segment plan of the
+gathered feed), held against the JAX package on the CPU.
 
 Same seeded inputs through both packages.  The port's histograms take
 their plain versions here (CPU tensors); the tiles of kernel K1's work
@@ -12,6 +12,9 @@ package's own tests do.
 Tolerances: the byte feeds and the row-major byte copy are integer data
 and equal the int32 stores bitwise.  The work plan is held exactly.  K1
 (int8 gradients, int32 sums) is bitwise equal to JAX's Pallas kernel.
+K2's plain version over the gathered feed (float32 and bfloat16) is
+bitwise equal to JAX's float Pallas kernel on dyadic gradients and within
+n * 2^-23 * sum|x| per cell on real ones.
 K5's float32 sums are added in another order than XLA's chunked one-hot
 matmul: bitwise on dyadic values (every partial sum exact), and on real
 ones within n * 2^-23 * sum|x| per cell (n float additions in any order
@@ -247,3 +250,73 @@ def test_histogram_from_indices_byte_feed_vs_jax(N, F, nb, B, cap, live,
             torch.as_tensor(h), torch.as_tensor(idx), **kw).numpy()
         tol = 1e-4 + absum[:, 2:3] * 2.0 ** -23 * absum
         assert (np.abs(out - ref) <= tol).all()
+
+
+def _dyadic(gh8, rng):
+    """Gradients on a dyadic grid (multiples of 2^-6 and 2^-8), so that
+    every partial sum of a cell is exact in float32 and in bfloat16."""
+    gh8[0] = np.round(rng.randn(gh8.shape[1]) * 64) / 64
+    gh8[1] = np.round(rng.rand(gh8.shape[1]) * 64) / 256
+    return gh8
+
+
+@pytest.mark.parametrize("input_dtype,feed,dyadic,counts,capacity", [
+    ("float32", "rows32", True, [500, 0, 900, 100], 2_048),
+    ("float32", "rows8", False, [500, 0, 900, 100], 2_048),
+    ("float32", "cols32", False, [1_500], 1_536),
+    ("float32", "cols8", True, [60, 0, 130, 7, 0, 90, 200, 33, 1, 0, 50],
+     1_024),
+    ("bfloat16", "rows32", False, [500, 0, 900, 100], 2_048),
+    ("bfloat16", "cols8", True, [60, 0, 130, 7, 0, 90, 200, 33, 1, 0, 50],
+     1_024),
+])
+def test_gathered_float_segments_vs_pallas_interpret(input_dtype, feed,
+                                                     dyadic, counts,
+                                                     capacity):
+    """K2's plain route over the gathered feed (hist_multileaf_gathered
+    on the CPU: `_segments_plain` over the slot runs' bounds, no slot
+    ids) from the byte copy and from the int32 and int8 stores, against
+    JAX's float Pallas kernel in interpret mode.  Empty slots stay zero;
+    the scratch positions past the total add nothing.  Bitwise on dyadic
+    gradients; on real ones every cell within n * 2^-23 * sum|x| of its n
+    rows (n float additions in any order lie within n * 2^-24 * sum|x|
+    of the exact sum, and both sides reorder)."""
+    K = len(counts)
+    rng = np.random.RandomState(K + capacity)
+    bins, gh8, perm, so, sn = _gathered_case(3_000, 6, K, counts,
+                                             K + capacity,
+                                             feed.endswith("8"))
+    if dyadic:
+        gh8 = _dyadic(gh8, rng)
+    kw = dict(capacity=capacity, num_bins_padded=256,
+              input_dtype=input_dtype)
+    tb, tg = torch.as_tensor(bins), torch.as_tensor(gh8)
+    tp, tso, tsn = (torch.as_tensor(x) for x in (perm, so, sn))
+    rows = th.row_major_bins(tb, 256) if feed.startswith("rows") else None
+    out = th.hist_multileaf_gathered(tb, tg, tp, tso, tsn, rows=rows,
+                                     **kw).numpy()
+    ref = np.asarray(jh.hist_multileaf_gathered(
+        jnp.asarray(bins), jnp.asarray(gh8), jnp.asarray(perm),
+        jnp.asarray(so), jnp.asarray(sn), backend="pallas", interpret=True,
+        **kw))
+    assert out.shape == ref.shape == (K, 6, 3, 256)
+    for k in np.flatnonzero(np.asarray(counts) == 0):
+        assert not out[k].any()
+    # the plain route over the bounds, as the kernel's wrapper takes it
+    idx, _, valid, total, base = th._gather_rows(tp, tso, tsn, capacity)
+    assert int(total) == sum(counts) and int(base[-1]) == sum(counts)
+    ghg = tg[:3][:, idx.long()] * valid.to(torch.float32)
+    bf16 = input_dtype == "bfloat16"
+    seg = th.segment_counts(tb, rows, idx, ghg, base, 256, round_bf16=bf16)
+    np.testing.assert_array_equal(seg.numpy(), out)
+    if dyadic:
+        np.testing.assert_array_equal(out, ref)
+    else:
+        absv = torch.stack([ghg[0].abs(), ghg[1].abs(),
+                            torch.ones_like(ghg[2])])
+        if bf16:
+            absv = absv.to(torch.bfloat16).to(torch.float32)
+        s = th._segments_plain(tb, rows, idx, absv, base, 256).numpy()
+        tol = s[:, :, 2:3] * 2.0 ** -23 * s
+        assert (np.abs(out - ref) <= tol).all()
+        assert not np.array_equal(out, np.zeros_like(out))

@@ -10,21 +10,24 @@ imports no JAX, so it runs on a machine without it:
 
 Tolerances: K1 (int8 histogram), K3 (lookup), K4 (partition) and K7
 (int8 sparse histogram) are integer-exact or pure data movement and must
-be bitwise equal.  K2 (float32 histogram) adds each cell's values with
-float atomics in a run-dependent order: n f32 additions reorder within
-n * 2^-24 * sum|x|, below 1e-3 for the ~15 rows of |x| <= 4 per cell
-here.  K8 (float32 sparse histogram) is held to the rigorous bound of
-reordered float sums: n f32 additions in any order lie within
-n * 2^-24 * sum|x| of the exact sum, and both the kernel and its plain
-version reorder, so a stored cell agrees within n * 2^-23 * sum|x| of
-its own n entries; a zero bin (slot total minus the column's stored
-sums, each reordered on both sides) within n * 2^-22 * sum|x| of the
-slot's n rows.  With dyadic gradients every partial sum is exact and K8
-is bitwise.  K5 (gathered-row histogram) sums each cell in a fixed
-order that differs from its plain version's, and K6 (M-row histogram)
-adds with float atomics; both are held to the same n * 2^-23 * sum|x|
-per cell, bitwise on dyadic values, their count channel always bitwise;
-K5 is also bitwise from run to run.
+be bitwise equal.  K2 (float32 histogram) sums each cell in a fixed
+order that differs from its plain version's: bitwise on dyadic values,
+bitwise from run to run, and on real ones within n * 2^-23 * sum|x| per
+cell (n f32 additions in any order lie within n * 2^-24 * sum|x| of the
+exact sum, and both sides reorder), which is below the 1e-3 of the
+masked-feed test for the ~15 rows of |x| <= 4 per cell there.  K8
+(float32 sparse histogram) is held to the rigorous bound of reordered
+float sums: n f32 additions in any order lie within n * 2^-24 * sum|x|
+of the exact sum, and both the kernel and its plain version reorder, so
+a stored cell agrees within n * 2^-23 * sum|x| of its own n entries; a
+zero bin (slot total minus the column's stored sums, each reordered on
+both sides) within n * 2^-22 * sum|x| of the slot's n rows.  With
+dyadic gradients every partial sum is exact and K8 is bitwise.  K5
+(gathered-row histogram) sums each cell in a fixed order that differs
+from its plain version's, and K6 (M-row histogram) adds with float
+atomics; both are held to the same n * 2^-23 * sum|x| per cell, bitwise
+on dyadic values, their count channel always bitwise; K5 is also
+bitwise from run to run.
 """
 import numpy as np
 import pytest
@@ -93,6 +96,21 @@ def test_hist_gathered_kernel_vs_plain(dev):
     out = th.hist_multileaf_gathered(bins.to(dev), gh.to(dev), perm.to(dev),
                                      so.to(dev), sn.to(dev), **kw).cpu()
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    # the float32 pass goes through K2 over the same slot bounds, from the
+    # byte copy when given: within 1e-3 of the plain route (up to ~85
+    # rows of |x| <= 4 a cell), twice the same bits
+    kw["input_dtype"] = "float32"
+    rows = th.row_major_bins(bins, 250)
+    ref = th.hist_multileaf_gathered(bins, gh, perm, so, sn, rows=rows, **kw)
+    rd = th.RowBins(rows.rows.to(dev), rows.num_bins)
+    before = kernels.LAUNCHES["hist_masked_f32"]
+    out = [th.hist_multileaf_gathered(
+        bins.to(dev), gh.to(dev), perm.to(dev), so.to(dev), sn.to(dev),
+        rows=rd, **kw).cpu() for _ in range(2)]
+    assert kernels.LAUNCHES["hist_masked_f32"] == before + 2
+    np.testing.assert_array_equal(out[0].numpy(), out[1].numpy())
+    np.testing.assert_allclose(out[0].numpy(), ref.numpy(), rtol=0,
+                               atol=1e-3)
 
 
 def _segment_case(seed, K, capacity, total, F=28, nb=255, empty=(1,)):
@@ -150,6 +168,86 @@ def test_hist_q_kernel_segments_vs_plain(dev, monkeypatch, K, capacity,
     assert kernels.LAUNCHES["hist_masked_int8"] == before + 2
     np.testing.assert_array_equal(out[0].numpy(), ref.numpy())
     np.testing.assert_array_equal(out[1].numpy(), ref.numpy())
+
+
+def _float_vals(rng, n, total, dyadic):
+    """[3, n] float32 (grad, hess, mask) with zeros past `total`: dyadic
+    (every partial sum exact in float32 and bfloat16) or real."""
+    g, h = rng.randn(total), rng.rand(total)
+    if dyadic:
+        g, h = np.round(g * 64) / 64, np.round(h * 64) / 256
+    vals = np.zeros((3, n), np.float32)
+    vals[0, :total], vals[1, :total] = g, h
+    vals[2, :total] = rng.rand(total) < 0.9
+    return torch.as_tensor(vals)
+
+
+@pytest.mark.parametrize("feed,gathered,dyadic,bf16,tile,F,nb,B", [
+    ("rows32", True, True, False, None, 28, 255, 256),   # a gathered pass
+    ("rows8", True, False, False, 256, 28, 255, 256),    # slots split
+    ("cols32", True, True, True, 256, 28, 255, 256),
+    ("cols8", True, False, False, None, 28, 255, 256),
+    ("rows32", False, True, False, None, 28, 255, 256),  # the root pass
+    ("cols32", False, False, True, 256, 28, 255, 256),   # two-level combine
+    ("rows8", False, False, False, 2048, 28, 255, 256),  # K > 1 masked
+    ("rows32", True, True, False, 256, 40, 7, 128),      # the onehot store
+    ("cols32", True, False, False, None, 9, 300, 384),   # past 256 bins
+])
+def test_hist_f_kernel_vs_plain(dev, monkeypatch, feed, gathered, dyadic,
+                                bf16, tile, F, nb, B):
+    """K2 over the gathered feed's segment plan and over the masked feed,
+    from the byte copy and from both [F, N] stores, against its plain
+    version: bitwise on dyadic values, else within n * 2^-23 * sum|x| per
+    cell; two runs bitwise equal."""
+    if tile is not None:
+        monkeypatch.setattr(th, "K2_TILE_ROWS", tile)
+    rng = np.random.RandomState(F + nb + tile if tile else F + nb)
+    if gathered:
+        K, capacity, total = 84 if nb == 255 else 15, 60_000, 57_000
+        gb, base, row_idx, _ = _segment_case(K + capacity, K, capacity,
+                                             total, F=F, nb=nb)
+        vals = _float_vals(rng, capacity, total, dyadic)
+        kw, lid, sl = dict(base=base), None, None
+    else:
+        K, C = (1, 200_003) if tile != 2048 else (6, 50_000)
+        gb = torch.as_tensor(rng.randint(0, nb, size=(F, C)).astype(
+            np.int32))
+        row_idx, base = None, None
+        lid = torch.as_tensor(rng.randint(-1, K + 2, size=C).astype(
+            np.int32)) if K > 1 else torch.zeros(C, dtype=torch.int32)
+        sl = torch.arange(K, dtype=torch.int32)
+        if K > 1:
+            sl[2] = -1                                   # an empty slot
+        vals = _float_vals(rng, C, C, dyadic)
+        kw = dict(lid=lid, sl=sl)
+    bins = gb if feed.endswith("32") else (gb - 128).to(torch.int8)
+    rows = th.row_major_bins(bins, nb) if feed.startswith("rows") else None
+
+    def plain(v, round_bf16):
+        if gathered:
+            return th._segments_plain(bins, rows, row_idx, v, base, B,
+                                      round_bf16)
+        return th._hist_plain(bins, None, lid, v, sl, B, round_bf16,
+                              rows=rows)
+    ref = plain(vals, bf16)
+    rd = None if rows is None else th.RowBins(rows.rows.to(dev),
+                                              rows.num_bins)
+    on = {k: v.to(dev) for k, v in kw.items()}
+    args = (bins.to(dev), rd, None if row_idx is None else row_idx.to(dev),
+            vals.to(dev), B)
+    before = kernels.LAUNCHES["hist_masked_f32"]
+    out = [th._hist_f_cuda(*args, round_bf16=bf16, **on).cpu()
+           for _ in range(2)]
+    assert kernels.LAUNCHES["hist_masked_f32"] == before + 2
+    np.testing.assert_array_equal(out[0].numpy(), out[1].numpy())
+    if dyadic:
+        np.testing.assert_array_equal(out[0].numpy(), ref.numpy())
+        return
+    absv = torch.stack([vals[0].abs(), vals[1].abs(),
+                        torch.ones_like(vals[2])])
+    s = plain(absv, bf16).double()
+    tol = s[:, :, 2:3] * 2.0 ** -23 * s
+    assert ((out[0].double() - ref.double()).abs() <= tol).all()
 
 
 def test_combine_buffers_per_stream(dev):
@@ -338,7 +436,8 @@ def _reorder_bound(cols, bins, srow, absv, zb, K, C, B):
 
 def test_cuda_tensor_never_takes_the_plain_version(dev, monkeypatch):
     """A CUDA tensor launches the kernel or raises: with the library
-    call failing, the wrappers raise instead of falling back."""
+    call failing, the wrappers raise instead of falling back (K1, K2,
+    K3, K5, K7/K8)."""
     def refuse(*a, **k):
         raise RuntimeError("launch refused")
     monkeypatch.setattr(kernels, "call", refuse)
@@ -366,6 +465,18 @@ def test_cuda_tensor_never_takes_the_plain_version(dev, monkeypatch):
                 gb, torch.zeros(2_000, dtype=torch.int32, device=dev),
                 vals.float(), torch.zeros(1, dtype=torch.int32, device=dev),
                 num_bins_padded=256, input_dtype="int8", rows=rd)
+    # K2 over both feeds, from the store and from its byte copy
+    fv = vals.float()
+    for rd in (None, rows):
+        for input_dtype in ("float32", "bfloat16"):
+            with pytest.raises(RuntimeError, match="launch refused"):
+                th.segment_counts(gb, rd, row_idx, fv, base, 256,
+                                  round_bf16=input_dtype == "bfloat16")
+            with pytest.raises(RuntimeError, match="launch refused"):
+                th.hist_multileaf_masked(
+                    gb, torch.zeros(2_000, dtype=torch.int32, device=dev),
+                    fv, torch.zeros(1, dtype=torch.int32, device=dev),
+                    num_bins_padded=256, input_dtype=input_dtype, rows=rd)
     bt, g, h, idx = [x.to(dev) for x in _gathered_case(
         1_000, 40, 7, 1_024, 900, 2, False, np.uint8)]
     with pytest.raises(RuntimeError, match="launch refused"):

@@ -114,12 +114,18 @@ def test_binary_logloss_gradients():
                                atol=0)
 
 
-@pytest.mark.parametrize("bagging,bounded", [
-    (False, False), (True, False), (False, True)])
-def test_rounds_tree_63_leaves_matches_jax(bagging, bounded):
+@pytest.mark.parametrize("bagging,bounded,histogram_dtype", [
+    (False, False, "float32"), (True, False, "float32"),
+    (False, True, "float32"), (False, False, "int8"), (True, False, "int8")],
+    # the float32 cases keep the ids they had before int8 joined
+    ids=["False-False", "True-False", "False-True", "False-False-int8",
+         "True-False-int8"])
+def test_rounds_tree_63_leaves_matches_jax(bagging, bounded,
+                                           histogram_dtype):
     X, y = synth_higgs(20000)
     # a small hessian floor, so the tree reaches the 63-leaf cap
-    params = dict(PARAMS, hist_rows="gathered", min_sum_hessian_in_leaf=1.0)
+    params = dict(PARAMS, hist_rows="gathered", min_sum_hessian_in_leaf=1.0,
+                  histogram_dtype=histogram_dtype)
     if bounded:
         # a 0.1 MB pool holds no per-leaf histogram cache: both children
         # are histogrammed directly
