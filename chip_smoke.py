@@ -19,9 +19,12 @@ Phases (any failure exits non-zero and prints no result line):
              gathered pass from the byte copy and both [F, N] stores,
              within K2_ATOL of both plain versions and bitwise from run to
              run, and on the root pass with dyadic values, bitwise; K3
-             (lookup fused with the
-             score add, and one level of the valid-set walk, bitwise), K4
-             (row partition, bitwise); median times of kernel, plain
+             (lookup fused with the score add, and one level of the
+             valid-set walk, bitwise), K4 (row partition, bitwise and
+             from run to run, over each of its feeds: the int8 [F, N]
+             store the learner passes, the row-major byte copy and the
+             int32 store, each timed, with the bytes of the 32-byte
+             sectors its gathers touch); median times of kernel, plain
              version and, where one exists, a single PyTorch call
              computing the same function (library_ms; K3 has none — one
              index_select, which neither adds into the score nor zeroes
@@ -43,7 +46,10 @@ Phases (any failure exits non-zero and prints no result line):
              recording each call's inputs, every call then held against
              its plain version (K1 bitwise, K2 within n * 2^-23 * sum|x|
              a cell) and run twice bitwise, timed, and given its bound;
-             the per-tree sums are printed.
+             the per-tree sums are printed.  The same for every K4 call
+             of the int8 tree (bitwise against its plain version, two
+             runs bitwise), timed on the learner's feed and, by graph, on
+             the other feeds of the store.
 4. ctr set-up — synth_ctr(500_000) x 50,000 hashed-count features at
              density 0.01 (scipy CSR, 20-row queries) through
              lightgbm_tpu_torch.Dataset with CTR_PARAMS (sparse_store=csr):
@@ -106,7 +112,8 @@ Phases (any failure exits non-zero and prints no result line):
              Bitwise on dyadic values, and on real ones within
              n * 2^-23 * sum|x| per cell (the kernel's fixed-order float
              sums and the plain version's index_add_ order differ); the
-             count channel always bitwise; K5 run twice, bitwise equal.
+             count channel always bitwise; K5 and K6 run twice, bitwise
+             equal.
              Times of kernel, plain version and one PyTorch call over
              prebuilt flat indices (index_add_ for K5; for K6 one
              scatter_add_ over stride-0 views, since its flat index would
@@ -137,8 +144,8 @@ of earlier versions of this script; it includes the wrapper's host
 enqueue where that takes longer than the kernel.  K1-K5 are also timed
 as graph_ms, the device time of one call with no host in between, from a
 CUDA graph of 10 calls replayed between events (in their {"kernels"}
-rows too, null in the others); K1, K2 and K5 also as host_us, the
-wrapper's host time a call.
+rows too), and so is K6; K1, K2 and K5 also as host_us, the wrapper's
+host time a call.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and last {"ok": true, "device": {...}}.  Exits with 2 and no result when
@@ -546,7 +553,7 @@ def phase_kernels(torch, kernels, H, LK, P):
           f"max_abs_err={max(errs):.3g} ms={ms:.4f} graph_ms={graph:.4f} "
           f"host_us={host:.1f} plain_ms={plain:.4f} bound_ms={bms:.4f} "
           f"({by})", flush=True)
-    del prows, got, ref
+    del got, ref
 
     # ---- K3: the training-score add, T=1, S=255, N=2M -------------------
     table = torch.as_tensor(rng.randn(1, 255).astype(np.float32), device=dev)
@@ -601,7 +608,8 @@ def phase_kernels(torch, kernels, H, LK, P):
           f"index_select_ms={wsel:.4f} bound_ms={wbms:.4f} ({wby})",
           flush=True)
 
-    # ---- K4: partition, S=256, N=2M, F=28 -------------------------------
+    # ---- K4: partition, S=256, N=2M, F=28, over each feed: the int8
+    # [F, N] store the learner passes and the int32 one ------------------
     S = 256
     tbl = np.zeros((7, S), np.float32)
     act = rng.rand(S - 1) < 0.5
@@ -612,29 +620,87 @@ def phase_kernels(torch, kernels, H, LK, P):
     tblt = torch.as_tensor(tbl, device=dev)
     plid = torch.as_tensor(rng.randint(0, 128, size=Nr).astype(np.int32),
                            device=dev)
-    errs = []
-    for b in (pbins, (pbins - 128).to(torch.int8)):
-        got = P._partition_cuda(b, plid, tblt)
-        ref = P._partition_plain(b, plid, tblt)
+    feeds = partition_feeds(torch, pbins)
+    ref = P._partition_plain(pbins, plid, tblt)
+    errs, times = [], {}
+    for label, b in feeds:
+        def k4(b=b):
+            return P._partition_cuda(b, plid, tblt)
+        got, again = k4(), k4()
+        feed_ref = P._partition_plain(b, plid, tblt)
         torch.cuda.synchronize()
         errs.append((got - ref).abs().max().item())
-        if not torch.equal(got, ref):
-            fail(f"partition_rows ({b.dtype} bins) differs from its plain "
-                 f"version: {errs[-1]}")
-    ms = time_ms(torch, lambda: P._partition_cuda(pbins, plid, tblt), 50)
-    graph = graph_ms(torch, lambda: P._partition_cuda(pbins, plid, tblt))
-    plain = time_ms(torch, lambda: P._partition_plain(pbins, plid, tblt), 10)
-    bms, by = bound_ms(Nr * 4 + Nr * 4 + 7 * S * 4 + Nr * 4, 8.0 * Nr)
+        if not (torch.equal(got, feed_ref) and torch.equal(got, ref)
+                and torch.equal(got, again)):
+            fail(f"partition_rows ({label}) differs from its plain version: "
+                 f"{errs[-1]}")
+        times[label] = dict(ms=time_ms(torch, k4, 50),
+                            graph_ms=graph_ms(torch, k4),
+                            gather_mb=partition_gather_bytes(
+                                torch, b, plid, tblt) / 1e6)
+    plain = time_ms(torch, lambda: P._partition_plain(feeds[0][1], plid,
+                                                      tblt), 10)
+    # the learner's feed, the int8 store: a byte a bin
+    mine = times[feeds[0][0]]
+    del got, again, feed_ref, feeds
+    bms, by, n_split = partition_bound(torch, plid, tblt, 1)
     rows.append(dict(name="partition_rows", route="cuda",
                      source="lightgbm_tpu_torch/csrc/partition.cu",
                      replaces="lightgbm_tpu/ops/partition.py:76",
-                     max_abs_err=float(max(errs)), ms=ms, graph_ms=graph,
-                     plain_ms=plain, bound_ms=bms, bound_by=by,
-                     library_ms=None))
-    print(f"[kernels] partition_rows: S={S} N={Nr} F={F} ms={ms:.4f} "
-          f"graph_ms={graph:.4f} plain_ms={plain:.4f} bound_ms={bms:.4f} "
-          f"({by})", flush=True)
+                     max_abs_err=float(max(errs)), ms=mine["ms"],
+                     graph_ms=mine["graph_ms"], plain_ms=plain,
+                     bound_ms=bms, bound_by=by, library_ms=None))
+    print(f"[kernels] partition_rows: S={S} N={Nr} F={F} "
+          f"splitting_rows={n_split} ms={mine['ms']:.4f} "
+          f"graph_ms={mine['graph_ms']:.4f} plain_ms={plain:.4f} "
+          f"bound_ms={bms:.4f} ({by}); by feed: {json.dumps(times)}",
+          flush=True)
     return rows
+
+
+def partition_feeds(torch, bins):
+    """K4's feeds of one [F, N] store (int32, or int8 holding value - 128),
+    the learner's first: the int8 store, the int32 store."""
+    b8 = bins if bins.dtype == torch.int8 else (bins - 128).to(torch.int8)
+    b32 = bins if bins.dtype == torch.int32 else bins.to(torch.int32) + 128
+    return (("int8 [F, N]", b8), ("int32 [F, N]", b32))
+
+
+def partition_feed_label(bins):
+    return "int8 [F, N]" if bins.element_size() == 1 else "int32 [F, N]"
+
+
+def partition_split_rows(torch, lid, tbl):
+    """[N] bool: the rows whose leaf splits (new leaf > 0) on a column
+    inside the store, the rows whose bin K4 reads."""
+    S = tbl.shape[1]
+    ok = (lid >= 0) & (lid < S)
+    col = tbl[:, lid.clamp(0, S - 1).long()]
+    return ok & (col[3] > 0)
+
+
+def partition_bound(torch, lid, tbl, bin_bytes):
+    """(bound ms, basis, splitting rows) of one K4 call: the leaf id of
+    every row read and its new id written (8 B a row), the table, and
+    one bin of `bin_bytes` for each row whose leaf splits."""
+    N, S = lid.shape[0], tbl.shape[1]
+    n_split = int(partition_split_rows(torch, lid, tbl).sum())
+    return bound_ms(N * 8 + 7 * S * 4 + n_split * bin_bytes,
+                    8.0 * N) + (n_split,)
+
+
+def partition_gather_bytes(torch, bins_fn, lid, tbl) -> int:
+    """Bytes of the distinct 32-byte sectors that K4's bin gathers touch
+    on these inputs (the rows of splitting leaves only): what the gather
+    costs in device memory, whatever the bin's size."""
+    split = partition_split_rows(torch, lid, tbl)
+    n = split.nonzero()[:, 0]
+    col = tbl[0, lid[n].long()].long()
+    F, N = bins_fn.shape
+    keep = (col >= 0) & (col < F)
+    n, col = n[keep], col[keep]
+    addr = (col * N + n) * bins_fn.element_size()
+    return int(torch.unique(addr // 32).numel()) * 32
 
 
 def phase_ctr_setup(lt, rows):
@@ -1116,6 +1182,69 @@ def phase_rounds_tree(torch, lt, H, params, ds, label):
     tree_sums(per, f"{kname} ({label})")
 
 
+def phase_partition_tree(torch, lt, P, params, ds, label):
+    """Kernel K4 on every call of one tree: the wrapper records each
+    call's inputs during a one-tree train; each call is then held
+    bitwise against its plain version and run twice (bitwise), timed on
+    the feed the learner passed and, by graph, on the other feed of the
+    same store (`partition_feeds`), and given its bound."""
+    real = P._partition_cuda
+    calls = []
+
+    def record(bins_fn, leaf_id, tbl):
+        calls.append((bins_fn, leaf_id.clone(), tbl.clone()))
+        return real(bins_fn, leaf_id, tbl)
+    P._partition_cuda = record
+    try:
+        lt.train(params, ds, 1)
+    finally:
+        P._partition_cuda = real
+    if not calls:
+        fail(f"the {label} tree launched no partition_rows")
+    per, others, feeds = [], {}, {}
+    for i, (bins_fn, lid, tbl) in enumerate(calls):
+        def run():
+            return real(bins_fn, lid, tbl)
+        got, again = run(), run()
+        ref = P._partition_plain(bins_fn, lid, tbl)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not (torch.equal(got, ref) and torch.equal(got, again)):
+            fail(f"partition_rows on call {i} of the {label} tree differs "
+                 f"from its plain version (max |diff| {err})")
+        del got, again, ref
+        mine = partition_feed_label(bins_fn)
+        bms, by, n_split = partition_bound(
+            torch, lid, tbl, 1 if mine != "int32 [F, N]" else 4)
+        per.append(dict(feed=mine, rows=n_split, max_abs_err=err,
+                        ms=time_ms(torch, run, 20),
+                        graph_ms=graph_ms(torch, run),
+                        plain_ms=time_ms(torch, lambda: P._partition_plain(
+                            bins_fn, lid, tbl), 2, 1),
+                        bound_ms=bms, bound_by=by,
+                        gather_mb=partition_gather_bytes(
+                            torch, bins_fn, lid, tbl) / 1e6))
+        # the other feeds of the same store, built once
+        key = id(bins_fn)
+        if key not in feeds:
+            feeds[key] = partition_feeds(torch, bins_fn)
+        for flabel, b in feeds[key]:
+            if flabel == mine:
+                continue
+            o = others.setdefault(flabel, dict(graph_ms=0.0, gather_mb=0.0))
+            o["graph_ms"] += graph_ms(torch, lambda: real(b, lid, tbl))
+            o["gather_mb"] += partition_gather_bytes(torch, b, lid,
+                                                     tbl) / 1e6
+        print(f"[tree replay] partition_rows ({label}) call {i}: "
+              f"{json.dumps(per[-1])}", flush=True)
+    del calls, feeds
+    gc.collect()
+    torch.cuda.empty_cache()
+    tree_sums(per, f"partition_rows ({label})")
+    print(f"[tree replay] partition_rows ({label}) per tree, the other "
+          f"feed: {json.dumps(others)}", flush=True)
+
+
 def phase_k5_tree(torch, lt, H, params, ds):
     """Kernel K5 on every call of one onehot exact-learner tree: the
     wrapper records each call's inputs during a one-tree train; each call
@@ -1253,11 +1382,17 @@ def gathered_bound(bins_t, count, B):
 
 
 def multirow_check(torch, H, gb, vals, B, exact: bool) -> float:
-    """K6 against its plain version, as gathered_check."""
+    """K6 against its plain version, as gathered_check: bitwise when
+    `exact`, else every cell within n * 2^-23 * sum|x|; two runs of the
+    kernel bitwise equal."""
     got = H._multirow_cuda(gb, vals, B, "float32")
+    again = H._multirow_cuda(gb, vals, B, "float32")
     ref = H.hist_multileaf_xla(gb, vals, num_bins_padded=B)
     torch.cuda.synchronize()
     err = (got.double() - ref.double()).abs().max().item()
+    if not torch.equal(got, again):
+        fail("hist_multirow: two runs of the kernel differ")
+    del again
     if exact and not torch.equal(got, ref):
         fail(f"hist_multirow differs from its plain version: {err}")
     if not exact:
@@ -1367,7 +1502,10 @@ def phase_gathered_kernels(torch, H, ds):
     errs = [multirow_check(torch, H, gb, dy, B, True),
             multirow_check(torch, H, gb, vals, B, False)]
     del dy
-    ms = time_ms(torch, lambda: H._multirow_cuda(gb, vals, B, "float32"), 10)
+    def k6():
+        return H._multirow_cuda(gb, vals, B, "float32")
+    ms = time_ms(torch, k6, 10)
+    graph = graph_ms(torch, k6)
     plain = time_ms(torch, lambda: H.hist_multileaf_xla(
         gb, vals, num_bins_padded=B), 2, 1)
     # one scatter_add_: bins broadcast over the M rows, values over the F
@@ -1379,14 +1517,18 @@ def phase_gathered_kernels(torch, H, ds):
                   1)
     del index, src, out
     bms, by = bound_ms(F * C * 4 + M * C * 4 + F * M * B * 4, float(F) * M * C)
+    lay = H._k6_layout(F, M, B, C, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     print(f"[gathered kernels] hist_multirow: F={F} M={M} C={C} B={B} "
-          f"max_abs_err={max(errs):.3g} ms={ms:.4f} plain_ms={plain:.4f} "
+          f"layout={json.dumps(lay._asdict())} max_abs_err={max(errs):.3g} "
+          f"ms={ms:.4f} graph_ms={graph:.4f} plain_ms={plain:.4f} "
           f"library_ms={lib:.4f} bound_ms={bms:.4f} ({by})", flush=True)
     rows.append(dict(name="hist_multirow", route="cuda",
                      source="lightgbm_tpu_torch/csrc/hist_gathered.cu",
                      replaces="lightgbm_tpu/ops/histogram.py:252",
-                     max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                     bound_ms=bms, bound_by=by, library_ms=lib))
+                     max_abs_err=max(errs), ms=ms, graph_ms=graph,
+                     plain_ms=plain, bound_ms=bms, bound_by=by,
+                     library_ms=lib))
     del gb, vals
     gc.collect()
     torch.cuda.empty_cache()
@@ -1560,6 +1702,7 @@ def main() -> None:
         src = st32 if r["name"] == "hist_masked_f32" else st
         r["launches"] = src["launches"][r["name"]]
     phase_rounds_tree(torch, lt, H, ns_params, ns_ds, "north-star")
+    phase_partition_tree(torch, lt, P, ns_params, ns_ds, "north-star")
     phase_rounds_tree(torch, lt, H, dict(ns_params, histogram_dtype="float32"),
                       ns_ds, "north-star, float32")
     del ns_ds

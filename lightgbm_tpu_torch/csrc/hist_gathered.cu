@@ -48,8 +48,35 @@
 // of a feature tile combine their tiles through a slab and tickets in a
 // fixed order (tile_combine.cuh), and one block writes every output cell
 // once: the result is the same bits from run to run.
+//
+// What bounds K6 on an H100: its F * M * C float adds (7.2e9 at F=28,
+// M=128, C=2M), not its bytes (the [M, C] values, 1 GB there, read
+// once).  The TPU kernel contracted one-hot blocks on the MXU; a one-hot
+// product here would take F * M * B * C * 2 flops (3.7e12, three bf16
+// passes for float32 accuracy).  Instead every output cell has one owner
+// thread that adds in position order, with no atomics: a block owns one
+// item, (a tile of up to 32 features, a tile of value rows), over one
+// chunk of positions.  Owner lane l of warp w owns feature l % nfp of the
+// tile for value row w * (32 / nfp) + l / nfp (nfp: the tile's features
+// rounded up to a power of two), all B bins of it, laid out [bin][lane]
+// so that its cells sit in bank l whatever their bins (bin B is a trash
+// cell for bins outside [0, B) and for lanes with no feature).  The
+// block stages a tile of Pt positions at a time in shared memory: each
+// feature's bins as 16-bit words, each value row's values, loaded into
+// registers while the owners add the tile before and stored after them.
+// A lane takes 4 positions a step (the bins in one 8-byte load, the
+// values in one 16-byte load shared by the lanes of its row), loads the
+// 4 cells before any store and forwards a sum in registers to a later
+// position of the same bin, as K2 does.  The values of an item's chunk
+// are read once; the bins once for each value-row tile, and the blocks
+// of one chunk are consecutive in the grid, so they run together and
+// find the bins in L2.  The P blocks of an item combine their tiles
+// through a slab and tickets in a fixed order (tile_combine.cuh), and
+// the last one writes every output cell once: the same bits from run to
+// run.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "tile_combine.cuh"
@@ -58,10 +85,11 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMultiThreads = 256;
-// shared memory a K6 block may privatise; above it the value rows are
-// tiled across blocks
-constexpr int kMaxSmem = 200 * 1024;
+// K6: at most 8 owner warps and kProducerWarps staging warps a block;
+// the 16-byte loads of a tile a producer thread holds
+constexpr int kProducerWarps = 4;
+constexpr int kMultiThreads = (8 + kProducerWarps) * 32;
+constexpr int kMultiLoads = 12;
 // rows whose bins a warp loads before it adds them (a copy a warp)
 constexpr int kUnroll = 8;
 // rows a block stages in shared memory at once (one copy a block)
@@ -327,38 +355,241 @@ hist_gathered_kernel(const BinT* __restrict__ bins, long long row_stride,
   }
 }
 
-__global__ void __launch_bounds__(kMultiThreads)
-hist_multirow_kernel(const int* __restrict__ gb, long long C,
-                     long long chunk, const float* __restrict__ vals, int M,
-                     int m_tile, int B, int round_bf16,
+// Named barriers of K6's two-slot ring (0 is __syncthreads): slot s is
+// full (kFull + s) when the producers have staged it, empty (kEmpty + s)
+// when the owners are done with it.
+constexpr int kFull = 1;
+constexpr int kEmpty = 3;
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// K6: a block owns the cells of one item, (feature tile, value-row
+// tile), over one chunk of positions; its first W warps own the cells,
+// the last kProducerWarps stage the positions; see the head of this file.
+__global__ void __launch_bounds__(kMultiThreads, 1)
+hist_multirow_kernel(const int* __restrict__ gb, int F, long long C,
+                     const float* __restrict__ vals, int M, int B,
+                     int round_bf16, int lg, int W, int Pt, long long chunk,
+                     int P, int rtiles, unsigned* __restrict__ slab,
+                     unsigned* __restrict__ gslab, int* __restrict__ tickets,
                      float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sh = reinterpret_cast<float*>(smem_raw);
-  const int f = blockIdx.y;
-  const int m0 = blockIdx.z * m_tile;
-  const int nm = min(m_tile, M - m0);
-  const long long c0 = (long long)blockIdx.x * chunk;
-  const long long c1 = min(C, c0 + chunk);
-  const int cells = nm * B;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) sh[i] = 0.f;
+  const int nfp = 1 << lg;                 // lanes a feature group
+  const int rpw = 32 >> lg;                // value rows a warp
+  const int R = W * rpw;                   // value rows a tile
+  const int items = (F + nfp - 1) / nfp * rtiles;
+  const int item = blockIdx.x % items;     // consecutive blocks: one chunk
+  const int t = blockIdx.x / items;
+  const int f0 = item / rtiles * nfp;
+  const int m0 = item % rtiles * R;
+  const int nf = min(nfp, F - f0);
+  const int nR = min(R, M - m0);
+  const long long lo = (long long)t * chunk;
+  const long long hi = min(C, lo + chunk);
+  const int CW = (B + 1) * 32;             // a warp's cells, bin B trash
+  const int words = W * CW;
+  const int SP = Pt + 4;                   // 16-bit bins a staged row
+  const int VS = Pt + 4;                   // floats a staged value row
+  // a ring slot: the bins [nfp + 1][SP] (row nfp the trash bin), then the
+  // values [R][VS]
+  const int bin_bytes = ((nfp + 1) * SP * 2 + 15) & ~15;
+  const int slot_bytes = bin_bytes + ((R * VS * 4 + 15) & ~15);
+  float* cells = reinterpret_cast<float*>(smem_raw);
+  unsigned char* ring = smem_raw + (long long)words * 4;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  for (int i = tid; i < (words >> 2); i += nt)
+    reinterpret_cast<uint4*>(cells)[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int s = 0; s < 2; ++s) {
+    unsigned short* sbin =
+        reinterpret_cast<unsigned short*>(ring + s * slot_bytes);
+    float* svals = reinterpret_cast<float*>(ring + s * slot_bytes + bin_bytes);
+    for (int i = tid; i < R * VS; i += nt) svals[i] = 0.f;
+    for (int i = tid; i < SP; i += nt) sbin[nfp * SP + i] = (unsigned short)B;
+  }
   __syncthreads();
+  const int n_tiles = (int)((max(hi - lo, 0LL) + Pt - 1) / Pt);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
 
-  const int* col = gb + (long long)f * C;
-  for (long long p = c0 + threadIdx.x; p < c1; p += blockDim.x) {
-    const int b = col[p];
-    if ((unsigned)b >= (unsigned)B) continue;
-    const float* v = vals + (long long)m0 * C + p;
-    for (int j = 0; j < nm; ++j) {
-      const float x = to_acc(v[(long long)j * C], round_bf16);
-      if (x != 0.f) atomicAdd(sh + j * B + b, x);
+  if (warp >= W) {
+    // ---- producers: item i < nf * G is 4 positions of feature row i / G,
+    // then 4 positions of value row (i - nf * G) / G, at the same place of
+    // every tile: its source row, offset and slot place are worked out
+    // once.  A tile's loads are in flight while the producers wait for
+    // its slot; positions from hi on stage the trash bin and 0.
+    const int G = Pt >> 2;
+    const int nbi = nf * G;
+    const int n_items = nbi + nR * G;
+    const int ptid = tid - W * 32;
+    const int pn = nt - W * 32;
+    const bool vec =
+        (C & 3) == 0 &&
+        ((reinterpret_cast<size_t>(gb) | reinterpret_cast<size_t>(vals)) &
+         15) == 0;
+    const int* src[kMultiLoads];
+    int place[kMultiLoads], off[kMultiLoads];
+#pragma unroll
+    for (int u = 0; u < kMultiLoads; ++u) {
+      const int i = ptid + u * pn;
+      const bool is_bin = i < nbi;
+      const int row = is_bin ? i / G : (i - nbi) / G;
+      const int g = (is_bin ? i : i - nbi) - row * G;
+      off[u] = 4 * g;
+      src[u] = is_bin ? gb + (long long)(f0 + row) * C + lo + 4 * g
+                      : reinterpret_cast<const int*>(vals) +
+                            (long long)(m0 + row) * C + lo + 4 * g;
+      // a bin item's place in halfwords, a value item's in floats past
+      // the bins, negative
+      place[u] = is_bin ? row * SP + 4 * g : -(row * VS + 4 * g) - 1;
+      if (i >= n_items) place[u] = INT_MIN;
+    }
+    int4 x[kMultiLoads];
+    for (int q = 0; q < n_tiles + 2; ++q) {
+      const int s = q & 1;
+      if (q < n_tiles) {
+        const long long p0 = lo + (long long)q * Pt;
+#pragma unroll
+        for (int u = 0; u < kMultiLoads; ++u) {
+          if (place[u] == INT_MIN) continue;
+          const int pad = place[u] >= 0 ? B : 0;
+          const long long p = p0 + off[u];
+          const int* ps = src[u] + (long long)q * Pt;
+          if (vec && p + 3 < hi)
+            x[u] = __ldg(reinterpret_cast<const int4*>(ps));
+          else
+            x[u] = make_int4(p < hi ? __ldg(ps) : pad,
+                             p + 1 < hi ? __ldg(ps + 1) : pad,
+                             p + 2 < hi ? __ldg(ps + 2) : pad,
+                             p + 3 < hi ? __ldg(ps + 3) : pad);
+        }
+      }
+      // slot s is free once the owners are done with tile q - 2; the two
+      // waits past the last tile take the owners' last two arrivals
+      if (q >= 2) named_sync(kEmpty + s, nt);
+      if (q >= n_tiles) continue;
+      unsigned short* sbin =
+          reinterpret_cast<unsigned short*>(ring + s * slot_bytes);
+      float* svals =
+          reinterpret_cast<float*>(ring + s * slot_bytes + bin_bytes);
+#pragma unroll
+      for (int u = 0; u < kMultiLoads; ++u) {
+        if (place[u] == INT_MIN) continue;
+        if (place[u] >= 0) {
+          auto bin = [&](int b) {
+            return (unsigned)b < (unsigned)B ? (unsigned)b : (unsigned)B;
+          };
+          *reinterpret_cast<uint2*>(sbin + place[u]) =
+              make_uint2(bin(x[u].x) | bin(x[u].y) << 16,
+                         bin(x[u].z) | bin(x[u].w) << 16);
+        } else {
+          *reinterpret_cast<float4*>(svals - place[u] - 1) =
+              make_float4(to_acc(__int_as_float(x[u].x), round_bf16),
+                          to_acc(__int_as_float(x[u].y), round_bf16),
+                          to_acc(__int_as_float(x[u].z), round_bf16),
+                          to_acc(__int_as_float(x[u].w), round_bf16));
+        }
+      }
+      named_arrive(kFull + s, nt);
+    }
+  } else {
+    // ---- owners: lane (feature fl, row) of warp w: lane fl of the
+    // warp's feature group, value row w * rpw + lane / nfp of the tile.
+    // Its cells sit in bank `lane` whatever their bins; a lane with no
+    // feature reads the trash row of the bin stage and adds into its
+    // trash cell
+    const int fl = lane & (nfp - 1);
+    const int row = warp * rpw + (lane >> lg);
+    const bool owner = warp * rpw < nR;
+    float* pl = cells + warp * CW + lane;
+    // the cells of 4 positions (bins in w, values in v), all loaded
+    // before any store; a position whose bin an earlier one of the 4 hit
+    // adds to that one's sum, and the stores go in position order, so
+    // the last store of a cell holds its sum
+    auto add4 = [&](uint2 w, float4 v) {
+      const int b0 = w.x & 0xffffu, b1 = w.x >> 16;
+      const int b2 = w.y & 0xffffu, b3 = w.y >> 16;
+      float* a0 = pl + b0 * 32;
+      float* a1 = pl + b1 * 32;
+      float* a2 = pl + b2 * 32;
+      float* a3 = pl + b3 * 32;
+      float c0 = *a0, c1 = *a1, c2 = *a2, c3 = *a3;
+      c0 += v.x;
+      c1 = (b1 == b0 ? c0 : c1) + v.y;
+      c2 = (b2 == b1 ? c1 : b2 == b0 ? c0 : c2) + v.z;
+      c3 = (b3 == b2 ? c2 : b3 == b1 ? c1 : b3 == b0 ? c0 : c3) + v.w;
+      *a0 = c0;
+      *a1 = c1;
+      *a2 = c2;
+      *a3 = c3;
+    };
+    for (int q = 0; q < n_tiles; ++q) {
+      const int s = q & 1;
+      named_sync(kFull + s, nt);
+      if (owner) {
+        const unsigned short* my_bins =
+            reinterpret_cast<const unsigned short*>(ring + s * slot_bytes) +
+            (fl < nf ? fl : nfp) * SP;
+        const float* my_vals =
+            reinterpret_cast<const float*>(ring + s * slot_bytes +
+                                           bin_bytes) +
+            row * VS;
+        // positions past hi hold the trash bin and 0, so the owners walk
+        // whole groups of 8
+        const long long p0 = lo + (long long)q * Pt;
+        const int n8 = (int)min((long long)Pt, (hi - p0 + 7) & ~7LL);
+        uint2 w = *reinterpret_cast<const uint2*>(my_bins);
+        float4 v = *reinterpret_cast<const float4*>(my_vals);
+#pragma unroll 1
+        for (int j0 = 0; j0 < n8; j0 += 8) {
+          // each group's bins and values are read before the group ahead
+          // of it stores
+          const uint2 w2 = *reinterpret_cast<const uint2*>(my_bins + j0 + 4);
+          const float4 v2 =
+              *reinterpret_cast<const float4*>(my_vals + j0 + 4);
+          add4(w, v);
+          if (j0 + 8 < n8) {
+            w = *reinterpret_cast<const uint2*>(my_bins + j0 + 8);
+            v = *reinterpret_cast<const float4*>(my_vals + j0 + 8);
+          }
+          add4(w2, v2);
+        }
+      }
+      named_arrive(kEmpty + s, nt);
     }
   }
   __syncthreads();
 
-  float* dst = out + ((long long)f * M + m0) * B;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const float v = sh[i];
-    if (v != 0.f) atomicAdd(dst + i, v);
+  const int ng = tile_combine::groups(P);
+  if (!tile_combine::combine<kMultiThreads>(
+          reinterpret_cast<unsigned*>(cells), words, t, P,
+          slab + (long long)item * P * words,
+          gslab + (long long)item * ng * words, tickets + item * (ng + 1),
+          tile_combine::AddFloat{}))
+    return;
+  __syncthreads();
+
+  // one write of every output cell of the item: lane (fl, row) of owner
+  // warp w writes the B bins of out[f0 + fl, m0 + row], 4 a store
+  const int fl = lane & (nfp - 1);
+  const int row = warp * rpw + (lane >> lg);
+  if (warp < W && fl < nf && row < nR) {
+    const float* src = cells + warp * CW + lane;
+    float* dst = out + ((long long)(f0 + fl) * M + m0 + row) * B;
+    if ((B & 3) == 0) {
+      for (int b = 0; b < B; b += 4)
+        *reinterpret_cast<float4*>(dst + b) =
+            make_float4(src[b * 32], src[(b + 1) * 32], src[(b + 2) * 32],
+                        src[(b + 3) * 32]);
+    } else {
+      for (int b = 0; b < B; ++b) dst[b] = src[b * 32];
+    }
   }
 }
 
@@ -371,12 +602,6 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int* current) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess) *current = bytes;
   return e;
-}
-
-// positions per block: about `blocks` blocks in all, at least `floor`
-long long chunk_for(long long C, long long blocks, long long floor) {
-  long long chunk = (C + blocks - 1) / blocks;
-  return chunk < floor ? floor : chunk;
 }
 
 template <typename BinT, bool kWarpCopies>
@@ -482,28 +707,44 @@ extern "C" int lgbt_hist_gathered(const void* bins, int bin_bytes,
   }
 }
 
-// K6.  gb: [F, C] int32; vals: [M, C] float32; out: zeroed [F, M, B]
-// float32.
+// K6.  gb: [F, C] int32 bins (outside [0, B): nothing added); vals:
+// [M, C] float32; out: [F, M, B] float32, every cell written.  The caller
+// sizes the work (ops/histogram.py `_k6_layout`): lanes a feature group
+// 1 << lg, W owner warps (W * 32 >> lg value rows a tile), positions a
+// staged tile Pt (a multiple of 16, at most kMultiLoads 16-byte loads a
+// producer thread), P blocks an item of chunk positions each, rtiles
+// value-row tiles; slab: [items, P, W * (B + 1) * 32] words, gslab:
+// [items, ceil(P / 16), same] words, tickets: [items, ceil(P / 16) + 1]
+// int32, zero, left zero (all three unused when P == 1).
 extern "C" int lgbt_hist_multirow(const int* gb, int F, long long C,
                                   const float* vals, int M, int B,
-                                  int round_bf16, float* out, void* stream) {
+                                  int round_bf16, int lg, int W, int Pt,
+                                  long long chunk, int P, int rtiles,
+                                  void* slab, void* gslab, int* tickets,
+                                  float* out, void* stream) {
   static int smem_set = 48 * 1024;
-  const int per_row = B * (int)sizeof(float);
-  const int m_tile = min(M, kMaxSmem / per_row);
-  if (m_tile < 1) return cudaErrorInvalidValue;
-  const int smem = m_tile * per_row;
-  cudaError_t e = allow_smem(hist_multirow_kernel, smem, &smem_set);
-  if (e != cudaSuccess) return e;
-  const int mtiles = (M + m_tile - 1) / m_tile;
-  // about two blocks per SM over the (feature, value-row tile) pairs
-  const long long chunk = chunk_for(C, 264 / ((long long)F * mtiles) + 1,
-                                    1024);
-  const long long nchunks = (C + chunk - 1) / chunk;
-  if (nchunks > 0x7fffffffLL || F > 65535 || mtiles > 65535)
+  if (lg < 0 || lg > 5 || W < 1 ||
+      (W + kProducerWarps) * 32 > kMultiThreads || Pt < 16 || Pt > 256 ||
+      (Pt & 15) || B < 1 || B > 65535 || P < 1 || chunk < 1 || rtiles < 1)
     return cudaErrorInvalidValue;
-  dim3 grid((unsigned)nchunks, (unsigned)F, (unsigned)mtiles);
-  hist_multirow_kernel<<<grid, kMultiThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      gb, C, chunk, vals, M, m_tile, B, round_bf16, out);
+  const int nfp = 1 << lg;
+  const int R = W * (32 >> lg);
+  if ((long long)(nfp + R) * (Pt / 4) >
+      (long long)kMultiLoads * kProducerWarps * 32)
+    return cudaErrorInvalidValue;
+  const long long items = (long long)((F + nfp - 1) / nfp) * rtiles;
+  const long long slot =
+      (((long long)(nfp + 1) * (Pt + 4) * 2 + 15) & ~15LL) +
+      (((long long)R * (Pt + 4) * 4 + 15) & ~15LL);
+  const long long smem = (long long)W * (B + 1) * 32 * 4 + 2 * slot;
+  if (smem > 227 * 1024 || items * P > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(hist_multirow_kernel, (int)smem, &smem_set);
+  if (e != cudaSuccess) return e;
+  hist_multirow_kernel<<<(unsigned)(items * P), (W + kProducerWarps) * 32,
+                         (int)smem, static_cast<cudaStream_t>(stream)>>>(
+      gb, F, C, vals, M, B, round_bf16, lg, W, Pt, chunk, P, rtiles,
+      static_cast<unsigned*>(slab), static_cast<unsigned*>(gslab), tickets,
+      out);
   return cudaGetLastError();
 }

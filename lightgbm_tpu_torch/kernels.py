@@ -52,7 +52,8 @@ SIGNATURES = {
                       [_P, _I, _L, _L, _I, _I, _I, _P, _L, _L, _I, _P, _P,
                        _P, _L, _I, _I, _I, _P, _P, _P, _P, _P]),
     "hist_multirow": ("hist_gathered", "lgbt_hist_multirow",
-                      [_P, _I, _L, _P, _I, _I, _I, _P, _P]),
+                      [_P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I,
+                       _P, _P, _P, _P, _P]),
 }
 # the sources of csrc/, one library each
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))

@@ -58,9 +58,8 @@ from ..ops.partition import partition_rows, partition_rows_sparse
 from ..ops.sparse_streams import build_sparse_streams
 from ..ops.split import best_split, bundle_predicate_params, maybe_unbundle
 from ..tree import Tree
-from .common import (device_memory_bytes, gather_capacity_tiers,
-                     gather_scratch_capacity, make_split_kw,
-                     padded_bin_count, resolve_hist_rows,
+from .common import (gather_capacity_tiers, gather_scratch_capacity,
+                     make_split_kw, padded_bin_count, resolve_hist_rows,
                      use_parent_hist_cache)
 from .fused import TreeArrays, tree_arrays_to_host
 
@@ -92,8 +91,8 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
     unless the store is EFB-bundled; then ftbl is the [5, F] feature
     table and unb the (src, dmask) unbundle tables, both on the device
     (None for an unbundled store).  rows (a dense store of at most 256
-    bins) is its row-major byte copy, which the int8 histogram kernel K1
-    reads.
+    bins) is its row-major byte copy, which the histogram kernels K1 and
+    K2 read.
     Returns (TreeArrays on that device, leaf_id [N] int32, host reads
     made).  hist_rows="gathered" keeps the device-resident row
     permutation grouped by leaf with per-leaf (offset, count), stably
@@ -412,19 +411,18 @@ class RoundsTreeLearner:
             bins_itemsize = 4
         else:
             store = dataset.dense_bins(site="rounds_feed")     # [F, N]
-            if (self.device.type == "cuda" and dataset.max_num_bin <= 256
-                    and 4.0 * store.size > 0.25 * device_memory_bytes(
-                        self.device)):
-                # int8 layout (value - 128) only under memory pressure:
-                # int32 bins beyond a quarter of device memory
+            if dataset.max_num_bin <= 256:
+                # a byte a bin (int8 layout, value - 128): the partition
+                # kernel K4 reads one bin of a row's split column, and the
+                # feature-major bytes touch the fewest 32-byte sectors
                 bins_np = (store.astype(np.int16) - 128).astype(np.int8)
             else:
                 bins_np = store.astype(np.int32)
             self.bins_dev = torch.as_tensor(bins_np, device=self.device)
             bins_itemsize = int(bins_np.dtype.itemsize)
-        # kernel K1 reads a row's bins from a row-major byte copy of the
-        # store ([N, F4] uint8, a quarter of the int32 store); the [F, N]
-        # store stays for the partition and the score walk
+        # kernels K1 and K2 read a row's bins from a row-major byte copy of
+        # the store ([N, F4] uint8); the [F, N] store stays for the
+        # partition
         self.rows = (row_major_bins(self.bins_dev, dataset.max_num_bin)
                      if not self.sparse and dataset.max_num_bin <= 256
                      else None)

@@ -314,21 +314,108 @@ def hist_multileaf_xla(gb_t: torch.Tensor, vals: torch.Tensor, *,
                             num_bins_padded)
 
 
+# K6's work (csrc/hist_gathered.cu `hist_multirow_kernel`): up to 8 owner
+# warps a block, each lane owning all B bins of one (feature, value row),
+# and 4 warps that stage the positions into a two-slot ring, 12 16-byte
+# loads a producer thread a tile.  Those three are the kernel's
+# compile-time constants (kMultiThreads, kProducerWarps, kMultiLoads);
+# the values here mirror them for the layout and are not to be set apart
+# from them.  The layout keeps a block within K6_SMEM of shared memory
+# and gives it chunks of at least K6_MIN_CHUNK positions, as many blocks
+# as the SMs hold at once
+_K6_MAX_WARPS = 8
+_K6_PRODUCER_WARPS = 4
+_K6_LOADS = 12
+K6_SMEM = 226 * 1024
+K6_MIN_CHUNK = 1024
+
+
+class K6Layout(NamedTuple):
+    lg: int          # lanes a feature group: 1 << lg
+    warps: int       # owner warps a block
+    pt: int          # positions a staged tile
+    chunk: int       # positions a block
+    P: int           # blocks an item (feature tile, value-row tile)
+    rtiles: int      # value-row tiles
+    items: int
+    words: int       # 32-bit words of a block's cells
+    smem: int        # bytes of shared memory a block
+
+
+def _k6_layout(F: int, M: int, B: int, C: int, n_sm: int) -> K6Layout:
+    """K6's tiling: a feature tile of up to 32 features, rounded up to a
+    power of two (nfp), owned by the lanes of a warp, each warp owning
+    32 / nfp value rows; as many owner warps as the cells of B + 1 bins a
+    lane fit beside the ring (at most 8, no more than the rows need);
+    the staged tile as long as the producers' 12 loads a thread hold (a multiple of 16 positions, at most 256); chunks so that
+    the blocks fill the SMs."""
+    nfp = 1
+    while nfp < min(F, 32):
+        nfp *= 2
+    rpw = 32 // nfp
+    cell_bytes = (B + 1) * 32 * 4
+
+    def r16(n):
+        return -(-n // 16) * 16
+
+    def smem(W, pt):
+        return W * cell_bytes + 2 * (r16((nfp + 1) * (pt + 4) * 2)
+                                     + r16(W * rpw * (pt + 4) * 4))
+
+    def tile(W):
+        loads = _K6_LOADS * _K6_PRODUCER_WARPS * 32 * 4
+        pt = min(256, loads // (nfp + W * rpw) // 16 * 16)
+        while pt > 16 and smem(W, pt) > K6_SMEM:
+            pt -= 16
+        return pt
+    W = min(_K6_MAX_WARPS, -(-M // rpw))
+    while W > 0 and (tile(W) < 16 or smem(W, tile(W)) > K6_SMEM):
+        W -= 1
+    if W < 1:
+        raise ValueError(f"multi-row histogram kernel: {B} bins do not "
+                         f"fit one owner warp's shared memory")
+    pt = tile(W)
+    rtiles = -(-M // (W * rpw))
+    items = -(-F // nfp) * rtiles
+    resident = max(1, (228 * 1024) // (smem(W, pt) + 1024))
+    P = max(1, min(-(-C // K6_MIN_CHUNK),
+                   round(n_sm * resident / items)))
+    chunk = -(-C // P)
+    chunk = -(-chunk // 16) * 16             # a multiple of 16 positions
+    P = max(1, -(-C // chunk))
+    return K6Layout(nfp.bit_length() - 1, W, pt, chunk, P, rtiles, items,
+                    W * (B + 1) * 32, smem(W, pt))
+
+
 def _multirow_cuda(gb_t: torch.Tensor, vals: torch.Tensor, B: int,
                    input_dtype: str) -> torch.Tensor:
     """Kernel K6 (csrc/hist_gathered.cu) with hist_multileaf_xla's
-    contract."""
+    contract.  Calls on one stream share its partial-tile scratch
+    (kernels.combine_buffers)."""
     F, C = gb_t.shape
     M = vals.shape[0]
     if vals.shape[1] != C:
         raise ValueError("vals must be [M, C] over gb_t's C positions")
     gb_t = gb_t.to(torch.int32).contiguous()
     vals = vals.to(torch.float32).contiguous()
-    out = torch.zeros((F, M, B), dtype=torch.float32, device=gb_t.device)
+    dev = gb_t.device
     if C == 0 or F == 0 or M == 0:
-        return out
+        return torch.zeros((F, M, B), dtype=torch.float32, device=dev)
+    lay = _k6_layout(F, M, B, C, kernels.sm_count(dev))
+    ng = -(-lay.P // 16)
+    slab = gslab = tickets = None
+    if lay.P > 1:
+        n_slab = lay.items * lay.P * lay.words
+        sc, tk = kernels.combine_buffers(
+            dev, n_slab + (lay.items * ng * lay.words if ng > 1 else 0),
+            lay.items * (ng + 1))
+        slab, tickets = sc.data_ptr(), tk.data_ptr()
+        gslab = slab + 4 * n_slab if ng > 1 else None
+    out = torch.empty((F, M, B), dtype=torch.float32, device=dev)
     kernels.call("hist_multirow", gb_t.data_ptr(), F, C, vals.data_ptr(), M,
-                 B, int(input_dtype == "bfloat16"), out.data_ptr())
+                 B, int(input_dtype == "bfloat16"), lay.lg, lay.warps,
+                 lay.pt, lay.chunk, lay.P, lay.rtiles, slab, gslab, tickets,
+                 out.data_ptr())
     kernels.LAUNCHES["hist_multirow"] += 1
     return out
 

@@ -7,7 +7,9 @@ On the GPU the whole step — per-leaf table lookup, the row's bin of its
 split column, the left/right decision and the new leaf id — is one
 kernel, csrc/partition.cu, with the table decoded into shared memory
 (no int8 base-128 encoding: that existed only for the TPU's one-hot
-matmul).  The plain PyTorch version beside it is what a CPU tensor takes.
+matmul).  It reads the bins from the int32 or int8 [F, N] store, 4 rows
+a thread, and no bin of a row whose leaf does not split.  The plain
+PyTorch version beside it is what a CPU tensor takes.
 """
 from __future__ import annotations
 

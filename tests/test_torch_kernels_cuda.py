@@ -24,9 +24,9 @@ zero bin (slot total minus the column's stored sums, each reordered on
 both sides) within n * 2^-22 * sum|x| of the slot's n rows.  With
 dyadic gradients every partial sum is exact and K8 is bitwise.  K5
 (gathered-row histogram) sums each cell in a fixed order that differs
-from its plain version's, and K6 (M-row histogram) adds with float
-atomics; both are held to the same n * 2^-23 * sum|x| per cell, bitwise
-on dyadic values, their count channel always bitwise; K5 is also
+from its plain version's, and so does K6 (M-row histogram, one owner
+thread a cell); both are held to the same n * 2^-23 * sum|x| per cell,
+bitwise on dyadic values (K5's count channel always bitwise), and both
 bitwise from run to run.
 """
 import numpy as np
@@ -294,10 +294,15 @@ def test_hist_q_kernel_masked_vs_plain(dev, monkeypatch, K, C, tile, feed,
     np.testing.assert_array_equal(out[1].numpy(), ref.numpy())
 
 
+@pytest.mark.parametrize("n", [100_003, 1, 3])
 @pytest.mark.parametrize("int8_bins", [False, True])
-def test_partition_kernel_vs_plain(dev, int8_bins):
+def test_partition_kernel_vs_plain(dev, int8_bins, n):
+    """K4 over the int32 and int8 [F, N] stores, bitwise against its
+    plain version and from run to run; leaf ids outside the table,
+    non-splitting leaves, window rows and columns outside [0, F)
+    included."""
     rng = np.random.RandomState(4)
-    n, f, L = 100_003, 28, 255
+    f, L = 28, 255
     gb = rng.randint(0, 250, size=(f, n)).astype(np.int32)
     bins = (gb.astype(np.int16) - 128).astype(np.int8) if int8_bins else gb
     lid = rng.randint(-1, L + 2, size=n).astype(np.int32)
@@ -310,9 +315,11 @@ def test_partition_kernel_vs_plain(dev, int8_bins):
     args = [torch.as_tensor(x) for x in (bins, lid, tbl)]
     ref = tp.partition_rows(*args)
     before = kernels.LAUNCHES["partition_rows"]
-    out = tp.partition_rows(*[a.to(dev) for a in args]).cpu()
-    assert kernels.LAUNCHES["partition_rows"] == before + 1
-    np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    out = [tp.partition_rows(*[a.to(dev) for a in args]).cpu()
+           for _ in range(2)]
+    assert kernels.LAUNCHES["partition_rows"] == before + 2
+    np.testing.assert_array_equal(out[0].numpy(), ref.numpy())
+    assert torch.equal(out[0], out[1])
 
 
 @pytest.mark.parametrize("T,S", [(1, 255), (5, 254)])
@@ -554,27 +561,45 @@ def test_hist_pallas_kernel_vs_plain(dev, input_dtype):
 
 @pytest.mark.parametrize("M,F,C,B,dyadic", [(128, 28, 200_003, 256, True),
                                             (24, 5, 30_001, 128, False),
-                                            (128, 3, 20_000, 512, True)])
+                                            (128, 3, 20_000, 512, True),
+                                            (7, 40, 50_000, 256, False),
+                                            (130, 28, 100, 256, True),
+                                            (33, 9, 4_099, 255, "bf16")])
 def test_hist_multirow_kernel_vs_plain(dev, M, F, C, B, dyadic):
+    """K6 against its plain version: bitwise on dyadic values, within
+    n * 2^-23 * sum|x| a cell otherwise (and in bf16 mode, on the values
+    rounded to bf16), the same bits from run to run.  The bins include
+    B - 1 and values at or above B and below 0 (added nowhere); the
+    shapes leave feature and value-row tiles part filled (F=40 over two
+    feature tiles, M=7, 33 and 130 over row tiles), and C=100 is below
+    one staged tile of positions."""
     rng = np.random.RandomState(M + F)
-    gb = torch.as_tensor(rng.randint(0, B, size=(F, C)).astype(np.int32))
+    gb = rng.randint(0, B, size=(F, C)).astype(np.int32)
+    gb[rng.rand(F, C) < 0.02] = B - 1
+    gb[rng.rand(F, C) < 0.01] = B
+    gb[rng.rand(F, C) < 0.01] = B + 7
+    gb[rng.rand(F, C) < 0.01] = -1
+    gb = torch.as_tensor(gb)
     vals = rng.randn(M, C)
-    if dyadic:
+    if dyadic is True:
         vals = np.round(vals * 16) / 16
     vals = torch.as_tensor(vals.astype(np.float32))
-    ref = th.hist_multileaf(gb, vals, num_bins_padded=B)
+    dt = "bfloat16" if dyadic == "bf16" else "float32"
+    ref = th.hist_multileaf(gb, vals, num_bins_padded=B, input_dtype=dt)
     before = kernels.LAUNCHES["hist_multirow"]
-    out = th.hist_multileaf(gb.to(dev), vals.to(dev),
-                            num_bins_padded=B).cpu()
-    assert kernels.LAUNCHES["hist_multirow"] == before + 1
-    if dyadic:
-        np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    out = [th.hist_multileaf(gb.to(dev), vals.to(dev), num_bins_padded=B,
+                             input_dtype=dt).cpu() for _ in range(2)]
+    assert kernels.LAUNCHES["hist_multirow"] == before + 2
+    assert torch.equal(out[0], out[1])
+    if dyadic is True:
+        np.testing.assert_array_equal(out[0].numpy(), ref.numpy())
     else:
-        s = th.hist_multileaf(gb, vals.abs(), num_bins_padded=B).double()
+        s = th.hist_multileaf(gb, vals.abs(), num_bins_padded=B,
+                              input_dtype=dt).double()
         n = th.hist_multileaf(gb, torch.ones(1, C),
                               num_bins_padded=B).double()
         tol = n * 2.0 ** -23 * s
-        assert bool(((out.double() - ref.double()).abs() <= tol).all())
+        assert bool(((out[0].double() - ref.double()).abs() <= tol).all())
 
 
 def test_exact_learner_on_the_card_matches_the_cpu(dev):

@@ -157,6 +157,9 @@ def _partition_case(n, f, b, L, seed, int8_store):
     (4097, 9, 250, 255, 0, False),
     (3000, 200, 250, 64, 1, False),
     (2500, 37, 250, 255, 2, True),
+    (4099, 9, 250, 255, 6, True),      # N not a multiple of 4
+    (3, 5, 250, 31, 5, True),
+    (1, 5, 250, 31, 7, True),
 ])
 def test_partition_bitwise_vs_jax(n, f, b, L, seed, int8_store):
     bins, lid, tbl = _partition_case(n, f, b, L, seed, int8_store)
@@ -190,6 +193,45 @@ def test_partition_window_and_out_of_range_ids():
                             jnp.asarray(tbl), num_slots=L + 1,
                             backend="xla")
     np.testing.assert_array_equal(out, np.asarray(ref))
+
+
+@pytest.mark.parametrize("n,int8_store,seed", [
+    (4099, True, 6),         # N not a multiple of 4
+    (1, True, 7),
+    (2502, False, 8),
+])
+def test_partition_window_and_edges(n, int8_store, seed):
+    """The int8 store (the learner's feed, value - 128) and the int32 one
+    against the JAX function: non-splitting leaves, window rows (lo, hi1,
+    default-left), categorical splits and N not a multiple of 4, bitwise
+    against the XLA branch and the Pallas kernel in interpret mode; then
+    leaf ids outside [0, S) against the XLA branch (the Pallas kernel
+    takes ids inside the table only)."""
+    rng = np.random.RandomState(seed)
+    f, L = 11, 63
+    gb = rng.randint(0, 255, size=(f, n)).astype(np.int32)
+    bins = (gb.astype(np.int16) - 128).astype(np.int8) if int8_store else gb
+    tbl = np.zeros((7, L + 1), np.float32)
+    for leaf in range(L):
+        if rng.rand() < 0.3:
+            continue                                  # does not split
+        tbl[:, leaf] = (rng.randint(0, f), rng.randint(0, 255),
+                        rng.rand() < 0.3, rng.randint(1, 256),
+                        rng.randint(0, 60), rng.randint(180, 256),
+                        rng.rand() < 0.5)
+    for lo_, hi_, ids_outside in ((0, L, False), (-3, L + 5, True)):
+        lid = rng.randint(lo_, hi_, size=n).astype(np.int32)
+        out = tp.partition_rows(torch.as_tensor(bins), torch.as_tensor(lid),
+                                torch.as_tensor(tbl)).numpy()
+        args = (jnp.asarray(bins), jnp.asarray(lid), jnp.asarray(tbl))
+        ref = jp.partition_rows(*args, num_slots=L + 1, backend="xla",
+                                num_bins_padded=256)
+        np.testing.assert_array_equal(out, np.asarray(ref))
+        if not ids_outside:
+            ref_p = jp.partition_rows(*args, num_slots=L + 1,
+                                      backend="pallas", num_bins_padded=256,
+                                      interpret=True)
+            np.testing.assert_array_equal(out, np.asarray(ref_p))
 
 
 @pytest.mark.parametrize("T,S,N", [(1, 255, 9001), (5, 254, 3000)])
@@ -253,3 +295,38 @@ def test_best_split_records_vs_jax(l1, l2, min_data, min_hess):
             **kw).packed())
         np.testing.assert_array_equal(out[k, 1:3], ref[1:3])
         np.testing.assert_allclose(out[k], ref, rtol=1e-4, atol=1e-6)
+
+
+def test_kernel_signatures_match_the_sources():
+    """Every C entry point's argument types (kernels.SIGNATURES, the
+    stream last) name as many arguments as its definition in csrc/ has:
+    ctypes passes an argument past the list as a 32-bit int, which cuts
+    a pointer."""
+    import re
+    from lightgbm_tpu_torch import kernels
+    for name, (src, fn, argtypes) in kernels.SIGNATURES.items():
+        text = (kernels.CSRC / f"{src}.cu").read_text()
+        m = re.search(r'extern "C" int ' + fn + r'\(([^)]*)\)', text)
+        assert m is not None, f"{fn} not defined in csrc/{src}.cu"
+        params = [p for p in m.group(1).split(",") if p.strip()]
+        assert len(params) == len(argtypes), (name, len(params),
+                                              len(argtypes))
+        assert "stream" in params[-1]
+
+
+def test_k6_layout_constants_mirror_the_kernel():
+    """K6's layout (ops/histogram.py `_k6_layout`) sizes its staged tile
+    and owner warps from copies of the kernel's compile-time constants:
+    they must be the values csrc/hist_gathered.cu is built with."""
+    import re
+    from lightgbm_tpu_torch import kernels
+    text = (kernels.CSRC / "hist_gathered.cu").read_text()
+
+    def const(name):
+        m = re.search(r"constexpr int " + name + r" = ([^;]+);", text)
+        assert m is not None, name
+        return m.group(1).strip()
+    assert const("kProducerWarps") == str(th._K6_PRODUCER_WARPS)
+    assert const("kMultiLoads") == str(th._K6_LOADS)
+    assert const("kMultiThreads") == (f"({th._K6_MAX_WARPS} + "
+                                      f"kProducerWarps) * 32")
