@@ -138,6 +138,28 @@ Phases (any failure exits non-zero and prints no result line):
              on the card, on synth_onehot(50_000) with ONEHOT_PARAMS and on
              synth_higgs(50_000) with the north-star parameters: first
              trees as in phase 7, valid AUC within 1e-4.
+13. objectives — regression and 5-class multiclass through the rounds
+             learner at the main path's shape: synth_higgs(2_000_000) x 28
+             with its labeling function left unthresholded (the target:
+             logit + 0.5 x logistic noise) and that target cut at its
+             20/40/60/80% quantiles; valid synth_higgs(200_000, seed=7)
+             by the same rules (the training cuts); the north-star
+             parameters (int8) with objective=regression (l2), then
+             multiclass, num_class=5 (multi_logloss); 2 warm-up and 4
+             timed iterations each, timed as in phase 3.  Fails unless K1,
+             K3 and K4 launched in every class tree, the valid metric fell
+             from the first iteration to the last, and the device-scored
+             valid set agrees with Booster.predict(raw_score=True) within
+             1e-4.  Then card against CPU on a 50,000-row version of each
+             (valid 10,000): 5 iterations; every class tree of the first
+             iteration identical unless its first differing split is an
+             f32 gain tie; later iterations compared until the first
+             that differs (the card's and the CPU's last-bit exp and
+             cumulative sums can move an int8 gradient across a
+             quantization boundary), which is printed; the valid metric
+             of the first iteration and of every identical one within
+             1e-4.  s/iter, trees a second and
+             host syncs a tree are printed with the card.
 
 Every kernel's ms is timed by CUDA events around each call, the method
 of earlier versions of this script; it includes the wrapper's host
@@ -194,6 +216,8 @@ CTR_SLOTS = 31
 ONEHOT_ROWS = 2_000_000
 ONEHOT_VALID_ROWS = 200_000
 ONEHOT_COMPARE = 50_000
+# phase 13's multiclass workload (the reference's multiclass example has 5)
+CLASSES = 5
 # K5's mid-tree leaf (index slots, rows) and K6's value rows
 LEAF_CAP, LEAF_ROWS = 65_536, 60_000
 K6_ROWS = 128
@@ -1676,6 +1700,189 @@ def phase_card_vs_cpu(lt):
         compare_first_trees(f"ctr {dtype}", out["cpu"][0], out[GPU][0],
                             out["cpu"][1], out[GPU][1], "ndcg@5")
 
+def objective_workloads(n_train: int, n_valid: int):
+    """Phase 13's two workloads on synth_higgs rows: the labeling
+    function left unthresholded (regression), and that target cut at the
+    training target's 20/40/60/80% quantiles (5 classes); the valid set
+    (seed 7) follows the same rules.  Returns {objective: (X, y, Xv, yv,
+    params)}."""
+    from lightgbm_tpu_torch.synth import (NORTH_STAR_PARAMS,
+                                          quantile_classes,
+                                          synth_higgs_target)
+    X, t = synth_higgs_target(n_train)
+    Xv, tv = synth_higgs_target(n_valid, seed=7)
+    cuts = np.quantile(t, [0.2, 0.4, 0.6, 0.8])
+    reg = dict(NORTH_STAR_PARAMS, objective="regression", metric="l2")
+    mc = dict(NORTH_STAR_PARAMS, objective="multiclass", num_class=CLASSES,
+              metric="multi_logloss")
+    return {"regression": (X, t, Xv, tv, reg),
+            "multiclass": (X, quantile_classes(t, cuts), Xv,
+                           quantile_classes(tv, cuts), mc)}
+
+
+def drive_objective(torch, lt, kernels, params, X, y, Xv, yv, warmup,
+                    timed):
+    """Train one phase-13 workload through lightgbm_tpu_torch.train, with
+    the launch counts zeroed before and read after, and each class tree's
+    launches of K1, K3 and K4 recorded: the rounds learner's train_device
+    is wrapped to snapshot the counts as each tree starts, so the counts
+    between two snapshots are the histograms, partitions and
+    the score adds of one class tree."""
+    from lightgbm_tpu_torch.learner.rounds import RoundsTreeLearner
+    names = ("hist_masked_int8", "partition_rows", "table_lookup")
+    snaps = []
+    real = RoundsTreeLearner.train_device
+
+    def wrapped(self, *a, **k):
+        snaps.append([kernels.LAUNCHES[n] for n in names])
+        return real(self, *a, **k)
+
+    ds = lt.Dataset(X, y, params=params).construct()
+    vs = lt.Dataset(Xv, yv, reference=ds, params=params).construct()
+    n, res, marks = warmup + timed, {}, []
+    kernels.reset_launches()
+    RoundsTreeLearner.train_device = wrapped
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bst = lt.train(params, ds, n, valid_sets=[vs], evals_result=res,
+                       callbacks=[steady_window(torch, warmup, n, marks)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        RoundsTreeLearner.train_device = real
+    snaps.append([kernels.LAUNCHES[n] for n in names])
+    g = bst._gbdt
+    K = g.K
+    if g.iter_ != n or len(snaps) != n * K + 1:
+        fail(f"phase 13 ({params['objective']}): {g.iter_} of {n} "
+             f"iterations, {len(snaps) - 1} class trees")
+    # tree t's histograms (K1), partitions (K4) and score adds (K3: the
+    # training rows by leaf id, the valid walk) lie between snapshots t
+    # and t + 1 (the last snapshot is taken after training)
+    per_tree = [[b - a for a, b in zip(snaps[t], snaps[t + 1])]
+                for t in range(n * K)]
+    metric = params["metric"]
+    vals = res["valid_0"][metric]
+    dev = g.valid_sets[0][2].score.double().cpu().numpy()
+    host = bst.predict(Xv, raw_score=True).reshape(len(yv), K).T
+    syncs = g.host_syncs_per_tree
+    s_iter = (marks[1] - marks[0]) / timed
+    return bst, dict(
+        objective=params["objective"], trees_per_iteration=K,
+        s_per_iter=s_iter, trees_per_s=K / s_iter, train_wall_s=wall,
+        first=vals[0], last=vals[-1], metric=metric,
+        syncs_per_tree=statistics.mean(syncs),
+        walk_err=float(np.abs(dev - host).max()),
+        launches=dict(kernels.LAUNCHES),
+        min_per_tree=[min(c[i] for c in per_tree) for i in range(3)])
+
+
+def phase_objectives(torch, lt, kernels, card: str):
+    """Regression and 5-class multiclass through the rounds learner at
+    the main path's shape (phase 13), then card against CPU."""
+    data = objective_workloads(MAIN_ROWS, VALID_ROWS)
+    for obj, (X, y, Xv, yv, base) in data.items():
+        p = dict(base, device_type=GPU)
+        _, st = drive_objective(torch, lt, kernels, p, X, y, Xv, yv, 2, 4)
+        print(f"[objectives] {obj}: {json.dumps(st)}", flush=True)
+        print(f"[objectives] {obj}: s/iter {st['s_per_iter']:.4f}, trees/s "
+              f"{st['trees_per_s']:.2f}, host syncs/tree "
+              f"{st['syncs_per_tree']:.2f}, valid {st['metric']} "
+              f"{st['first']:.6f} -> {st['last']:.6f} ({card})", flush=True)
+        hist, part, look = st["min_per_tree"]
+        print(f"[objectives] {obj}: fewest launches in a class tree: K1 "
+              f"{hist}, K4 {part}, K3 {look}", flush=True)
+        if hist <= 0 or part <= 0 or look <= 0:
+            fail(f"phase 13 ({obj}): a class tree launched K1 {hist}, K4 "
+                 f"{part}, K3 {look} times")
+        if not (math.isfinite(st["last"]) and st["last"] < st["first"]):
+            fail(f"phase 13 ({obj}): valid {st['metric']} did not fall: "
+                 f"{st['first']} -> {st['last']}")
+        if st["walk_err"] > 1e-4:
+            fail(f"phase 13 ({obj}): device valid scores disagree with "
+                 f"Booster.predict(raw_score=True): {st['walk_err']}")
+        del X, Xv
+    del data
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_objectives_card_vs_cpu(lt)
+
+
+def phase_objectives_card_vs_cpu(lt):
+    """Phase 13's workloads at 50,000 rows on the CPU and on the card."""
+    small = objective_workloads(COMPARE_ROWS, COMPARE_ROWS // 5)
+    for obj, (X, y, Xv, yv, base) in small.items():
+        out = {}
+        for dev in ("cpu", GPU):
+            # both sides pinned to the gathered row feed, as in phase 7
+            p = dict(base, device_type=dev, hist_rows="gathered")
+            ds = lt.Dataset(X, y, params=p)
+            res = {}
+            bst = lt.train(p, ds, 5, valid_sets=[lt.Dataset(
+                Xv, yv, reference=ds)], evals_result=res)
+            out[dev] = (bst._gbdt, res["valid_0"][base["metric"]])
+        compare_class_trees(obj, out["cpu"], out[GPU], base["metric"])
+
+
+def _first_split_difference(tc, tg):
+    """The first node whose split or children differ, else None."""
+    n = min(tc.num_leaves, tg.num_leaves) - 1
+    for i in range(n):
+        if ((tc.split_feature[i], tc.threshold_in_bin[i], tc.left_child[i],
+             tc.right_child[i])
+                != (tg.split_feature[i], tg.threshold_in_bin[i],
+                    tg.left_child[i], tg.right_child[i])):
+            return i
+    return None if tc.num_leaves == tg.num_leaves else n
+
+
+def compare_class_trees(label, cpu, card, metric):
+    """The class trees of the CPU and card runs, iteration by iteration.
+    Every class tree of the first iteration (each grown from the same
+    initial scores) is identical, or its first differing split is an f32
+    gain tie, as phase 7 holds first trees.  Later the runs may part: the
+    card's and the CPU's exp and f32 cumulative sums round differently
+    in the last bit, so do the scores, and an int8 histogram then rounds
+    a gradient that sits on a quantization boundary to the next integer;
+    the first such difference is printed.  The valid metric of the first
+    iteration, and of every iteration before the first difference,
+    agrees within 1e-4; the rest is printed."""
+    (gc_, mc), (gg, mg) = cpu, card
+    K, first = gc_.K, 1 if gc_.boost_from_average_used else 0
+    n_iter = len(mc)
+    same = n_iter
+    for it in range(n_iter):
+        parted = False
+        for k in range(K):
+            tc, tg = (m.models[first + it * K + k] for m in (gc_, gg))
+            i = _first_split_difference(tc, tg)
+            if i is None:
+                continue
+            parted = True
+            a, b = float(tc.split_gain[i]), float(tg.split_gain[i])
+            tie = abs(a - b) <= 1e-5 * max(abs(a), abs(b))
+            print(f"[card-vs-cpu] {label}: iteration {it + 1} class {k}, "
+                  f"node {i}: cpu (feature {tc.split_feature[i]}, bin "
+                  f"{tc.threshold_in_bin[i]}, children {tc.left_child[i]} "
+                  f"{tc.right_child[i]}, gain {a!r}) vs cuda (feature "
+                  f"{tg.split_feature[i]}, bin {tg.threshold_in_bin[i]}, "
+                  f"children {tg.left_child[i]} {tg.right_child[i]}, gain "
+                  f"{b!r}); f32 gain tie: {tie}", flush=True)
+            if it == 0 and not tie:
+                fail(f"card and CPU grew different first trees ({label}, "
+                     f"class {k})")
+        if parted:
+            same = it
+            break
+    checked = max(same, 1)
+    print(f"[card-vs-cpu] {label}: {K} class trees an iteration, {same} of "
+          f"{n_iter} iterations identical; {metric} cpu={mc} cuda={mg}",
+          flush=True)
+    err = max(abs(x - y) for x, y in zip(mc[:checked], mg[:checked]))
+    if not err <= 1e-4:
+        fail(f"card and CPU valid {metric} differ ({label}): {err}")
+
 
 def main() -> None:
     import torch
@@ -1754,7 +1961,10 @@ def main() -> None:
                          text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail("nvidia-smi did not report the card")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    phase_objectives(torch, lt, kernels, card)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -1,18 +1,23 @@
 """GBDT boosting loop.
 
 Port of lightgbm_tpu/boosting/gbdt.py for this slice: boost-from-average,
-bagging through `np.random.RandomState` (the same draws as JAX), one tree
-per iteration with the scores updated on the device, objectives and
-metrics initialised with the query metadata, eval, host prediction, and
-the LightGBM text model (save and load).  Two iteration paths, as in the
-JAX package: the rounds learner returns device tree arrays (training
-rows add by leaf id, valid sets walk the device tree arrays over their
-dense store or their sparse ELL rows — the JAX package's pipelined path,
-here with the tree fetched in the same iteration); the exact learner
-returns a host tree and the leaf of every row (training rows add by leaf
-id, or walk the training store when bagging left rows out; valid sets
-walk the host tree).  Either walk reads an EFB-bundled store through its
-feature table.  Checkpoint/resume, DART and GOSS are later slices.
+bagging through `np.random.RandomState` (the same draws as JAX), K trees
+per iteration (one per class, K = the objective's trees per iteration)
+with the scores updated on the device, the degenerate-class bookkeeping
+of multiclass labels, objectives and metrics initialised with the query
+metadata, eval, host prediction, and the LightGBM text model (save and
+load).  The iteration paths are the JAX package's: with one tree an
+iteration, the rounds learner returns device tree arrays (training rows
+add by leaf id, valid sets walk the device tree arrays over their dense
+store or their sparse ELL rows, leaf values shrunk in f32 on the device:
+the JAX package's pipelined path, here with the tree fetched in the same
+iteration); otherwise (the exact learner, or K > 1, where JAX does not
+pipeline) each class tree comes to the host, is shrunk there in f64, and
+adds to score row k of the training rows by leaf id (by walking the
+training store when the exact learner's bag left rows out) and of each
+valid set by walking the tree.  Either walk reads an EFB-bundled store
+through its feature table.  Checkpoint/resume, DART and GOSS are later
+slices.
 """
 from __future__ import annotations
 
@@ -111,6 +116,21 @@ class GBDT:
         self.bag_cnt = self.num_data
         self.need_bagging = (cfg.bagging_fraction < 1.0
                              and cfg.bagging_freq > 0)
+        # degenerate-class bookkeeping (gbdt.cpp:166-195): a class that no
+        # row has, or that every row has, grows no tree and adds a fixed
+        # output once
+        self.class_need_train = [True] * self.K
+        self.class_default_output = [0.0] * self.K
+        if self.K > 1 and cfg.objective in ("multiclass", "multiclassova"):
+            lab = np.asarray(train_set.metadata.label).astype(np.int64)
+            for k in range(self.K):
+                cnt = int((lab == k).sum())
+                if cnt == 0:
+                    self.class_need_train[k] = False
+                    self.class_default_output[k] = -np.log(1e10)
+                elif cnt == self.num_data:
+                    self.class_need_train[k] = False
+                    self.class_default_output[k] = -np.log(1e-10)
 
     def add_valid(self, valid_set: Dataset, name: str) -> None:
         if valid_set.sparse is not None:
@@ -122,8 +142,8 @@ class GBDT:
         su = ScoreUpdater(bins_fn, valid_set.num_data, self.K, self.device,
                           valid_set.metadata.init_score,
                           feat_tbl=valid_set.bundle_feat_table())
-        for t in self.models:
-            su.add_tree(t, 0)
+        for i, t in enumerate(self.models):
+            su.add_tree(t, i % self.K)
         self.valid_sets.append((name, valid_set, su,
                                 self._metrics_for(valid_set)))
 
@@ -173,11 +193,42 @@ class GBDT:
         bag = (self.bag_idx
                if self.need_bagging and self.bag_cnt < self.num_data
                else None)
-        if not hasattr(self.learner, "train_device"):
-            return self._train_host_tree(gradient.reshape(-1),
-                                         hessian.reshape(-1), bag)
-        arrs, leaf_id = self.learner.train_device(
-            gradient.reshape(-1), hessian.reshape(-1), bag)
+        if self.K == 1 and hasattr(self.learner, "train_device"):
+            return self._train_device_tree(gradient.reshape(-1),
+                                           hessian.reshape(-1), bag)
+        should_continue = False
+        for k in range(self.K):
+            if self.class_need_train[k]:
+                tree = self._train_class_tree(gradient[k], hessian[k], bag,
+                                              k)
+            else:
+                tree = Tree(2)
+            if tree.num_leaves > 1:
+                should_continue = True
+            elif (not self.class_need_train[k]
+                  and len(self.models) < self.K):
+                out = self.class_default_output[k]
+                tree.leaf_value[0] = out
+                self.train_score.add_constant(out, k)
+                for _, _, su, _ in self.valid_sets:
+                    su.add_constant(out, k)
+            self.models.append(tree)
+        if not should_continue:
+            warnings.warn("Stopped training because there are no more "
+                          "leaves that meet the split requirements.")
+            del self.models[-self.K:]
+            return True
+        self.iter_ += 1
+        return False
+
+    def _train_device_tree(self, gradient: torch.Tensor,
+                           hessian: torch.Tensor,
+                           bag: Optional[torch.Tensor]) -> bool:
+        """The rounds learner's iteration with one tree (the JAX package's
+        pipelined path): leaf values shrunk and clamped in f32 on the
+        device, training rows added by leaf id, valid sets walked over
+        the device tree arrays."""
+        arrs, leaf_id = self.learner.train_device(gradient, hessian, bag)
         tree = tree_arrays_to_host(arrs, self.train_set,
                                    self.config.num_leaves)
         self.host_syncs_per_tree.append(self.learner.last_host_syncs + 1)
@@ -196,30 +247,35 @@ class GBDT:
         self.iter_ += 1
         return False
 
-    def _train_host_tree(self, gradient: torch.Tensor, hessian: torch.Tensor,
-                         bag: Optional[torch.Tensor]) -> bool:
-        """The iteration of a learner that returns a host tree (the exact
-        learner; lightgbm_tpu/boosting/gbdt.py's non-pipelined path):
-        shrink on the host, then add the tree to the training scores by
-        leaf id (by walking the training store when a bag left rows out)
-        and to each valid set by walking it."""
-        tree, leaf_id = self.learner.train(
-            gradient, hessian, bag, self.bag_cnt if bag is not None else None)
+    def _train_class_tree(self, gradient: torch.Tensor,
+                          hessian: torch.Tensor, bag: Optional[torch.Tensor],
+                          k: int) -> Tree:
+        """Grow the tree of class k on gradient row k (the JAX package's
+        synchronous path): a host tree, shrunk on the host, added to
+        score row k of the training rows by leaf id (by walking the
+        training store when the exact learner's bag left rows out) and
+        of every valid set by walking it.  A tree that did not split is
+        returned as it is and adds nothing."""
+        if hasattr(self.learner, "train_device"):
+            # the rounds learner's leaf ids cover out-of-bag rows too
+            tree, leaf_id = self.learner.train(gradient, hessian, bag)
+            full_leaf_id = True
+        else:
+            tree, leaf_id = self.learner.train(
+                gradient, hessian, bag,
+                self.bag_cnt if bag is not None else None)
+            full_leaf_id = bag is None
         self.host_syncs_per_tree.append(self.learner.last_host_syncs)
         if tree.num_leaves <= 1:
-            warnings.warn("Stopped training because there are no more "
-                          "leaves that meet the split requirements.")
-            return True
+            return tree
         tree.apply_shrinkage(self.shrinkage_rate)
-        if bag is None:
-            self.train_score.add_tree_by_leaf_id(tree, leaf_id, 0)
+        if full_leaf_id:
+            self.train_score.add_tree_by_leaf_id(tree, leaf_id, k)
         else:
-            self.train_score.add_tree(tree, 0)
+            self.train_score.add_tree(tree, k)
         for _, _, su, _ in self.valid_sets:
-            su.add_tree(tree, 0)
-        self.models.append(tree)
-        self.iter_ += 1
-        return False
+            su.add_tree(tree, k)
+        return tree
 
     # ------------------------------------------------------------------
     @staticmethod

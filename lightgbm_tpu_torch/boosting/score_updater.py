@@ -103,16 +103,13 @@ def shrink_clip_leaves(leaf_value: torch.Tensor, num_leaves: int,
 
 
 def _add_leaf_to_row(score: torch.Tensor, leaf_id: torch.Tensor,
-                     leaf_values: torch.Tensor, tree_id: int) -> torch.Tensor:
+                     leaf_values: torch.Tensor, tree_id: int) -> None:
     """score[tree_id] += leaf_values[leaf_id] (0.0 for ids outside the
-    table, e.g. out-of-bag -1): one fused lookup-add (kernel K3)."""
-    row = table_lookup(leaf_values.to(torch.float32)[None], leaf_id,
-                       addend=score[tree_id:tree_id + 1])
-    if score.shape[0] == 1:
-        return row
-    out = score.clone()
-    out[tree_id] = row[0]
-    return out
+    table, e.g. out-of-bag -1), in place: one fused lookup-add (kernel
+    K3) that reads and writes row tree_id of the [K, N] score."""
+    row = score[tree_id:tree_id + 1]
+    table_lookup(leaf_values.to(torch.float32)[None], leaf_id, addend=row,
+                 out=row)
 
 
 class ScoreUpdater:
@@ -163,7 +160,7 @@ class ScoreUpdater:
         lv = torch.as_tensor(
             tree.leaf_value[: tree.max_leaves].astype(np.float32)
             * np.float32(scale), device=self.device)
-        self.score = _add_leaf_to_row(self.score, leaf_idx, lv, tree_id)
+        _add_leaf_to_row(self.score, leaf_idx, lv, tree_id)
 
     def add_tree_arrays_dev(self, arrs, leaf_values: torch.Tensor,
                             tree_id: int, num_leaves: int,
@@ -174,8 +171,7 @@ class ScoreUpdater:
             self.bins_fn, arrs.split_feature, arrs.threshold_bin,
             arrs.is_cat, arrs.left_child, arrs.right_child, num_leaves,
             depth, self.feat_tbl)
-        self.score = _add_leaf_to_row(self.score, leaf_idx, leaf_values,
-                                      tree_id)
+        _add_leaf_to_row(self.score, leaf_idx, leaf_values, tree_id)
 
     def add_tree_by_leaf_id(self, tree, leaf_id: torch.Tensor,
                             tree_id: int) -> None:
@@ -185,12 +181,11 @@ class ScoreUpdater:
         lv = torch.as_tensor(
             tree.leaf_value[: tree.max_leaves].astype(np.float32),
             device=self.device)
-        self.score = _add_leaf_to_row(self.score, leaf_id, lv, tree_id)
+        _add_leaf_to_row(self.score, leaf_id, lv, tree_id)
 
     def add_tree_by_leaf_id_dev(self, leaf_id: torch.Tensor,
                                 leaf_values: torch.Tensor,
                                 tree_id: int) -> None:
         """Leaf-partition score update (training set) with device leaf
         values, shrinkage applied."""
-        self.score = _add_leaf_to_row(self.score, leaf_id, leaf_values,
-                                      tree_id)
+        _add_leaf_to_row(self.score, leaf_id, leaf_values, tree_id)

@@ -149,8 +149,8 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
     lid0 = torch.zeros(N, dtype=torch.int32, device=dev)
     hist0 = hist_masked(
         lid0, torch.zeros(1, dtype=torch.int32, device=dev))[0]  # [F, 3, B]
-    root_sums = torch.stack([hist0[0, 0, :].sum(), hist0[0, 1, :].sum(),
-                             hist0[0, 2, :].sum()])
+    # summed in f64, so the card's root totals are the CPU's
+    root_sums = hist0[0].to(torch.float64).sum(dim=-1).to(torch.float32)
 
     leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
     if gathered:

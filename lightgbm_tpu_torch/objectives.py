@@ -1,14 +1,18 @@
 """Objective functions: gradient/hessian on [K, N] tensors.
 
-Port of lightgbm_tpu/objectives.py restricted to the binary and the
-lambdarank objectives (`Objective`, `BinaryLogloss`, `LambdarankNDCG`,
-`create_objective`, `objective_from_model_string`).  The f32 operation
-order follows JAX.  The other objectives are later slices (ROADMAP.md §A
-item 10).
+Port of lightgbm_tpu/objectives.py: the regressions (L2, L1, Huber, Fair,
+Poisson), binary logloss, multiclass softmax and one-vs-all, and
+lambdarank, with `create_objective` and `objective_from_model_string`.
+Every objective is plain tensor code on the device the score lives on,
+in the f32 operation order of the JAX functions.  Where JAX folds a
+constant (`jnp.sqrt(2 * jnp.pi)` is an f32 square root of f32(2 pi)),
+the constant is computed the same way here.
 """
 from __future__ import annotations
 
 from typing import Tuple
+
+import math
 
 import numpy as np
 import torch
@@ -45,8 +49,129 @@ class Objective:
         """Raw score -> prediction output (reference ConvertOutput)."""
         return score
 
+    def initial_score(self) -> float:
+        """boost_from_average seed value (gbdt.cpp:333-355)."""
+        return 0.0
+
     def to_string(self) -> str:
         return self.name
+
+    def _unit(self, score: torch.Tensor) -> torch.Tensor:
+        """The [1, N] weight row, or ones shaped like the score (the JAX
+        functions' `jnp.ones_like(score)` when there are no weights)."""
+        if self.weights is None:
+            return torch.ones_like(score)
+        return self.weights[None, :]
+
+    def _label_f64(self) -> np.ndarray:
+        return self.label.cpu().numpy().astype(np.float64)
+
+
+# f32(sqrt(f32(2 pi))): jnp.sqrt of the Python float rounds it to f32
+# first and takes an f32 square root
+_SQRT_2PI = float(np.sqrt(np.float32(2 * math.pi)))
+
+
+def _gaussian_hessian(y, t, g, eta: float):
+    """Common::ApproximateHessianWithGaussian (common.h:436-445); the
+    leading weight factor is applied by the caller."""
+    diff = y - t
+    x = torch.abs(diff)
+    a = 2.0 * torch.abs(g)
+    c = torch.clamp((torch.abs(y) + torch.abs(t)) * eta, min=1.0e-10)
+    return torch.exp(-x * x / (2.0 * c * c)) * a / (c * _SQRT_2PI)
+
+
+class RegressionL2(Objective):
+    name = "regression"
+    boost_from_average = True
+
+    def get_gradients(self, score):
+        g = score - self.label[None, :]
+        h = torch.ones_like(g)
+        if self.weights is not None:
+            g = g * self.weights[None, :]
+            h = h * self.weights[None, :]
+        return g, h
+
+    def initial_score(self) -> float:
+        lab = self._label_f64()
+        if self.weights is not None:
+            w = self.weights.cpu().numpy().astype(np.float64)
+            return float((lab * w).sum() / w.sum())
+        return float(lab.mean())
+
+
+class RegressionL1(Objective):
+    name = "regression_l1"
+    boost_from_average = True
+
+    def get_gradients(self, score):
+        lab = self.label[None, :]
+        diff = score - lab
+        w = self._unit(score)
+        one = torch.ones((), dtype=score.dtype, device=score.device)
+        g = torch.where(diff >= 0.0, one, -one) * w
+        h = w * _gaussian_hessian(score, lab, g, self.config.gaussian_eta)
+        return g, h
+
+    def initial_score(self) -> float:
+        return float(np.median(self._label_f64()))
+
+
+class RegressionHuber(Objective):
+    name = "huber"
+    boost_from_average = True
+
+    def get_gradients(self, score):
+        delta = self.config.huber_delta
+        lab = self.label[None, :]
+        diff = score - lab
+        w = self._unit(score)
+        small = torch.abs(diff) <= delta
+        # jnp.sign(0) == 0, as torch.sign
+        big = torch.sign(diff) * delta
+        g = torch.where(small, diff, big) * w
+        h_big = w * _gaussian_hessian(score, lab, big * w,
+                                      self.config.gaussian_eta)
+        h = torch.where(small, w, h_big)
+        return g, h
+
+    def initial_score(self) -> float:
+        return float(np.mean(self._label_f64()))
+
+
+class RegressionFair(Objective):
+    name = "fair"
+    boost_from_average = True
+
+    def get_gradients(self, score):
+        c = self.config.fair_c
+        x = score - self.label[None, :]
+        w = self._unit(score)
+        ax = torch.abs(x) + c
+        g = c * x / ax * w
+        h = c * c / (ax * ax) * w
+        return g, h
+
+    def initial_score(self) -> float:
+        return float(np.mean(self._label_f64()))
+
+
+class RegressionPoisson(Objective):
+    name = "poisson"
+    boost_from_average = True
+
+    def get_gradients(self, score):
+        g = score - self.label[None, :]
+        h = score + self.config.poisson_max_delta_step
+        if self.weights is not None:
+            g = g * self.weights[None, :]
+            h = h * self.weights[None, :]
+        return g, h
+
+    def initial_score(self) -> float:
+        return float(np.mean(self._label_f64()))
 
 
 class BinaryLogloss(Objective):
@@ -99,6 +224,91 @@ class BinaryLogloss(Objective):
 
     def to_string(self):
         return f"binary sigmoid:{self.sigmoid:g}"
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """max, exp, sum, divide, written out as JAX's `softmax` is (the
+    fused torch.softmax rounds differently)."""
+    m = torch.amax(x, dim=dim, keepdim=True)
+    e = torch.exp(x - m)
+    return e / torch.sum(e, dim=dim, keepdim=True)
+
+
+def _class_onehot(label_int: torch.Tensor, K: int) -> torch.Tensor:
+    """[K, N] bool: row k marks the rows whose label is k."""
+    k = torch.arange(K, dtype=label_int.dtype, device=label_int.device)
+    return k[:, None] == label_int[None, :]
+
+
+class MulticlassSoftmax(Objective):
+    name = "multiclass"
+
+    def __init__(self, config: Config):
+        super().__init__(config)
+        self.num_class = config.num_class
+        self.num_tree_per_iteration = config.num_class
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        lab = np.asarray(metadata.label).astype(np.int32)
+        if lab.min() < 0 or lab.max() >= self.num_class:
+            raise ValueError(
+                f"Label must be in [0, {self.num_class}) for multiclass")
+        self._onehot = _class_onehot(torch.as_tensor(lab, device=device),
+                                     self.num_class)
+
+    def get_gradients(self, score):
+        p = softmax(score, dim=0)                           # [K, N]
+        g = p - self._onehot.to(p.dtype)
+        h = 2.0 * p * (1.0 - p)
+        if self.weights is not None:
+            g = g * self.weights[None, :]
+            h = h * self.weights[None, :]
+        return g, h
+
+    def convert_output(self, score):
+        e = np.exp(score - score.max(axis=-1, keepdims=True))
+        return e / e.sum(axis=-1, keepdims=True)
+
+    def to_string(self):
+        return f"multiclass num_class:{self.num_class}"
+
+
+class MulticlassOVA(Objective):
+    name = "multiclassova"
+
+    def __init__(self, config: Config):
+        super().__init__(config)
+        self.num_class = config.num_class
+        self.num_tree_per_iteration = config.num_class
+        self.sigmoid = config.sigmoid
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        lab = torch.as_tensor(np.asarray(metadata.label).astype(np.int32),
+                              device=device)
+        one = torch.ones((), dtype=torch.float32, device=device)
+        self._lbl = torch.where(_class_onehot(lab, self.num_class), one,
+                                -one)
+
+    def get_gradients(self, score):
+        sigmoid = self.sigmoid
+        lbl = self._lbl
+        response = -lbl * sigmoid / (1.0 + torch.exp(lbl * sigmoid * score))
+        absr = torch.abs(response)
+        g = response
+        h = absr * (sigmoid - absr)
+        if self.weights is not None:
+            g = g * self.weights[None, :]
+            h = h * self.weights[None, :]
+        return g, h
+
+    def convert_output(self, score):
+        return 1.0 / (1.0 + np.exp(-self.sigmoid * score))
+
+    def to_string(self):
+        return (f"multiclassova num_class:{self.num_class} "
+                f"sigmoid:{self.sigmoid:g}")
 
 
 class LambdarankNDCG(Objective):
@@ -214,11 +424,19 @@ class LambdarankNDCG(Objective):
 
 
 def create_objective(config: Config) -> Objective:
-    table = {"binary": BinaryLogloss, "lambdarank": LambdarankNDCG}
+    table = {
+        "regression": RegressionL2,
+        "regression_l1": RegressionL1,
+        "huber": RegressionHuber,
+        "fair": RegressionFair,
+        "poisson": RegressionPoisson,
+        "binary": BinaryLogloss,
+        "multiclass": MulticlassSoftmax,
+        "multiclassova": MulticlassOVA,
+        "lambdarank": LambdarankNDCG,
+    }
     if config.objective not in table:
-        raise NotImplementedError(
-            f"objective {config.objective!r} is not ported yet; this slice "
-            "trains binary and lambdarank (ROADMAP.md §A item 10)")
+        raise ValueError(f"unknown objective: {config.objective}")
     return table[config.objective](config)
 
 

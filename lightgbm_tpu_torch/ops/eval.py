@@ -1,27 +1,90 @@
-"""Device-side evaluation metrics: the binary log loss, AUC and NDCG@k.
+"""Device-side evaluation metrics: pointwise losses, AUC, multiclass
+log loss and error, NDCG@k and MAP@k.
 
-Port of lightgbm_tpu/ops/eval.py `pointwise_loss` (binary_logloss kind),
-`auc` and `ndcg_at_k`.  The score stays on the device; each metric
-returns a 0-d tensor, and the boosting loop fetches all of an
-iteration's metrics in one transfer.
+Port of lightgbm_tpu/ops/eval.py `pointwise_loss`, `auc`,
+`multi_logloss`, `multi_error`, `ndcg_at_k` and `map_at_k`.  The score
+stays on the device; each metric returns a 0-d tensor (or one per k),
+and the boosting loop fetches all of an iteration's metrics in one
+transfer.  The weight sum and the loss parameters come in as 0-d
+tensors on the score's device, as JAX's device scalars do, so a
+division by one is a true f32 division on the card too.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 
-def binary_logloss(score: torch.Tensor, label: torch.Tensor,
-                   w: Optional[torch.Tensor], sum_w: float,
-                   sigmoid: float) -> torch.Tensor:
-    """Weighted mean binary log loss of raw scores [N] against labels."""
-    prob = torch.sigmoid(sigmoid * score.to(torch.float32))
-    prob = torch.clamp(prob, 1e-15, 1 - 1e-15)
-    loss = -torch.where(label > 0, torch.log(prob), torch.log1p(-prob))
+def _wmean(loss: torch.Tensor, w: Optional[torch.Tensor],
+           sum_w: torch.Tensor) -> torch.Tensor:
     if w is None:
         return torch.sum(loss) / sum_w
     return torch.sum(loss * w) / sum_w
+
+
+def pointwise_loss(score: torch.Tensor, label: torch.Tensor,
+                   w: Optional[torch.Tensor], sum_w: torch.Tensor, *,
+                   kind: str, p1: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Weighted mean of an elementwise loss.  score/label [N] f32, w [N]
+    or None, sum_w a 0-d f32 tensor.  `kind` selects the loss; p1 is its
+    parameter (sigmoid / huber delta / fair c) as a 0-d f32 tensor."""
+    s = score.to(torch.float32)
+    y = label
+    if kind == "l2":
+        d = s - y
+        loss = d * d
+    elif kind == "l1":
+        loss = torch.abs(s - y)
+    elif kind == "huber":
+        d = torch.abs(s - y)
+        loss = torch.where(d <= p1, 0.5 * d * d, p1 * (d - 0.5 * p1))
+    elif kind == "fair":
+        x = torch.abs(s - y)
+        loss = p1 * x - p1 * p1 * torch.log1p(x / p1)
+    elif kind == "poisson":
+        sv = torch.clamp(s, min=1e-10)
+        loss = sv - y * torch.log(sv)
+    elif kind == "binary_logloss":
+        prob = torch.sigmoid(p1 * s)
+        prob = torch.clamp(prob, 1e-15, 1 - 1e-15)
+        loss = -torch.where(y > 0, torch.log(prob), torch.log1p(-prob))
+    elif kind == "binary_error":
+        loss = ((s > 0) != (y > 0)).to(torch.float32)
+    else:
+        raise ValueError(kind)
+    return _wmean(loss, w, sum_w)
+
+
+# jnp.log(1e-15) inside the jitted function: an f32 log of f32(1e-15)
+_LOG_EPS = float(np.float32(math.log(float(np.float32(1e-15)))))
+
+
+def multi_logloss(score: torch.Tensor, label_int: torch.Tensor,
+                  w: Optional[torch.Tensor],
+                  sum_w: torch.Tensor) -> torch.Tensor:
+    """score [K, N], label_int [N] int64: mean -log softmax(score)[label],
+    with log p clamped at log(1e-15)."""
+    s = score.to(torch.float32)
+    m = torch.amax(s, dim=0, keepdim=True)
+    logp = s - m - torch.log(torch.sum(torch.exp(s - m), dim=0,
+                                       keepdim=True))
+    pl = torch.gather(logp, 0, label_int[None, :])[0]
+    loss = -torch.clamp(pl, min=_LOG_EPS)
+    return _wmean(loss, w, sum_w)
+
+
+def multi_error(score: torch.Tensor, label_int: torch.Tensor,
+                w: Optional[torch.Tensor],
+                sum_w: torch.Tensor) -> torch.Tensor:
+    """Share of rows whose argmax class (the first on ties) is not the
+    label."""
+    pred = torch.argmax(score, dim=0)
+    err = (pred != label_int).to(torch.float32)
+    return _wmean(err, w, sum_w)
 
 
 def auc(score: torch.Tensor, label: torch.Tensor,
@@ -51,6 +114,16 @@ def auc(score: torch.Tensor, label: torch.Tensor,
     return torch.where((tot_pos > 0) & (tot_neg > 0),
                        acc / (tot_pos * tot_neg),
                        torch.ones((), dtype=torch.float32, device=s.device))
+
+
+def _qw_mean(per_query: torch.Tensor,
+             query_weight: Optional[torch.Tensor]) -> torch.Tensor:
+    """Query-weighted average of a [Q] per-query vector; the plain mean
+    without query weights."""
+    if query_weight is None:
+        return per_query.mean()
+    w = query_weight.to(torch.float32)
+    return torch.sum(per_query * w) / torch.sum(w)
 
 
 def _stable_lexsort(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
@@ -96,9 +169,45 @@ def ndcg_at_k(score: torch.Tensor, label_int: torch.Tensor,
             0, qid_sorted, torch.where(within, ig_sorted * disc, zero))
         nd = torch.where(maxdcg > 0, dcg / torch.clamp(maxdcg, min=1e-30),
                          torch.ones((), dtype=torch.float32, device=dev))
-        if query_weight is None:
-            out.append(nd.mean())
-        else:
-            w = query_weight.to(torch.float32)
-            out.append(torch.sum(nd * w) / torch.sum(w))
+        out.append(_qw_mean(nd, query_weight))
+    return torch.stack(out)
+
+
+def map_at_k(score: torch.Tensor, label_pos: torch.Tensor,
+             query_id: torch.Tensor, query_start_of_row: torch.Tensor,
+             query_weight: Optional[torch.Tensor], ks: tuple,
+             num_queries: int) -> torch.Tensor:
+    """MAP@k for every k in `ks` (AP@k = sum over the relevant rows among
+    the top k of precision@rank, over the relevant rows among the top k;
+    a query with none counts 0), averaged over queries (weighted by
+    query_weight when given).  Hits within a query are a global cumsum
+    less the query's first offset, as in JAX.  Returns [len(ks)] f32."""
+    s = score.to(torch.float32)
+    n = s.shape[0]
+    dev = s.device
+    rel = label_pos.to(torch.float32)
+    order = _stable_lexsort(-s, query_id)
+    rank = torch.arange(n, dtype=torch.int32, device=dev) \
+        - query_start_of_row[order]
+    rel_sorted = rel[order]
+    qid_sorted = query_id[order].long()
+    csum = torch.cumsum(rel_sorted, 0)
+    offset = csum - rel_sorted
+    first_offset = torch.full((num_queries,), float("inf"),
+                              dtype=torch.float32, device=dev).scatter_reduce(
+        0, qid_sorted, offset, reduce="amin")
+    hits = offset - first_offset[qid_sorted] + rel_sorted
+    prec = hits / (1.0 + rank.to(torch.float32))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    out = []
+    for k in ks:
+        within = rank < k
+        ap_num = torch.zeros(num_queries, dtype=torch.float32,
+                             device=dev).index_add_(
+            0, qid_sorted, torch.where(within, prec * rel_sorted, zero))
+        nrel = torch.zeros(num_queries, dtype=torch.float32,
+                           device=dev).index_add_(
+            0, qid_sorted, torch.where(within, rel_sorted, zero))
+        ap = torch.where(nrel > 0, ap_num / torch.clamp(nrel, min=1.0), zero)
+        out.append(_qw_mean(ap, query_weight))
     return torch.stack(out)

@@ -16,7 +16,8 @@ from .. import kernels
 
 
 def _lookup_plain(tables: torch.Tensor, ids: torch.Tensor,
-                  addend: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  addend: Optional[torch.Tensor] = None,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[t, n] = tables[t, ids[n]] (0.0 for ids outside [0, S)), plus
     addend[t, n] when given."""
     S = tables.shape[1]
@@ -24,11 +25,15 @@ def _lookup_plain(tables: torch.Tensor, ids: torch.Tensor,
     val = tables[:, ids.clamp(0, max(S - 1, 0)).long()]
     val = torch.where(ok[None, :], val, torch.zeros((), dtype=tables.dtype,
                                                     device=tables.device))
-    return val if addend is None else addend + val
+    res = val if addend is None else addend + val
+    if out is None:
+        return res
+    return out.copy_(res)
 
 
 def _lookup_cuda(tables: torch.Tensor, ids: torch.Tensor,
-                 addend: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 addend: Optional[torch.Tensor] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     T, S = tables.shape
     N = ids.shape[0]
     if tables.dtype != torch.float32 or ids.dtype != torch.int32:
@@ -40,7 +45,11 @@ def _lookup_cuda(tables: torch.Tensor, ids: torch.Tensor,
         if addend.shape != (T, N) or addend.dtype != torch.float32:
             raise ValueError("addend must be float32 [T, N]")
         addend = addend.contiguous()
-    out = torch.empty((T, N), dtype=torch.float32, device=tables.device)
+    if out is None:
+        out = torch.empty((T, N), dtype=torch.float32, device=tables.device)
+    elif (out.shape != (T, N) or out.dtype != torch.float32
+          or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous float32 [T, N]")
     if N == 0:
         return out
     kernels.call("lookup", tables.data_ptr(), T, S, ids.data_ptr(), N,
@@ -50,18 +59,21 @@ def _lookup_cuda(tables: torch.Tensor, ids: torch.Tensor,
 
 
 def table_lookup(tables: torch.Tensor, ids: torch.Tensor, *,
-                 addend: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 addend: Optional[torch.Tensor] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tables [T, S] f32, ids [N] int32 -> [T, N] f32 with
     out[t, n] = tables[t, ids[n]] and 0.0 for ids outside [0, S).  Exact
     for any f32 table values.  With `addend` [T, N] the result is
-    addend + lookup (the fused score add).  The table's width bounds the
-    ids (the JAX function's num_slots).
+    addend + lookup (the fused score add).  With `out` [T, N] (which may
+    be the addend itself: each element is read before it is written) the
+    result is written there and `out` returned.  The table's width bounds
+    the ids (the JAX function's num_slots).
 
     A CUDA tensor launches kernel K3 (csrc/lookup.cu); a CPU tensor takes
     the plain version."""
     if tables.is_cuda:
-        return _lookup_cuda(tables, ids, addend)
-    return _lookup_plain(tables, ids, addend)
+        return _lookup_cuda(tables, ids, addend, out)
+    return _lookup_plain(tables, ids, addend, out)
 
 
 def select_bin_by_feature(bins_fn: torch.Tensor,

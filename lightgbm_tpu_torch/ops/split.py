@@ -57,8 +57,14 @@ def split_gain_matrix(hist: torch.Tensor, num_bins: torch.Tensor,
     nb = num_bins.to(torch.int64)[:, None]
     cat = is_cat[:, None]
 
-    GL = torch.where(cat, g, torch.cumsum(g, dim=-1))
-    HL = torch.where(cat, h, torch.cumsum(h, dim=-1))
+    # gradient and hessian sums accumulated in f64 on every device:
+    # torch's CPU cumsum of f32 already adds in f64, its CUDA one in f32
+    # in a tree, so the card's sums (and its near-tied gains) are the
+    # CPU's.  Counts are whole numbers, exact in f32 in any order
+    cum = torch.cumsum(hist[..., :2, :].to(torch.float64),
+                       dim=-1).to(hist.dtype)
+    GL = torch.where(cat, g, cum[..., 0, :])
+    HL = torch.where(cat, h, cum[..., 1, :])
     CL = torch.where(cat, c, torch.cumsum(c, dim=-1))
     GR = sg - GL
     HR = sh - HL

@@ -7,6 +7,10 @@ share it, and seeded features and label noise.  `NORTH_STAR_PARAMS` is
 the training configuration bench.py times on it, with the valid set
 scored by AUC; chip_smoke.py and trace_main.py both run it.
 
+`synth_higgs_target` gives the same rows with that labeling function
+left unthresholded (a regression target), and `quantile_classes` cuts
+such a target into classes (the multiclass workload of chip_smoke.py).
+
 `synth_ctr` is the JAX package's wide-sparse CTR/ranking shape (bench.py
 `synth_ctr`): hashed count features with power-law column popularity,
 lognormal values and 0/1 relevance in fixed-size queries, returned as a
@@ -51,14 +55,28 @@ ONEHOT_PARAMS = dict(NORTH_STAR_PARAMS, enable_bundle=True,
                      sparse_store="dense")
 
 
-def synth_higgs(n: int, f: int = 28, seed: int = 42):
+def synth_higgs_target(n: int, f: int = 28, seed: int = 42):
+    """synth_higgs's features and its labeling function left
+    unthresholded: (X, logit + 0.5 x logistic noise), the draws of
+    synth_higgs(n, f, seed) (its label is this target > 0)."""
     w = np.random.RandomState(0).randn(f) / np.sqrt(f)
     rng = np.random.RandomState(seed)
     X = rng.randn(n, f).astype(np.float32)
     logits = (X @ w + 0.5 * np.sin(X[:, 0] * 2.0) * X[:, 1]
               - 0.3 * X[:, 2] * X[:, 3])
-    y = (logits + rng.logistic(size=n) * 0.5 > 0).astype(np.float64)
-    return X.astype(np.float64), y
+    return X.astype(np.float64), logits + rng.logistic(size=n) * 0.5
+
+
+def synth_higgs(n: int, f: int = 28, seed: int = 42):
+    X, target = synth_higgs_target(n, f, seed)
+    return X, (target > 0).astype(np.float64)
+
+
+def quantile_classes(target: np.ndarray, cuts: np.ndarray) -> np.ndarray:
+    """Class ids 0..len(cuts) of a regression target cut at `cuts`
+    (e.g. a training target's 20/40/60/80% quantiles, so a valid set is
+    labelled by the same rule)."""
+    return np.searchsorted(cuts, target, side="right").astype(np.float64)
 
 
 def synth_ctr(n: int, features: int = 50_000, density: float = 0.01,

@@ -1,6 +1,7 @@
 """Where the time of a boosting iteration goes, on the GPU.
 
-    python -m lightgbm_tpu_torch.trace_main [--workload higgs|ctr|onehot]
+    python -m lightgbm_tpu_torch.trace_main
+        [--workload higgs|ctr|onehot|regression|multiclass]
         [--histogram-dtype int8|float32] [--rows N] [--trace PATH]
 
 Trains a configuration that chip_smoke.py runs — the north-star one
@@ -11,7 +12,11 @@ with `--workload ctr` the CTR one (lambdarank on `synth_ctr(N)` x 50,000
 over the sparse store, CTR_PARAMS, a 4,080-row valid set scored with
 NDCG), or with `--workload onehot` the EFB one (`synth_onehot(N)`, 240
 one-hot features bundled into 40 store columns, ONEHOT_PARAMS, the exact
-leaf-wise learner, a valid set of N/10 rows scored with AUC) — for 2
+leaf-wise learner, a valid set of N/10 rows scored with AUC), or with
+`--workload regression|multiclass` chip_smoke.py's phase-13 ones (the
+north-star rows with synth_higgs's labeling function left unthresholded
+as an L2 target, or cut at its 20/40/60/80% quantiles into 5 classes,
+K = 5 trees an iteration; l2 / multi_logloss on N/10 valid rows) — for 2
 warm-up iterations, then traces 3 more with torch.profiler
 (CPU and CUDA activities).  Prints one JSON line: wall seconds per
 traced iteration, device busy seconds (union of the kernel intervals)
@@ -56,11 +61,12 @@ def _union_us(intervals) -> float:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=("higgs", "ctr", "onehot"),
+    ap.add_argument("--workload", choices=("higgs", "ctr", "onehot",
+                                           "regression", "multiclass"),
                     default="higgs")
     ap.add_argument("--histogram-dtype", choices=("int8", "float32"),
                     default="int8",
-                    help="the north-star workload's histogram_dtype")
+                    help="histogram_dtype of the north-star rows' workloads")
     ap.add_argument("--rows", type=int, default=0,
                     help="training rows (default 2M higgs and onehot, "
                          "500k ctr)")
@@ -88,6 +94,22 @@ def main(argv=None) -> None:
         params = dict(synth.ONEHOT_PARAMS, tree_growth="exact")
         X, y = synth.synth_onehot(args.rows)
         Xv, yv = synth.synth_onehot(args.rows // 10, seed=7)
+        ds = lt.Dataset(X, y, params=params)
+        vs = lt.Dataset(Xv, yv, reference=ds, params=params)
+    elif args.workload in ("regression", "multiclass"):
+        import numpy as np
+        args.rows = args.rows or 2_000_000
+        X, t = synth.synth_higgs_target(args.rows)
+        Xv, tv = synth.synth_higgs_target(args.rows // 10, seed=7)
+        if args.workload == "multiclass":
+            cuts = np.quantile(t, [0.2, 0.4, 0.6, 0.8])
+            y, yv = (synth.quantile_classes(t, cuts),
+                     synth.quantile_classes(tv, cuts))
+            extra = {"num_class": 5, "metric": "multi_logloss"}
+        else:
+            y, yv, extra = t, tv, {"metric": "l2"}
+        params = dict(synth.NORTH_STAR_PARAMS, objective=args.workload,
+                      histogram_dtype=args.histogram_dtype, **extra)
         ds = lt.Dataset(X, y, params=params)
         vs = lt.Dataset(Xv, yv, reference=ds, params=params)
     else:
@@ -139,6 +161,7 @@ def main(argv=None) -> None:
         "kernel_launches_per_iter": len(kernels) / TRACED,
         "own_kernels_s_per_iter": {k: v / TRACED for k, v in own.items()},
         "other_kernels_s_per_iter": other / TRACED,
+        "trees_per_iteration": bst._gbdt.K,
         "host_syncs_per_tree": bst._gbdt.host_syncs_per_tree[-1],
         "top_device": [[a.key[:80], a.self_device_time_total * 1e-6 / TRACED,
                         a.count // TRACED] for a in top_dev],

@@ -69,11 +69,11 @@ def test_unported_paths_raise_not_implemented():
     X = rng.randn(300, 4)
     y = (X[:, 0] > 0) * 1.0
     import lightgbm_tpu_torch as lt
-    # multi-device learners and the L1 objective are still unported (the
-    # exact learner and EFB bundles are ported)
+    # multi-device learners and sketch bin finding are still unported
+    # (the exact learner, EFB bundles and every objective are ported)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lt.train({"tree_learner": "data", "device_type": "cpu",
                   "verbose": -1}, lt.Dataset(X, y), 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.train({"objective": "regression_l1", "device_type": "cpu",
+        lt.train({"bin_find": "sketch", "device_type": "cpu",
                   "verbose": -1}, lt.Dataset(X, X[:, 1]), 1)

@@ -341,6 +341,25 @@ def test_lookup_kernel_vs_plain(dev, T, S):
                                                   addend=add).numpy())
 
 
+def test_lookup_kernel_adds_into_score_row_in_place(dev):
+    """K3 writing row k of a [K, N] score in place (the score add of a
+    class tree): `out` is the addend's own row, the other rows stay."""
+    rng = np.random.RandomState(5)
+    K, S, N = 5, 255, 100_003
+    t = torch.as_tensor(rng.randn(1, S).astype(np.float32))
+    ids = torch.as_tensor(rng.randint(-2, S + 3, size=N).astype(np.int32))
+    score = torch.as_tensor(rng.randn(K, N).astype(np.float32))
+    want = score.clone()
+    want[3] = tl.table_lookup(t, ids, addend=score[3:4])[0]
+    got = score.to(dev)
+    row = got[3:4]
+    before = kernels.LAUNCHES["table_lookup"]
+    res = tl.table_lookup(t.to(dev), ids.to(dev), addend=row, out=row)
+    assert kernels.LAUNCHES["table_lookup"] == before + 1
+    assert res.data_ptr() == row.data_ptr()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
 def _sparse_case(N, C, R, seed, dyadic, K=7, nbins=63):
     """Power-law ELL store with all-sentinel rows, a padded column
     (zero_bin -1, no entries), empty slots, unslotted leaves and real or

@@ -2,8 +2,10 @@
 
 Same seeded inputs through both packages: bin mappers and the binned
 store (bitwise), binary-logloss gradients, one 63-leaf tree from the
-batched-rounds learner, a 5-iteration train + predict, the training
-callbacks, and a JAX-trained model carried into the port.
+batched-rounds learner, the north-star gates at test size (one 255-leaf
+tree in both row feeds and with the bounded parent cache, and the
+20-iteration int8 model string), a 5-iteration train + predict, the
+training callbacks, and a JAX-trained model carried into the port.
 
 Tolerances: the grown trees must match in structure (split features,
 thresholds, children, leaf counts) exactly.  Leaf values agree to rtol
@@ -38,7 +40,20 @@ from lightgbm_tpu_torch.convert import (TREE_FIELDS,
 from lightgbm_tpu_torch.dataset import Dataset as TDataset
 from lightgbm_tpu_torch.learner.rounds import RoundsTreeLearner as TRounds
 from lightgbm_tpu_torch.objectives import create_objective as t_objective
-from lightgbm_tpu_torch.synth import synth_higgs
+from lightgbm_tpu_torch.synth import NORTH_STAR_PARAMS, synth_higgs
+
+@pytest.fixture
+def one_torch_thread():
+    """Torch on one intra-op thread (see test_torch_objectives.py's
+    `_one_torch_thread`: a worker thread's CPU exp came out up to 1.5e-4
+    off in some processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
 
 PARAMS = dict(objective="binary", metric="auc", num_leaves=63, max_bin=255,
               learning_rate=0.1, min_data_in_leaf=1,
@@ -159,6 +174,85 @@ def test_rounds_tree_63_leaves_matches_jax(bagging, bounded,
     # one host read per round, one that finds no split or the cap, one
     # tree fetch
     assert 2 <= lt_.last_host_syncs <= n + 1
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("hist_rows,bounded,histogram_dtype", [
+    ("gathered", False, "int8"), ("masked", False, "int8"),
+    ("gathered", True, "int8"), ("gathered", False, "float32")])
+def test_rounds_tree_255_leaves_matches_jax(hist_rows, bounded,
+                                            histogram_dtype):
+    """The north-star tree at test size: one 255-leaf tree on
+    synth_higgs(50_000) with the north-star parameters (a hessian floor
+    of 1, so the tree reaches the cap), in both row feeds and with the
+    bounded parent cache.  Tolerances as for the 63-leaf tree, but atol
+    1e-4: a leaf's sums are its parent's totals less the left cumulative
+    sums, and with a hessian floor of 1 the 255-leaf tree has small
+    leaves whose sums nearly cancel (the largest difference seen is
+    1.9e-5, on a leaf of 8e-3)."""
+    X, y = synth_higgs(50_000)
+    params = dict(NORTH_STAR_PARAMS, tree_growth="rounds",
+                  hist_rows=hist_rows, min_sum_hessian_in_leaf=1.0,
+                  histogram_dtype=histogram_dtype)
+    if bounded:
+        params["histogram_pool_size"] = 0.1
+    dj = JDataset(X, y, j_config(params))
+    dt = TDataset(X, y, t_config(dict(params, device_type="cpu")))
+    rng = np.random.RandomState(2)
+    p = 1.0 / (1.0 + np.exp(-rng.randn(50_000)))
+    grad = (p - y).astype(np.float32)
+    hess = (p * (1 - p)).astype(np.float32)
+    lj_ = JRounds(dj, j_config(params))
+    tj, lid_j = lj_.train(jnp.asarray(grad), jnp.asarray(hess))
+    lt_ = TRounds(dt, t_config(dict(params, device_type="cpu")))
+    assert lt_.hist_rows == lj_.hist_rows == hist_rows
+    assert lt_.cache_parent_hist == lj_.cache_parent_hist == (not bounded)
+    tt, lid_t = lt_.train(torch.as_tensor(grad), torch.as_tensor(hess))
+    assert tt.num_leaves == tj.num_leaves == 255
+    _same_structure(tj, tt)
+    np.testing.assert_allclose(tt.leaf_value[:255], tj.leaf_value[:255],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(lid_t.numpy(), np.asarray(lid_j))
+
+
+# model-string lines compared as numbers (the f32 sums behind them are
+# added in another order in each package); every other line as a string
+_FLOAT_LINES = ("split_gain", "leaf_value", "internal_value")
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_int8_model_string_matches_jax():
+    """The 20-iteration int8 north-star model string of both packages,
+    line by line.  synth_higgs(20_000): at 50,000 rows JAX's CPU run
+    takes ~77 s, over the time a test case may take.  Every line but the
+    split gains, leaf values and internal values is equal as a string;
+    those three are equal as numbers within rtol 1e-4 or 1e-3 of the
+    line's largest magnitude.  They are not equal as strings (ROADMAP §C
+    fault 6): the first difference is tree 0's split_gain line (its fifth
+    gain is 160.496 in JAX, 160.495 here), since a leaf's gradient and hessian totals are f32 sums over its
+    dequantized bins, which XLA's CPU reduction and cumulative sum
+    (blocks of 16) and torch's add in other orders."""
+    X, y = synth_higgs(20_000)
+    params = dict(NORTH_STAR_PARAMS, tree_growth="rounds",
+                  hist_rows="gathered")
+    bj = lj.train(params, lj.Dataset(X, y), 20, verbose_eval=False)
+    bj._gbdt._flush_pending()
+    bt = lt.train(dict(params, device_type="cpu"), lt.Dataset(X, y), 20)
+    assert bt.num_trees() == bj.num_trees() == 20
+    a = bj.model_to_string().splitlines()
+    b = bt.model_to_string().splitlines()
+    assert len(b) == len(a)
+    for i, (la, lb) in enumerate(zip(a, b)):
+        key = la.split("=", 1)[0]
+        if key in _FLOAT_LINES:
+            assert lb.split("=", 1)[0] == key
+            va = np.array(la.split("=", 1)[1].split(), np.float64)
+            vb = np.array(lb.split("=", 1)[1].split(), np.float64)
+            np.testing.assert_allclose(vb, va, rtol=1e-4,
+                                       atol=1e-3 * np.abs(va).max(),
+                                       err_msg=f"line {i}: {key}")
+        else:
+            assert lb == la, f"line {i}"
 
 
 @pytest.fixture(scope="module")
