@@ -160,6 +160,31 @@ Phases (any failure exits non-zero and prints no result line):
              of the first iteration and of every identical one within
              1e-4.  s/iter, trees a second and
              host syncs a tree are printed with the card.
+14. training surface — on phase 3's north-star datasets (not binned
+             again), the north-star parameters (int8, rounds learner):
+             GOSS (top_rate 0.2, other_rate 0.1, 14 iterations: 10
+             warm-up at lr 0.1, then 4 on 600,000 sampled rows), which
+             must launch K1, K3 and K4 in every sampled tree and raise the
+             valid AUC from iteration 10 to 14; then GOSS on the CPU and
+             on the card (synth_higgs(50_000), lr 0.5: 2 warm-up
+             iterations of 4): the first sampled iteration's selection,
+             run again on the CPU from the card's gradients, bitwise
+             (bag, amplified g and h), the runs' own bags compared, trees
+             identical until a first differing split that is an f32 gain
+             tie.  DART (drop_rate 0.1, 8 iterations): trees dropped and
+             the K3 launches of the drop and renormalization walks
+             printed; fails unless a tree was dropped and the
+             device-scored valid set agrees with Booster.predict(
+             raw_score=True) within 1e-4.  Checkpoint/resume (lr 0.5,
+             bagging 0.8 every iteration, seed 3; a temporary
+             directory): the model string of a run checkpointed every 3
+             iterations, stopped at 6 and resumed to 10 equals the
+             uninterrupted run's.  Continuation from that model's file
+             (init_model, 5 more iterations: 15, valid AUC no lower than
+             at 10), then two rollbacks: training and valid scores
+             within 1e-5 of a fresh replay of the trees left.  Early
+             stopping (early_stopping_rounds=3, lr 0.5, 30 rounds):
+             best_iteration printed.
 
 Every kernel's ms is timed by CUDA events around each call, the method
 of earlier versions of this script; it includes the wrapper's host
@@ -175,12 +200,15 @@ no CUDA device is visible.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -929,7 +957,8 @@ def phase_learner_passes(torch, lt, H, SS, params, ds, sp):
             return real(st, zb, srow, vals, tot, scale, K, Cp, B)
         SS._hist_streams_cuda = record
         try:
-            lt.train(dict(params, histogram_dtype=dtype), ds, 1)
+            lt.train(dict(params, histogram_dtype=dtype), ds, 1,
+                     verbose_eval=False)
         finally:
             SS._hist_streams_cuda = real
         per = []
@@ -974,7 +1003,8 @@ def drive_ctr(torch, lt, kernels, dataset_mod, params, ds, vs, Xv,
     torch.cuda.synchronize()
     t = time.perf_counter()
     bst = lt.train(params, ds, n, valid_sets=[vs], evals_result=res,
-                   callbacks=[steady_window(torch, warmup, n, marks)])
+                   callbacks=[steady_window(torch, warmup, n, marks)],
+                   verbose_eval=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     if bst.num_trees() != n:
@@ -1038,7 +1068,8 @@ def drive(torch, lt, kernels, params, X, y, Xv, yv, warmup, timed):
     torch.cuda.synchronize()
     t = time.perf_counter()
     bst = lt.train(params, ds, n, valid_sets=[vs], evals_result=res,
-                   callbacks=[steady_window(torch, warmup, n, marks)])
+                   callbacks=[steady_window(torch, warmup, n, marks)],
+                   verbose_eval=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     if bst.num_trees() != n:
@@ -1052,7 +1083,7 @@ def drive(torch, lt, kernels, params, X, y, Xv, yv, warmup, timed):
                      s_per_iter=(marks[1] - marks[0]) / timed,
                      train_wall_s=wall, auc=res["valid_0"]["auc"][-1],
                      syncs_per_tree=statistics.mean(syncs),
-                     predict_s=predict_s, launches=launches), pred, ds
+                     predict_s=predict_s, launches=launches), pred, (ds, vs)
 
 
 def phase_main(torch, lt, kernels):
@@ -1060,8 +1091,8 @@ def phase_main(torch, lt, kernels):
     X, y = synth_higgs(MAIN_ROWS)
     Xv, yv = synth_higgs(VALID_ROWS, seed=7)
     params = dict(NORTH_STAR_PARAMS, device_type=GPU)
-    bst, st, pred, ds = drive(torch, lt, kernels, params, X, y, Xv, yv, 2,
-                              10)
+    bst, st, pred, (ds, vs) = drive(torch, lt, kernels, params, X, y, Xv,
+                                    yv, 2, 10)
     print(f"[main] int8: {json.dumps(st)}", flush=True)
     for k in ("hist_masked_int8", "table_lookup", "partition_rows"):
         if st["launches"][k] <= 0:
@@ -1089,7 +1120,7 @@ def phase_main(torch, lt, kernels):
             fail(f"main path (float32) never launched {k}")
     if not (math.isfinite(st32["auc"]) and st32["auc"] > 0.75):
         fail(f"float32 valid AUC {st32['auc']} is not a trained model's")
-    return st, st32, params, ds
+    return st, st32, params, ds, vs, Xv
 
 
 def tree_sums(per, label):
@@ -1150,7 +1181,7 @@ def phase_rounds_tree(torch, lt, H, params, ds, label):
         return real(bins, rows, row_idx, vals, B, **kw)
     setattr(H, name, record)
     try:
-        lt.train(params, ds, 1)
+        lt.train(params, ds, 1, verbose_eval=False)
     finally:
         setattr(H, name, real)
     per = []
@@ -1220,7 +1251,7 @@ def phase_partition_tree(torch, lt, P, params, ds, label):
         return real(bins_fn, leaf_id, tbl)
     P._partition_cuda = record
     try:
-        lt.train(params, ds, 1)
+        lt.train(params, ds, 1, verbose_eval=False)
     finally:
         P._partition_cuda = real
     if not calls:
@@ -1285,7 +1316,7 @@ def phase_k5_tree(torch, lt, H, params, ds):
         return real(bins_t, gp, hp, idx, B, input_dtype, count, nb)
     H._from_indices_cuda = record
     try:
-        lt.train(dict(params, tree_growth="exact"), ds, 1)
+        lt.train(dict(params, tree_growth="exact"), ds, 1, verbose_eval=False)
     finally:
         H._from_indices_cuda = real
     per = []
@@ -1570,7 +1601,8 @@ def drive_onehot(torch, lt, kernels, params, ds, vs, Xv, warmup, timed):
     torch.cuda.synchronize()
     t = time.perf_counter()
     bst = lt.train(params, ds, n, valid_sets=[vs], evals_result=res,
-                   callbacks=[steady_window(torch, warmup, n, marks)])
+                   callbacks=[steady_window(torch, warmup, n, marks)],
+                   verbose_eval=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(kernels.LAUNCHES)
@@ -1629,7 +1661,7 @@ def phase_lossless(lt):
             p = dict(ONEHOT_PARAMS, device_type=GPU, tree_growth=growth,
                      enable_bundle=eb)
             ds = lt.Dataset(X, y, params=p)
-            bst = lt.train(p, ds, 1)
+            bst = lt.train(p, ds, 1, verbose_eval=False)
             if (ds._inner.bundle_plan is not None) != eb:
                 fail(f"enable_bundle={eb} did not decide the bundling")
             out[eb] = (bst._gbdt.models[0], bst.predict(X))
@@ -1658,7 +1690,7 @@ def phase_onehot_card_vs_cpu(lt):
             res = {}
             bst = lt.train(p, ds, 5, valid_sets=[lt.Dataset(Xv, yv,
                                                             reference=ds)],
-                           evals_result=res)
+                           evals_result=res, verbose_eval=False)
             out[dev] = (bst._gbdt.models[0], res["valid_0"]["auc"][-1])
         compare_first_trees(label, out["cpu"][0], out[GPU][0], out["cpu"][1],
                             out[GPU][1], "auc")
@@ -1678,7 +1710,7 @@ def phase_card_vs_cpu(lt):
         res = {}
         bst = lt.train(p, ds, 5, valid_sets=[lt.Dataset(Xv, yv,
                                                         reference=ds)],
-                       evals_result=res)
+                       evals_result=res, verbose_eval=False)
         out[dev] = (bst._gbdt.models[0], res["valid_0"]["auc"][-1])
     compare_first_trees("higgs", out["cpu"][0], out[GPU][0], out["cpu"][1],
                         out[GPU][1], "auc")
@@ -1693,7 +1725,8 @@ def phase_card_vs_cpu(lt):
             ds = lt.Dataset(X, y, group=g, params=p)
             res = {}
             bst = lt.train(p, ds, 3, valid_sets=[lt.Dataset(
-                Xv, yv, group=gv, reference=ds)], evals_result=res)
+                Xv, yv, group=gv, reference=ds)], evals_result=res,
+                           verbose_eval=False)
             if bst._gbdt.train_set.sparse is None:
                 fail("the card-vs-CPU ctr run did not use the sparse store")
             out[dev] = (bst._gbdt.models[0], res["valid_0"]["ndcg@5"][-1])
@@ -1720,48 +1753,58 @@ def objective_workloads(n_train: int, n_valid: int):
                            quantile_classes(tv, cuts), mc)}
 
 
+TREE_KERNELS = ("hist_masked_int8", "partition_rows", "table_lookup")
+
+
+@contextlib.contextmanager
+def tree_launches(kernels):
+    """Each tree's launches of K1, K4 and K3 (TREE_KERNELS) while the
+    block runs: the rounds learner's train_device is wrapped to snapshot
+    the counts as each tree starts, so the counts between two snapshots
+    (the last taken when the block ends) are the histograms, partitions
+    and score adds (the training rows by leaf id, the valid walk, and any
+    walk of earlier trees before the next tree) of one tree.  Yields the
+    list that receives one [K1, K4, K3] entry a tree."""
+    from lightgbm_tpu_torch.learner.rounds import RoundsTreeLearner
+    snaps, per_tree = [], []
+    real = RoundsTreeLearner.train_device
+
+    def wrapped(self, *a, **k):
+        snaps.append([kernels.LAUNCHES[n] for n in TREE_KERNELS])
+        return real(self, *a, **k)
+
+    RoundsTreeLearner.train_device = wrapped
+    try:
+        yield per_tree
+    finally:
+        RoundsTreeLearner.train_device = real
+        snaps.append([kernels.LAUNCHES[n] for n in TREE_KERNELS])
+        per_tree.extend([b - a for a, b in zip(snaps[t], snaps[t + 1])]
+                        for t in range(len(snaps) - 1))
+
+
 def drive_objective(torch, lt, kernels, params, X, y, Xv, yv, warmup,
                     timed):
     """Train one phase-13 workload through lightgbm_tpu_torch.train, with
     the launch counts zeroed before and read after, and each class tree's
-    launches of K1, K3 and K4 recorded: the rounds learner's train_device
-    is wrapped to snapshot the counts as each tree starts, so the counts
-    between two snapshots are the histograms, partitions and
-    the score adds of one class tree."""
-    from lightgbm_tpu_torch.learner.rounds import RoundsTreeLearner
-    names = ("hist_masked_int8", "partition_rows", "table_lookup")
-    snaps = []
-    real = RoundsTreeLearner.train_device
-
-    def wrapped(self, *a, **k):
-        snaps.append([kernels.LAUNCHES[n] for n in names])
-        return real(self, *a, **k)
-
+    launches of K1, K3 and K4 recorded (`tree_launches`)."""
     ds = lt.Dataset(X, y, params=params).construct()
     vs = lt.Dataset(Xv, yv, reference=ds, params=params).construct()
     n, res, marks = warmup + timed, {}, []
     kernels.reset_launches()
-    RoundsTreeLearner.train_device = wrapped
-    try:
+    with tree_launches(kernels) as per_tree:
         torch.cuda.synchronize()
         t = time.perf_counter()
         bst = lt.train(params, ds, n, valid_sets=[vs], evals_result=res,
-                       callbacks=[steady_window(torch, warmup, n, marks)])
+                       callbacks=[steady_window(torch, warmup, n, marks)],
+                       verbose_eval=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    finally:
-        RoundsTreeLearner.train_device = real
-    snaps.append([kernels.LAUNCHES[n] for n in names])
     g = bst._gbdt
     K = g.K
-    if g.iter_ != n or len(snaps) != n * K + 1:
+    if g.iter_ != n or len(per_tree) != n * K:
         fail(f"phase 13 ({params['objective']}): {g.iter_} of {n} "
-             f"iterations, {len(snaps) - 1} class trees")
-    # tree t's histograms (K1), partitions (K4) and score adds (K3: the
-    # training rows by leaf id, the valid walk) lie between snapshots t
-    # and t + 1 (the last snapshot is taken after training)
-    per_tree = [[b - a for a, b in zip(snaps[t], snaps[t + 1])]
-                for t in range(n * K)]
+             f"iterations, {len(per_tree)} class trees")
     metric = params["metric"]
     vals = res["valid_0"][metric]
     dev = g.valid_sets[0][2].score.double().cpu().numpy()
@@ -1820,7 +1863,7 @@ def phase_objectives_card_vs_cpu(lt):
             ds = lt.Dataset(X, y, params=p)
             res = {}
             bst = lt.train(p, ds, 5, valid_sets=[lt.Dataset(
-                Xv, yv, reference=ds)], evals_result=res)
+                Xv, yv, reference=ds)], evals_result=res, verbose_eval=False)
             out[dev] = (bst._gbdt, res["valid_0"][base["metric"]])
         compare_class_trees(obj, out["cpu"], out[GPU], base["metric"])
 
@@ -1837,7 +1880,7 @@ def _first_split_difference(tc, tg):
     return None if tc.num_leaves == tg.num_leaves else n
 
 
-def compare_class_trees(label, cpu, card, metric):
+def compare_class_trees(label, cpu, card, metric, tie_until: int = 1):
     """The class trees of the CPU and card runs, iteration by iteration.
     Every class tree of the first iteration (each grown from the same
     initial scores) is identical, or its first differing split is an f32
@@ -1847,7 +1890,8 @@ def compare_class_trees(label, cpu, card, metric):
     a gradient that sits on a quantization boundary to the next integer;
     the first such difference is printed.  The valid metric of the first
     iteration, and of every iteration before the first difference,
-    agrees within 1e-4; the rest is printed."""
+    agrees within 1e-4; the rest is printed.  A first difference in one
+    of the first `tie_until` iterations must be an f32 gain tie."""
     (gc_, mc), (gg, mg) = cpu, card
     K, first = gc_.K, 1 if gc_.boost_from_average_used else 0
     n_iter = len(mc)
@@ -1869,9 +1913,9 @@ def compare_class_trees(label, cpu, card, metric):
                   f"{tg.split_feature[i]}, bin {tg.threshold_in_bin[i]}, "
                   f"children {tg.left_child[i]} {tg.right_child[i]}, gain "
                   f"{b!r}); f32 gain tie: {tie}", flush=True)
-            if it == 0 and not tie:
-                fail(f"card and CPU grew different first trees ({label}, "
-                     f"class {k})")
+            if it < tie_until and not tie:
+                fail(f"card and CPU grew different trees ({label}, "
+                     f"iteration {it + 1}, class {k})")
         if parted:
             same = it
             break
@@ -1882,6 +1926,249 @@ def compare_class_trees(label, cpu, card, metric):
     err = max(abs(x - y) for x, y in zip(mc[:checked], mg[:checked]))
     if not err <= 1e-4:
         fail(f"card and CPU valid {metric} differ ({label}): {err}")
+
+
+
+def phase_goss(torch, lt, kernels, params, ds, vs):
+    """GOSS at the main path's shape (phase 14, part 1): 10 warm-up
+    iterations at lr 0.1, then 4 on 600,000 sampled rows of 2M."""
+    p = dict(params, boosting="goss", top_rate=0.2, other_rate=0.1)
+    n, warm, res, marks = 14, 10, {}, []
+    kernels.reset_launches()
+    with tree_launches(kernels) as per_tree:
+        bst = lt.train(p, ds, n, valid_sets=[vs], evals_result=res,
+                       callbacks=[steady_window(torch, warm, n, marks)],
+                       verbose_eval=False)
+    g = bst._gbdt
+    if type(g).__name__ != "GOSS" or g.iter_ != n or len(per_tree) != n:
+        fail(f"GOSS: {type(g).__name__}, {g.iter_} of {n} iterations")
+    auc = res["valid_0"]["auc"]
+    sampled = per_tree[warm:]
+    st = dict(s_per_iter=(marks[1] - marks[0]) / (n - warm),
+              sampled_rows=g.bag_cnt, bag_capacity=int(g.bag_idx.numel()),
+              syncs_per_tree=statistics.mean(g.host_syncs_per_tree[warm:]),
+              launches=dict(kernels.LAUNCHES),
+              sampled_tree_launches=sampled, auc_10=auc[warm - 1],
+              auc_14=auc[-1])
+    print(f"[training surface] goss: {json.dumps(st)}", flush=True)
+    print(f"[training surface] goss: s/iter {st['s_per_iter']:.4f} over "
+          f"the sampled iterations 11-14, {g.bag_cnt} sampled rows, host "
+          f"syncs/tree {st['syncs_per_tree']:.2f}, valid AUC "
+          f"{auc[warm - 1]:.6f} -> {auc[-1]:.6f}", flush=True)
+    want = int(g.num_data * 0.2) + int(g.num_data * 0.1)
+    if g.bag_cnt != want:
+        fail(f"GOSS sampled {g.bag_cnt} rows, not {want}")
+    for i, (hist, part, look) in enumerate(sampled):
+        if hist <= 0 or part <= 0 or look <= 0:
+            fail(f"GOSS sampled tree {warm + i + 1} launched K1 {hist}, "
+                 f"K4 {part}, K3 {look} times")
+    if not auc[-1] > auc[warm - 1]:
+        fail(f"GOSS valid AUC did not rise over the sampled iterations: "
+             f"{auc[warm - 1]} -> {auc[-1]}")
+    return st
+
+
+def phase_goss_card_vs_cpu(torch, lt):
+    """GOSS on synth_higgs(50_000) at lr 0.5 (2 warm-up iterations), 4
+    iterations on the CPU and on the card.  The first sampled
+    iteration's selection, recorded on the card, is run again on the CPU
+    from the same gradients: bag and amplified g/h bitwise.  The two
+    runs' own first bags are compared too (equal when their gradients
+    are).  Trees are identical until the first differing split, which
+    must be an f32 gain tie and is printed."""
+    from lightgbm_tpu_torch.boosting import goss as goss_mod
+    from lightgbm_tpu_torch.synth import NORTH_STAR_PARAMS, synth_higgs
+    X, y = synth_higgs(COMPARE_ROWS)
+    Xv, yv = synth_higgs(COMPARE_ROWS // 5, seed=7)
+    real = goss_mod._goss_select
+    out = {}
+    for dev in ("cpu", GPU):
+        calls = []
+
+        def record(g, h, key, **kw):
+            r = real(g, h, key, **kw)
+            calls.append(((g.cpu(), h.cpu(), key.clone(), kw),
+                          tuple(t.cpu() for t in r)))
+            return r
+
+        p = dict(NORTH_STAR_PARAMS, device_type=dev, hist_rows="gathered",
+                 boosting="goss", learning_rate=0.5)
+        ds = lt.Dataset(X, y, params=p)
+        res = {}
+        goss_mod._goss_select = record
+        try:
+            bst = lt.train(p, ds, 4, valid_sets=[lt.Dataset(
+                Xv, yv, reference=ds)], evals_result=res,
+                verbose_eval=False)
+        finally:
+            goss_mod._goss_select = real
+        if len(calls) != 2:
+            fail(f"GOSS ({dev}) sampled {len(calls)} iterations, not 2")
+        out[dev] = (bst._gbdt, res["valid_0"]["auc"], calls[0])
+    (g_in, h_in, key, kw), card_sel = out[GPU][2]
+    again = real(g_in, h_in, key, **kw)
+    same = [torch.equal(a, b) for a, b in zip(again, card_sel)]
+    print(f"[training surface] goss card vs cpu: first sampled iteration's "
+          f"selection, card against CPU on the card's gradients: bag, g, "
+          f"h bitwise {same}", flush=True)
+    if not all(same):
+        fail("GOSS selection differs between the card and the CPU")
+    (cg, ch, _, _), cpu_sel = out["cpu"][2]
+    inputs_equal = torch.equal(cg, g_in) and torch.equal(ch, h_in)
+    bags_equal = torch.equal(cpu_sel[0], card_sel[0])
+    print(f"[training surface] goss card vs cpu: the runs' own first "
+          f"sampled gradients bitwise {inputs_equal} (max |diff| "
+          f"{float((cg - g_in).abs().max())}), bags bitwise {bags_equal}",
+          flush=True)
+    if inputs_equal and not (bags_equal and all(
+            torch.equal(a, b) for a, b in zip(cpu_sel, card_sel))):
+        fail("GOSS drew different bags from the same gradients")
+    # with the same bags every tree is held to the tie rule; bags drawn
+    # from gradients that differ in the last bit hold only the warm-up
+    compare_class_trees("goss", out["cpu"][:2], out[GPU][:2], "auc",
+                        tie_until=4 if bags_equal else 2)
+
+
+def phase_dart(torch, lt, kernels, params, ds, vs, Xv):
+    """DART at the main path's shape (phase 14, part 2): drop_rate 0.1, 8
+    iterations; the trees dropped each iteration and the K3 launches of
+    the drops' and renormalization's walks are recorded."""
+    from lightgbm_tpu_torch.boosting.dart import DART
+    p = dict(params, boosting="dart", drop_rate=0.1)
+    drops, walk = [], [0]
+    real_drop, real_norm = DART._dropping_trees, DART._normalize
+
+    def counted(fn):
+        def run(self):
+            before = kernels.LAUNCHES["table_lookup"]
+            fn(self)
+            walk[0] += kernels.LAUNCHES["table_lookup"] - before
+        return run
+
+    def dropping(self):
+        counted(real_drop)(self)
+        drops.append(len(self.drop_index))
+
+    n, warm, res, marks = 8, 2, {}, []
+    kernels.reset_launches()
+    DART._dropping_trees, DART._normalize = dropping, counted(real_norm)
+    try:
+        bst = lt.train(p, ds, n, valid_sets=[vs], evals_result=res,
+                       callbacks=[steady_window(torch, warm, n, marks)],
+                       verbose_eval=False)
+    finally:
+        DART._dropping_trees, DART._normalize = real_drop, real_norm
+    g = bst._gbdt
+    dev_raw = g.valid_sets[0][2].score[0].double().cpu().numpy()
+    err = float(np.abs(dev_raw - bst.predict(Xv, raw_score=True)).max())
+    st = dict(s_per_iter=(marks[1] - marks[0]) / (n - warm),
+              dropped=drops, drop_walk_k3_launches=walk[0],
+              syncs_per_tree=statistics.mean(g.host_syncs_per_tree),
+              launches=dict(kernels.LAUNCHES), walk_err=err,
+              auc=res["valid_0"]["auc"][-1])
+    print(f"[training surface] dart: {json.dumps(st)}", flush=True)
+    print(f"[training surface] dart: s/iter {st['s_per_iter']:.4f}, trees "
+          f"dropped per iteration {drops}, K3 launches of the drop and "
+          f"renormalization walks {walk[0]}, device valid score vs "
+          f"Booster.predict max |diff| {err}", flush=True)
+    if type(g).__name__ != "DART" or g.iter_ != n:
+        fail(f"DART: {type(g).__name__}, {g.iter_} of {n} iterations")
+    if not any(drops) or walk[0] <= 0:
+        fail(f"DART dropped no tree (drops {drops}, walk launches "
+             f"{walk[0]})")
+    if err > 1e-4:
+        fail(f"DART's device valid scores disagree with "
+             f"Booster.predict(raw_score=True): {err}")
+    return st
+
+
+def phase_resume(torch, lt, params, ds, vs, tmp):
+    """Checkpoint/resume, continuation and rollback at the main path's
+    shape (phase 14, parts 3 and 4)."""
+    p = dict(params, learning_rate=0.5, bagging_fraction=0.8,
+             bagging_freq=1, seed=3)
+    res = {}
+    t0 = time.perf_counter()
+    full = lt.train(p, ds, 10, valid_sets=[vs], evals_result=res,
+                    verbose_eval=False)
+    ck = os.path.join(tmp, "ck.json")
+    pc = dict(p, checkpoint_path=ck, checkpoint_interval=3)
+    lt.train(pc, ds, 6, valid_sets=[vs], verbose_eval=False)
+    t1 = time.perf_counter()
+    resumed = lt.train(pc, ds, 10, valid_sets=[vs], verbose_eval=False)
+    t2 = time.perf_counter()
+    same = resumed.model_to_string() == full.model_to_string()
+    print(f"[training surface] resume: uninterrupted and killed runs "
+          f"{t1 - t0:.1f} s, resume to 10 {t2 - t1:.1f} s; resumed model "
+          f"string equal to the uninterrupted one: {same}", flush=True)
+    if not same:
+        fail("the resumed model string differs from the uninterrupted one")
+
+    model = os.path.join(tmp, "model.txt")
+    full.save_model(model)
+    auc10 = res["valid_0"]["auc"][-1]
+    res_c = {}
+    t0 = time.perf_counter()
+    cont = lt.train(p, ds, 5, valid_sets=[vs], evals_result=res_c,
+                    init_model=model, verbose_eval=False)
+    t1 = time.perf_counter()
+    ds.set_init_score(None)
+    auc15 = res_c["valid_0"]["auc"][-1]
+    print(f"[training surface] continuation: {cont.current_iteration()} "
+          f"iterations in {t1 - t0:.1f} s, valid AUC {auc10:.6f} after 10 "
+          f"-> {auc15:.6f} after 15", flush=True)
+    if cont.current_iteration() != 15:
+        fail(f"the continued booster holds {cont.current_iteration()} "
+             f"iterations, not 15")
+    if not auc15 >= auc10:
+        fail(f"continued valid AUC {auc15} fell below {auc10}")
+
+    from lightgbm_tpu_torch.boosting.score_updater import ScoreUpdater
+    cont.rollback_one_iter()
+    cont.rollback_one_iter()
+    g = cont._gbdt
+    errs = []
+    for su in (g.train_score, g.valid_sets[0][2]):
+        fresh = ScoreUpdater(su.bins_fn, su.num_data, 1, g.device,
+                             feat_tbl=su.feat_tbl)
+        fresh.add_trees(g.models, 1)
+        errs.append(float((su.score - fresh.score).abs().max()))
+    print(f"[training surface] rollback twice: {g.current_iteration()} "
+          f"iterations; training and valid scores vs a fresh replay of "
+          f"the {len(g.models)} trees left: max |diff| {errs}", flush=True)
+    if g.current_iteration() != 13 or max(errs) > 1e-5:
+        fail(f"rollback: {g.current_iteration()} iterations, scores off a "
+             f"fresh replay by {errs}")
+    return dict(resume_equal=same, auc_10=auc10, auc_15=auc15,
+                rollback_err=errs)
+
+
+def phase_early_stopping(lt, params, ds, vs):
+    """early_stopping_rounds=3 on the valid set (phase 14, part 5)."""
+    p = dict(params, learning_rate=0.5)
+    res = {}
+    t0 = time.perf_counter()
+    bst = lt.train(p, ds, 30, valid_sets=[vs], evals_result=res,
+                   early_stopping_rounds=3, verbose_eval=False)
+    auc = res["valid_0"]["auc"]
+    print(f"[training surface] early stopping: best_iteration "
+          f"{bst.best_iteration} of {len(auc)} evaluated, valid AUC there "
+          f"{auc[bst.best_iteration - 1]:.6f}, {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    if not 1 <= bst.best_iteration <= len(auc):
+        fail(f"early stopping returned best_iteration {bst.best_iteration}")
+
+
+def phase_training_surface(torch, lt, kernels, params, ds, vs, Xv):
+    """Phase 14: GOSS, DART, checkpoint/resume, continuation, rollback
+    and early stopping on phase 3's north-star datasets."""
+    st = {"goss": phase_goss(torch, lt, kernels, params, ds, vs)}
+    phase_goss_card_vs_cpu(torch, lt)
+    st["dart"] = phase_dart(torch, lt, kernels, params, ds, vs, Xv)
+    with tempfile.TemporaryDirectory() as tmp:
+        st["resume"] = phase_resume(torch, lt, params, ds, vs, tmp)
+    phase_early_stopping(lt, params, ds, vs)
+    return st
 
 
 def main() -> None:
@@ -1904,7 +2191,8 @@ def main() -> None:
           f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})",
           flush=True)
     rows = phase_kernels(torch, kernels, H, LK, P)
-    st, st32, ns_params, ns_ds = phase_main(torch, lt, kernels)
+    st, st32, ns_params, ns_ds, ns_vs, ns_Xv = phase_main(torch, lt,
+                                                          kernels)
     for r in rows:
         src = st32 if r["name"] == "hist_masked_f32" else st
         r["launches"] = src["launches"][r["name"]]
@@ -1912,7 +2200,6 @@ def main() -> None:
     phase_partition_tree(torch, lt, P, ns_params, ns_ds, "north-star")
     phase_rounds_tree(torch, lt, H, dict(ns_params, histogram_dtype="float32"),
                       ns_ds, "north-star, float32")
-    del ns_ds
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1963,6 +2250,10 @@ def main() -> None:
         fail("nvidia-smi did not report the card")
     card = smi.stdout.strip().splitlines()[0]
     phase_objectives(torch, lt, kernels, card)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    phase_training_surface(torch, lt, kernels, ns_params, ns_ds, ns_vs,
+                           ns_Xv)
+    del ns_ds, ns_vs, ns_Xv
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,41 +1,123 @@
 """GBDT boosting loop.
 
-Port of lightgbm_tpu/boosting/gbdt.py for this slice: boost-from-average,
-bagging through `np.random.RandomState` (the same draws as JAX), K trees
-per iteration (one per class, K = the objective's trees per iteration)
-with the scores updated on the device, the degenerate-class bookkeeping
-of multiclass labels, objectives and metrics initialised with the query
-metadata, eval, host prediction, and the LightGBM text model (save and
-load).  The iteration paths are the JAX package's: with one tree an
-iteration, the rounds learner returns device tree arrays (training rows
-add by leaf id, valid sets walk the device tree arrays over their dense
-store or their sparse ELL rows, leaf values shrunk in f32 on the device:
-the JAX package's pipelined path, here with the tree fetched in the same
-iteration); otherwise (the exact learner, or K > 1, where JAX does not
-pipeline) each class tree comes to the host, is shrunk there in f64, and
-adds to score row k of the training rows by leaf id (by walking the
-training store when the exact learner's bag left rows out) and of each
-valid set by walking the tree.  Either walk reads an EFB-bundled store
-through its feature table.  Checkpoint/resume, DART and GOSS are later
-slices.
+Port of lightgbm_tpu/boosting/gbdt.py: boost-from-average, bagging
+through `np.random.RandomState` (the same draws as JAX), K trees per
+iteration (one per class, K = the objective's trees per iteration) with
+the scores updated on the device, the degenerate-class bookkeeping of
+multiclass labels, objectives and metrics initialised with the query
+metadata, eval, rollback, early stopping, continued training (a loaded
+model replayed onto the training scores), checkpoint/resume, host
+prediction (values and leaf indices), and the LightGBM text model and
+JSON dump.
+
+An iteration takes one of the JAX package's two paths (`_can_pipeline`):
+- the device-tree path, for class GBDT with one tree an iteration, the
+  rounds learner and no gradients passed in: the rounds learner returns
+  device tree arrays, the training rows add by leaf id, valid sets walk
+  the device tree arrays over their dense store or their sparse ELL
+  rows, and leaf values are shrunk in f32 on the device (the JAX
+  package's pipelined path, here with the tree fetched in the same
+  iteration);
+- the synchronous path otherwise (the exact learner, K > 1, a custom
+  objective's gradients, GOSS, DART): each class tree comes to the host,
+  is shrunk there in f64, and adds to score row k of the training rows
+  by leaf id (by walking the training store when the exact learner's bag
+  left rows out) and of each valid set by walking the tree.
+Either walk reads an EFB-bundled store through its feature table.  The
+JAX package's checkpoint telemetry span and fault-injection hooks belong
+to observability (ROADMAP.md §A item 15) and are not here.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import io
+import json
+import os
 import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import log
 from ..config import Config, default_metric_for_objective
 from ..dataset import Dataset
 from ..learner.fused import create_tree_learner, tree_arrays_to_host
+from ..log import LightGBMError
 from ..metrics import Metric, create_metric
 from ..objectives import Objective, create_objective, \
     objective_from_model_string
 from ..tree import NUMERICAL_DECISION, Tree
 from .score_updater import ScoreUpdater, shrink_clip_leaves
+
+
+CHECKPOINT_VERSION = 1
+
+# fields that may differ between the run that wrote a checkpoint and the
+# run resuming it (paths, logging, the resume machinery, serving and
+# observability knobs); every other field is part of the fingerprint:
+# resuming under another training recipe is an error, not a merge
+_FINGERPRINT_EXCLUDE = frozenset({
+    "task", "verbose", "num_threads", "num_iterations", "input_model",
+    "output_model", "output_result", "config_file", "output_freq",
+    "checkpoint_path", "checkpoint_interval",
+    "serve_host", "serve_port", "max_batch_rows", "flush_deadline_ms",
+    "model_poll_seconds", "min_bucket_rows", "serve_replicas",
+    "max_pending_rows", "serve_request_timeout_ms",
+    "replica_failure_threshold",
+    "refit_decay_rate", "refit_min_rows", "online_trigger_rows",
+    "online_mode",
+    "telemetry_path", "metrics_port",
+})
+
+
+def config_fingerprint(config: Config) -> str:
+    """Stable digest of every training-relevant Config field."""
+    d = dataclasses.asdict(config)
+    items = sorted((k, repr(v)) for k, v in d.items()
+                   if k not in _FINGERPRINT_EXCLUDE)
+    return hashlib.sha1(repr(items).encode()).hexdigest()
+
+
+def _rng_state_to_json(rng: np.random.RandomState) -> Dict:
+    kind, keys, pos, has_gauss, cached = rng.get_state()
+    return {"kind": kind, "keys": np.asarray(keys).tolist(), "pos": int(pos),
+            "has_gauss": int(has_gauss), "cached": float(cached)}
+
+
+def _rng_state_from_json(d: Dict) -> Tuple:
+    return (str(d["kind"]), np.asarray(d["keys"], np.uint32), int(d["pos"]),
+            int(d["has_gauss"]), float(d["cached"]))
+
+
+def load_checkpoint(path: str) -> Optional[Dict]:
+    """Parse a training checkpoint; None when absent or unreadable.  A
+    torn or corrupt checkpoint (a crash's leftover) logs a warning and
+    the run starts from scratch, as if there were none."""
+    try:
+        with open(path) as f:
+            state = json.load(f)
+    except FileNotFoundError:
+        return None
+    except OSError as e:
+        # an existing but unreadable checkpoint must not pass for "no
+        # checkpoint" without a word
+        log.warning(f"could not read checkpoint {path} "
+                    f"({type(e).__name__}: {e}); starting fresh")
+        return None
+    except ValueError as e:
+        log.warning(f"ignoring unreadable checkpoint {path} "
+                    f"({type(e).__name__}: {e}); starting fresh")
+        return None
+    if (not isinstance(state, dict)
+            or state.get("version") != CHECKPOINT_VERSION
+            or "model" not in state):
+        version = state.get("version") if isinstance(state, dict) else "?"
+        log.warning(f"ignoring incompatible checkpoint {path} "
+                    f"(version {version}); starting fresh")
+        return None
+    return state
 
 
 def resolve_device(config: Config) -> torch.device:
@@ -72,6 +154,11 @@ class GBDT:
         self.max_feature_idx = 0
         # device->host reads per grown tree (round loop + tree fetch)
         self.host_syncs_per_tree: List[int] = []
+        self._early_stopping_state: Dict = {}
+        # a resumed run replays its trees one at a time ("walk"), in
+        # training's order, so its scores are bitwise those of the
+        # uninterrupted run
+        self._replay_kernel: Optional[str] = None
         if train_set is not None:
             self.reset_training_data(train_set, objective)
 
@@ -97,16 +184,23 @@ class GBDT:
         self.objective.init(train_set.metadata, self.num_data, self.device)
         self.K = self.objective.num_tree_per_iteration
         self.learner = create_tree_learner(train_set, cfg)
-        # the exact learner's store, walked in bagged iterations; the
-        # rounds learner adds by leaf id only
+        # the learner's store, resolved when a tree is first walked over
+        # the training rows (bagged exact-learner iterations, DART,
+        # rollback, the replay below)
+        learner = self.learner
         self.train_score = ScoreUpdater(
-            getattr(self.learner, "walk_bins", None), self.num_data, self.K,
+            lambda: learner.walk_bins, self.num_data, self.K,
             self.device, train_set.metadata.init_score,
             feat_tbl=train_set.bundle_feat_table())
+        # continued training: replay the loaded model onto the fresh
+        # training scores (loaded trees first get in-bin thresholds for
+        # this dataset's mappers)
+        for t in self.models:
+            t.rebin_to_dataset(train_set)
         if self.models:
-            raise NotImplementedError(
-                "continued training from a loaded model is not ported yet "
-                "(ROADMAP.md §A item 7)")
+            self.train_score.add_trees(self.models, self.K,
+                                       self._replay_kernel
+                                       or cfg.predict_kernel)
         self.feature_names = list(train_set.feature_names)
         self.feature_infos = train_set.feature_infos()
         self.max_feature_idx = train_set.num_total_features - 1
@@ -142,8 +236,11 @@ class GBDT:
         su = ScoreUpdater(bins_fn, valid_set.num_data, self.K, self.device,
                           valid_set.metadata.init_score,
                           feat_tbl=valid_set.bundle_feat_table())
-        for i, t in enumerate(self.models):
-            su.add_tree(t, i % self.K)
+        for t in self.models:
+            t.rebin_to_dataset(valid_set)
+        if self.models:
+            su.add_trees(self.models, self.K,
+                         self._replay_kernel or self.config.predict_kernel)
         self.valid_sets.append((name, valid_set, su,
                                 self._metrics_for(valid_set)))
 
@@ -183,19 +280,37 @@ class GBDT:
         self.bag_idx = torch.as_tensor(padded, device=self.device)
         self.bag_cnt = cnt
 
-    def train_one_iter(self) -> bool:
-        """One boosting iteration.  Returns True when training should stop
-        (no splittable leaves)."""
+    def boosting_gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.objective.get_gradients(self.train_score.score)
+
+    def _can_pipeline(self) -> bool:
+        """The device-tree path: class GBDT (GOSS passes its sampled
+        gradients in, DART walks its drops), one tree an iteration, the
+        rounds learner."""
+        return (type(self) is GBDT and self.K == 1
+                and hasattr(self.learner, "train_device"))
+
+    def train_one_iter(self, gradient: Optional[torch.Tensor] = None,
+                       hessian: Optional[torch.Tensor] = None,
+                       is_eval: bool = False) -> bool:
+        """One boosting iteration on the objective's gradients, or on
+        `gradient`/`hessian` ([K, N] float32 on the device) when given.
+        Returns True when training should stop (no splittable leaves, or
+        early stopping when `is_eval`)."""
+        device_path = (gradient is None and hessian is None
+                       and self._can_pipeline())
         self._boost_from_average()
-        gradient, hessian = self.objective.get_gradients(
-            self.train_score.score)
+        if gradient is None or hessian is None:
+            gradient, hessian = self.boosting_gradients()
         self._bagging(self.iter_)
         bag = (self.bag_idx
                if self.need_bagging and self.bag_cnt < self.num_data
                else None)
-        if self.K == 1 and hasattr(self.learner, "train_device"):
-            return self._train_device_tree(gradient.reshape(-1),
-                                           hessian.reshape(-1), bag)
+        if device_path:
+            if self._train_device_tree(gradient.reshape(-1),
+                                       hessian.reshape(-1), bag):
+                return True
+            return self.eval_and_check_early_stopping() if is_eval else False
         should_continue = False
         for k in range(self.K):
             if self.class_need_train[k]:
@@ -219,7 +334,22 @@ class GBDT:
             del self.models[-self.K:]
             return True
         self.iter_ += 1
-        return False
+        return self.eval_and_check_early_stopping() if is_eval else False
+
+    def rollback_one_iter(self) -> None:
+        """Take the last iteration's trees back off the training and
+        valid scores (each walked with its leaf values negated) and out of
+        the model."""
+        if self.iter_ <= 0:
+            return
+        for k in range(self.K):
+            tree = self.models[-self.K + k]
+            tree.apply_shrinkage(-1.0)
+            self.train_score.add_tree(tree, k)
+            for _, _, su, _ in self.valid_sets:
+                su.add_tree(tree, k)
+        del self.models[-self.K:]
+        self.iter_ -= 1
 
     def _train_device_tree(self, gradient: torch.Tensor,
                            hessian: torch.Tensor,
@@ -305,6 +435,31 @@ class GBDT:
             self._eval_one_set(name, su, ms, out)
         return self._materialize(out)
 
+    def eval_and_check_early_stopping(self, results=None) -> bool:
+        """Early stopping over the valid metrics (gbdt.cpp:472-578): stop
+        when none improved for early_stopping_round iterations, and drop
+        the trees after the best one.  `results` spares a second metric
+        pass to a caller that evaluated already."""
+        esr = self.config.early_stopping_round
+        if esr <= 0:
+            return False
+        res = self.eval_valid() if results is None else results
+        if not res:
+            return False
+        st = self._early_stopping_state
+        for name, metric, value, bigger_better in res:
+            key = (name, metric)
+            cmp = value if bigger_better else -value
+            if key not in st or cmp > st[key][0]:
+                st[key] = (cmp, self.iter_)
+        best_iter = max(v[1] for v in st.values())
+        if self.iter_ - best_iter >= esr:
+            n_drop = (self.iter_ - best_iter) * self.K
+            del self.models[-n_drop:]
+            self.iter_ = best_iter
+            return True
+        return False
+
     # ------------------------------------------------------------------
     @property
     def num_trees(self) -> int:
@@ -338,6 +493,18 @@ class GBDT:
         if self.objective is not None:
             return self.objective.convert_output(raw)
         return raw
+
+    def predict_leaf_index(self, X: np.ndarray, num_iteration: int = -1
+                           ) -> np.ndarray:
+        """Leaf index per (row, model): [N, num_models] int32, by the host
+        walk of each tree (exact f64 compares).  The device leaf
+        predictor is a later slice (ROADMAP.md §A item 8)."""
+        X = np.ascontiguousarray(np.asarray(X, np.float64))
+        used = self._num_used_models(num_iteration)
+        if used == 0:
+            return np.zeros((X.shape[0], 0), np.int32)
+        return np.stack([self.models[i].predict_leaf_index(X)
+                         for i in range(used)], axis=1)
 
     # ------------------------------------------------------------------
     def feature_importance(self, importance_type: str = "split"
@@ -436,3 +603,132 @@ class GBDT:
         self.num_init_iteration = ((len(self.models) - extra)
                                    // max(self.K, 1))
         self.iter_ = 0
+
+    def to_json(self) -> Dict:
+        """DumpModel (gbdt.cpp:658-692): name, num_class,
+        num_tree_per_iteration, label_index, max_feature_idx,
+        feature_names and tree_info with a tree_index per entry; the
+        per-tree fields of Tree.to_json.  `objective` is an extension (a
+        reload needs it)."""
+        return {
+            "name": self.sub_model_name(),
+            "num_class": self.num_class,
+            "num_tree_per_iteration": self.K,
+            "label_index": self.label_idx,
+            "max_feature_idx": self.max_feature_idx,
+            "objective": self.objective.to_string() if self.objective else "",
+            "feature_names": self.feature_names,
+            "tree_info": [dict(tree_index=i, **t.to_json())
+                          for i, t in enumerate(self.models)],
+        }
+
+    # -- checkpoint / resume --------------------------------------------
+
+    def _extra_training_state(self) -> Dict:
+        """Subclass hook: sampler state beyond the base GBDT's (the GOSS
+        key, DART's drop RNG and tree weights)."""
+        return {}
+
+    def _restore_extra_training_state(self, state: Dict) -> None:
+        pass
+
+    def training_state(self) -> Dict:
+        """Everything a resumed run needs to go on bitwise where this one
+        stands: the model text, the iteration counters, the early-stopping
+        bests and the exact state of the sampler's RNG (a re-seeded RNG
+        would draw the first bags again and fork the run)."""
+        state = {
+            "version": CHECKPOINT_VERSION,
+            "fingerprint": config_fingerprint(self.config),
+            "boosting": self.sub_model_name(),
+            "iteration": self.iter_,
+            "num_init_iteration": self.num_init_iteration,
+            "shrinkage_rate": self.shrinkage_rate,
+            "early_stopping": [
+                [name, metric, cmp, it]
+                for (name, metric), (cmp, it)
+                in self._early_stopping_state.items()],
+            "bag_rng": _rng_state_to_json(self.bag_rng),
+            "model": self.save_model_to_string(),
+        }
+        state.update(self._extra_training_state())
+        return state
+
+    def save_checkpoint(self, path: str,
+                        extra: Optional[Dict] = None) -> None:
+        """Write the training state atomically (a temporary file, then
+        os.replace), so that a crash while writing leaves the previous
+        checkpoint whole.  `extra` rides along in the state (the engine
+        records a `finished` marker, so a rerun of a finished call trains
+        nothing).  The JAX package's telemetry span and fault-injection
+        seams are observability's (ROADMAP.md §A item 15)."""
+        state = self.training_state()
+        if extra:
+            state.update(extra)
+        payload = json.dumps(state)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(payload)
+        os.replace(tmp, path)
+        log.debug(f"checkpoint saved to {path} (iteration {self.iter_}, "
+                  f"{len(self.models)} trees)")
+
+    def restore_training_state(self, state: Dict) -> None:
+        """Apply a checkpoint's counters and RNG state, after
+        load_model_from_string(state["model"]) and reset_training_data
+        (whose replay restores the training and valid scores)."""
+        if state.get("fingerprint") != config_fingerprint(self.config):
+            raise LightGBMError(
+                "checkpoint was written under a different training "
+                "config (fingerprint mismatch); resuming would silently "
+                "mix recipes: delete the checkpoint to start fresh, or "
+                "restore the original parameters")
+        if state.get("boosting") != self.sub_model_name():
+            raise LightGBMError(
+                f"checkpoint holds a {state.get('boosting')!r} model, "
+                f"this run is {self.sub_model_name()!r}")
+        self.iter_ = int(state["iteration"])
+        self.num_init_iteration = int(state.get("num_init_iteration", 0))
+        self.shrinkage_rate = float(state["shrinkage_rate"])
+        self._early_stopping_state = {
+            (name, metric): (float(cmp), int(it))
+            for name, metric, cmp, it in state.get("early_stopping", [])}
+        if state.get("bag_rng"):
+            self.bag_rng.set_state(_rng_state_from_json(state["bag_rng"]))
+        self._restore_extra_training_state(state)
+
+    def resume_from_checkpoint(self, state: Dict, train_set: Dataset,
+                               objective: Optional[Objective] = None) -> int:
+        """Load the checkpoint's model, replay it onto fresh training
+        scores one tree at a time, and restore the counters and RNG
+        state.  Returns the iteration to go on from.  Valid sets added
+        after this call replay the restored model (add_valid does)."""
+        self.load_model_from_string(state["model"])
+        self._replay_kernel = "walk"
+        self.reset_training_data(train_set, objective)
+        self.restore_training_state(state)
+        return self.iter_
+
+
+def create_boosting(config: Config, model_file: str = "",
+                    model_str: Optional[str] = None) -> GBDT:
+    """Factory (boosting.cpp:29-71): gbdt | dart | goss.  A model (a file
+    or a string) names its boosting type on its first line, which wins
+    over the Config's; the model is then loaded."""
+    from .dart import DART
+    from .goss import GOSS
+    table = {"gbdt": GBDT, "tree": GBDT, "dart": DART, "goss": GOSS}
+    btype = config.boosting_type
+    if model_file:
+        with open(model_file) as f:
+            model_str = f.read()
+    if model_str:
+        first = model_str.split("\n", 1)[0].strip()
+        if first in table:
+            btype = first
+    if btype not in table:
+        raise ValueError(f"unknown boosting type: {btype}")
+    gbdt = table[btype](config)
+    if model_str:
+        gbdt.load_model_from_string(model_str)
+    return gbdt

@@ -10,8 +10,12 @@ probe the row's stored entries (ops/predict.sparse_bin_lookup) so the
 store never densifies.  Over an EFB-bundled store the walk maps each
 node's original feature to its store column and recovers the original
 bin from the packed slot (`feat_tbl`).  The training set adds by leaf
-id, and walks its own store only in bagged iterations of the exact
-learner.
+id, and walks its learner's store (resolved on the first walk) where a
+tree has no leaf ids for it: bagged iterations of the exact learner,
+DART's drops and renormalization, rollback, and the replay of a resumed
+or continued model (`add_trees`, one tree at a time in training's
+order, so a resumed run's scores are bitwise those of the uninterrupted
+one).
 """
 from __future__ import annotations
 
@@ -119,11 +123,12 @@ class ScoreUpdater:
                  K: int, device: torch.device,
                  init_score: Optional[np.ndarray] = None,
                  feat_tbl: Optional[np.ndarray] = None):
-        # bins_fn: [C, N] int32 store or the sparse (cols, bins,
-        # zero_bin) triple on `device` (None for a training set that
-        # only adds by leaf id); feat_tbl: the [5, F] bundle walk table
-        # of an EFB store, None for the per-feature layout
-        self.bins_fn = bins_fn
+        # bins_fn: the [C, N] store (int32, or the rounds learner's int8
+        # bytes) or the sparse (cols, bins, zero_bin) triple on `device`,
+        # or a function returning one, called on the first walk (the
+        # training set's learner store); feat_tbl: the [5, F] bundle
+        # walk table of an EFB store, None for the per-feature layout
+        self._bins_src = bins_fn
         self.feat_tbl = (None if feat_tbl is None else
                          torch.as_tensor(feat_tbl, dtype=torch.float32,
                                          device=device))
@@ -141,6 +146,13 @@ class ScoreUpdater:
             else:
                 raise ValueError("init score size mismatch")
         self.score = torch.as_tensor(score, device=device)
+
+    @property
+    def bins_fn(self):
+        """The store the walk reads, resolved on first use."""
+        if callable(self._bins_src):
+            self._bins_src = self._bins_src()
+        return self._bins_src
 
     def add_constant(self, val: float, tree_id: int) -> None:
         self.score[tree_id] += torch.tensor(np.float32(val),
@@ -161,6 +173,26 @@ class ScoreUpdater:
             tree.leaf_value[: tree.max_leaves].astype(np.float32)
             * np.float32(scale), device=self.device)
         _add_leaf_to_row(self.score, leaf_idx, lv, tree_id)
+
+    def add_trees(self, trees, K: int, kernel: str = "auto") -> None:
+        """Replay a whole model onto the scores (a valid set added to a
+        trained model, a continued or resumed run): tree i adds to score
+        row i % K, one walk a tree in the model's order, as training
+        added them.  The JAX package's tensorized replay (one ensemble
+        traversal) needs the ensemble predictors; `auto` and `walk` take
+        the walk until they are ported."""
+        if kernel == "tensorized":
+            raise NotImplementedError(
+                "predict_kernel=tensorized replay needs the ensemble "
+                "predictors, not ported yet (ROADMAP.md §A item 8); use "
+                "predict_kernel=walk or auto")
+        for i, t in enumerate(trees):
+            self.add_tree(t, i % K)
+
+    def get(self) -> np.ndarray:
+        """The [K, N] scores on the host, in float64 (what a custom
+        objective and a custom metric read)."""
+        return self.score.cpu().numpy().astype(np.float64)
 
     def add_tree_arrays_dev(self, arrs, leaf_values: torch.Tensor,
                             tree_id: int, num_leaves: int,

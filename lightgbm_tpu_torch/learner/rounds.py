@@ -479,6 +479,14 @@ class RoundsTreeLearner:
                         input_dtype=getattr(cfg, "histogram_dtype",
                                             "float32"))
 
+    @property
+    def walk_bins(self):
+        """The store a tree walks over the training rows (DART's drops,
+        rollback, the replay of a resumed or continued model): the [F, N]
+        store the partition reads (int8 bytes holding value - 128 up to
+        256 bins, int32 past that), or the sparse ELL triple; no copy."""
+        return self.bins_dev[:3] if self.sparse else self.bins_dev
+
     def _feature_mask(self) -> torch.Tensor:
         frac = self.config.feature_fraction
         if frac >= 1.0:

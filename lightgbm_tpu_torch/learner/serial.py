@@ -136,7 +136,8 @@ class SerialTreeLearner:
     @property
     def walk_bins(self) -> torch.Tensor:
         """The [C, N] store on the device, for walking trees over the
-        training rows (the score update of bagged iterations)."""
+        training rows (the score update of bagged iterations, DART's
+        drops, rollback and the replay of a resumed model)."""
         return self.bins[:, :self.N]
 
     def _feature_mask(self) -> torch.Tensor:

@@ -79,10 +79,14 @@ def table_lookup(tables: torch.Tensor, ids: torch.Tensor, *,
 def select_bin_by_feature(bins_fn: torch.Tensor,
                           fi: torch.Tensor) -> torch.Tensor:
     """Per-row bin of that row's feature: bins_fn [F, N] int, fi [N] int
-    -> [N] int32 (rows whose fi names no feature yield 0)."""
+    -> [N] int32 (rows whose fi names no feature yield 0).  An int8 store
+    holds value - 128 (the rounds learner's byte store)."""
     F = bins_fn.shape[0]
     ok = (fi >= 0) & (fi < F)
-    v = bins_fn.gather(0, fi.clamp(0, F - 1).long()[None, :])[0]
-    return torch.where(ok, v.to(torch.int32),
+    v = bins_fn.gather(0, fi.clamp(0, F - 1).long()[None, :])[0].to(
+        torch.int32)
+    if bins_fn.dtype == torch.int8:
+        v = v + 128
+    return torch.where(ok, v,
                        torch.zeros((), dtype=torch.int32,
                                    device=bins_fn.device))

@@ -1,7 +1,7 @@
 """Where the time of a boosting iteration goes, on the GPU.
 
     python -m lightgbm_tpu_torch.trace_main
-        [--workload higgs|ctr|onehot|regression|multiclass]
+        [--workload higgs|ctr|onehot|regression|multiclass|goss|dart]
         [--histogram-dtype int8|float32] [--rows N] [--trace PATH]
 
 Trains a configuration that chip_smoke.py runs — the north-star one
@@ -16,9 +16,14 @@ leaf-wise learner, a valid set of N/10 rows scored with AUC), or with
 `--workload regression|multiclass` chip_smoke.py's phase-13 ones (the
 north-star rows with synth_higgs's labeling function left unthresholded
 as an L2 target, or cut at its 20/40/60/80% quantiles into 5 classes,
-K = 5 trees an iteration; l2 / multi_logloss on N/10 valid rows) — for 2
-warm-up iterations, then traces 3 more with torch.profiler
-(CPU and CUDA activities).  Prints one JSON line: wall seconds per
+K = 5 trees an iteration; l2 / multi_logloss on N/10 valid rows), or
+with `--workload goss|dart` chip_smoke.py's phase-14 ones (the
+north-star configuration with boosting=goss, top_rate 0.2, other_rate
+0.1, or boosting=dart, drop_rate 0.1) — for 2 warm-up iterations (goss:
+10, its sampling warm-up at lr 0.1, so the traced iterations are
+sampled; dart: 5, so each traced iteration drops trees: drop_seed's
+draws drop 2, 1 and 1 trees in iterations 6-8), then traces 3 more with
+torch.profiler (CPU and CUDA activities).  Prints one JSON line: wall seconds per
 traced iteration, device busy seconds (union of the kernel intervals)
 and the idle share, kernel launches per iteration, the device time of
 this package's kernels and of everything else, and the top device
@@ -36,6 +41,11 @@ import torch
 
 TRACED = 3
 WARMUP = 2
+# the boosting variants of phase 14, and their warm-ups (see above)
+BOOSTING = {"goss": {"boosting": "goss", "top_rate": 0.2,
+                     "other_rate": 0.1},
+            "dart": {"boosting": "dart", "drop_rate": 0.1}}
+WARMUPS = {"goss": 10, "dart": 5}
 # the kernel symbols of csrc/, by the name chip_smoke.py reports
 OWN_KERNELS = {"hist_q_kernel": "hist_masked_int8 (K1)",
                "hist_owned_kernel": "hist_masked_f32 (K2)",
@@ -62,7 +72,8 @@ def _union_us(intervals) -> float:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", choices=("higgs", "ctr", "onehot",
-                                           "regression", "multiclass"),
+                                           "regression", "multiclass",
+                                           "goss", "dart"),
                     default="higgs")
     ap.add_argument("--histogram-dtype", choices=("int8", "float32"),
                     default="int8",
@@ -115,14 +126,15 @@ def main(argv=None) -> None:
     else:
         args.rows = args.rows or 2_000_000
         params = dict(synth.NORTH_STAR_PARAMS,
-                      histogram_dtype=args.histogram_dtype)
+                      histogram_dtype=args.histogram_dtype,
+                      **BOOSTING.get(args.workload, {}))
         X, y = synth.synth_higgs(args.rows)
         Xv, yv = synth.synth_higgs(args.rows // 10, seed=7)
         ds = lt.Dataset(X, y, params=params)
         vs = lt.Dataset(Xv, yv, reference=ds, params=params)
     bst = lt.Booster(params=params, train_set=ds)
     bst.add_valid(vs, "valid")
-    for _ in range(WARMUP):
+    for _ in range(WARMUPS.get(args.workload, WARMUP)):
         bst.update()
         bst.eval_valid()
     torch.cuda.synchronize()
@@ -161,6 +173,7 @@ def main(argv=None) -> None:
         "kernel_launches_per_iter": len(kernels) / TRACED,
         "own_kernels_s_per_iter": {k: v / TRACED for k, v in own.items()},
         "other_kernels_s_per_iter": other / TRACED,
+        "boosting": type(bst._gbdt).__name__,
         "trees_per_iteration": bst._gbdt.K,
         "host_syncs_per_tree": bst._gbdt.host_syncs_per_tree[-1],
         "top_device": [[a.key[:80], a.self_device_time_total * 1e-6 / TRACED,

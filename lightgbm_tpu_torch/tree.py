@@ -249,4 +249,84 @@ class Tree:
                     stack.append((int(child), d + 1))
                 else:
                     t.leaf_depth[~child] = d + 1
+        t.needs_rebin = True
         return t
+
+    def rebin_to_dataset(self, dataset) -> None:
+        """In-bin thresholds and inner feature indices for a tree loaded
+        from model text, which stores only real feature ids and
+        real-valued thresholds (tree.cpp:295+), before the binned walk
+        replays it onto `dataset`.  Saved thresholds are bin upper bounds,
+        so value_to_bin recovers the original bin exactly.
+
+        Only loaded trees rebin (trees grown in this process carry in-bin
+        data for the training mappers, which validation sets share); given
+        another dataset, a loaded tree rebins again from its real-valued
+        thresholds."""
+        if not getattr(self, "needs_rebin", False):
+            return
+        if getattr(self, "_rebin_dataset", None) is dataset:
+            return
+        # the binned walk may need another decision op than the raw one
+        # (the trivial-feature sentinels below); raw predict keeps
+        # decision_type, the binned walk reads this override
+        self.binned_decision_type = self.decision_type.copy()
+        for node in range(self.num_leaves - 1):
+            real = int(self.split_feature[node])
+            inner = dataset.real_to_inner(real)
+            mapper = dataset.mappers[real]
+            if inner >= 0:
+                self.split_feature_inner[node] = inner
+                self.threshold_in_bin[node] = int(mapper.value_to_bin(
+                    np.array([self.threshold[node]]))[0])
+                self.binned_decision_type[node] = self.decision_type[node]
+            else:
+                # a feature filtered as trivial in this dataset: every row
+                # has the same value, so the comparison has one outcome,
+                # encoded as an always-left (huge bin) or always-right (-1)
+                # numerical test on feature 0 (bins are never negative)
+                c = mapper.bin_to_value(0)
+                if self.decision_type[node] == CATEGORICAL_DECISION:
+                    left = c == self.threshold[node]
+                else:
+                    left = c <= self.threshold[node]
+                self.split_feature_inner[node] = 0
+                self.threshold_in_bin[node] = (1 << 30) if left else -1
+                self.binned_decision_type[node] = NUMERICAL_DECISION
+        self._rebin_dataset = dataset
+        self._device_cache = None
+
+    def to_json(self) -> Dict:
+        """Tree::ToJSON (tree.cpp:326-365), for Booster.dump_model."""
+        def node_json(index: int) -> Dict:
+            if index >= 0:
+                return {
+                    "split_index": int(index),
+                    "split_feature": int(self.split_feature[index]),
+                    "split_gain": float(self.split_gain[index]),
+                    "threshold": float(self.threshold[index]),
+                    # reference names (tree.h GetDecisionTypeName):
+                    # numerical "no_greater", categorical "is"
+                    "decision_type": ("is" if self.decision_type[index] == 1
+                                      else "no_greater"),
+                    "internal_value": float(self.internal_value[index]),
+                    "internal_count": int(self.internal_count[index]),
+                    "left_child": node_json(int(self.left_child[index])),
+                    "right_child": node_json(int(self.right_child[index])),
+                }
+            leaf = ~index
+            return {
+                "leaf_index": int(leaf),
+                "leaf_parent": int(self.leaf_parent[leaf]),
+                "leaf_value": float(self.leaf_value[leaf]),
+                "leaf_count": int(self.leaf_count[leaf]),
+            }
+
+        return {
+            "num_leaves": int(self.num_leaves),
+            "shrinkage": float(self.shrinkage),
+            "has_categorical": 1 if self.has_categorical else 0,
+            "tree_structure": node_json(0) if self.num_leaves > 1 else {
+                "leaf_index": 0, "leaf_value": float(self.leaf_value[0]),
+                "leaf_parent": -1, "leaf_count": int(self.leaf_count[0])},
+        }

@@ -102,7 +102,7 @@ def main() -> None:
     t_start = time.perf_counter()
     bst = lt.train(params, train, ITERS, valid_sets=[test],
                    valid_names=["test"], evals_result=res,
-                   callbacks=[progress])
+                   callbacks=[progress], verbose_eval=False)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t_start
     aucs = res["test"]["auc"]

@@ -52,26 +52,42 @@ def _same_evals(res_t, res_j):
                                        atol=1e-6)
 
 
-@pytest.mark.parametrize("boosting", ["goss", "dart"])
-def test_unported_boosting_type_raises(probe, boosting):
-    """Fault 2 (ROADMAP.md §C): goss and dart used to train plain GBDT
-    without a word; until they are ported they are refused, from the
-    parameters and from a model string's first line."""
+@pytest.mark.parametrize("boosting", ["goss", "dart", "bogus"])
+def test_boosting_type_from_params_and_model_string(probe, boosting):
+    """Fault 2 (ROADMAP.md §C): goss and dart once trained plain GBDT
+    without a word, then were refused until they were ported.  Now each
+    trains as its own type from the parameters and loads as that type
+    from a model string's first line, as the JAX package's
+    `create_boosting` picks it; an unknown type raises ValueError, from
+    the parameters and from a model string."""
     X, y, _, _ = probe
     params = dict(PARAMS, device_type="cpu", boosting=boosting)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.train(params, lt.Dataset(X, y, params=params), 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.Booster(params=params, train_set=lt.Dataset(X, y, params=params))
-    # a model string keeps its boosting type on its first line (the JAX
-    # package writes it for goss and dart); "tree" still loads
-    bst = lt.train(dict(PARAMS, device_type="cpu"),
-                   lt.Dataset(X, y, params=PARAMS), 2)
+    if boosting == "bogus":
+        with pytest.raises(ValueError, match="unknown boosting type"):
+            lt.train(params, lt.Dataset(X, y, params=params), 2,
+                     verbose_eval=False)
+        with pytest.raises(ValueError, match="unknown boosting type"):
+            lj.train(dict(PARAMS, boosting=boosting),
+                     lj.Dataset(X, y, params=PARAMS), 2, verbose_eval=False)
+        return
+    name = boosting.upper()
+    bst = lt.train(params, lt.Dataset(X, y, params=params), 2,
+                   verbose_eval=False)
+    assert type(bst._gbdt).__name__ == name
+    jb = lj.train(dict(PARAMS, boosting=boosting),
+                  lj.Dataset(X, y, params=PARAMS), 2, verbose_eval=False)
+    assert type(jb._gbdt).__name__ == name
     text = bst.model_to_string()
-    assert text.split("\n", 1)[0] == "tree"
-    lt.Booster(model_str=text)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.Booster(model_str=boosting + "\n" + text.split("\n", 1)[1])
+    assert text.split("\n", 1)[0] == boosting
+    # plain parameters: the model's first line decides the type
+    loaded = lt.Booster(model_str=text)
+    assert type(loaded._gbdt).__name__ == name
+    np.testing.assert_array_equal(loaded.predict(X), bst.predict(X))
+    gbdt_text = lt.train(dict(PARAMS, device_type="cpu"),
+                         lt.Dataset(X, y, params=PARAMS), 2,
+                         verbose_eval=False).model_to_string()
+    assert gbdt_text.split("\n", 1)[0] == "tree"
+    assert type(lt.Booster(model_str=gbdt_text)._gbdt).__name__ == "GBDT"
 
 
 @pytest.mark.parametrize("via", ["valid_sets", "is_training_metric"])

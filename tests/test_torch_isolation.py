@@ -11,8 +11,9 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# imports every module of the port (found by walking the package) and
-# chip_smoke.py, then names any JAX or JAX-package module loaded
+# imports every module of the port (found by walking the package: the
+# sklearn wrappers and the callback library too) and chip_smoke.py, then
+# names any JAX or JAX-package module loaded
 _PROBE = """
 import importlib, pkgutil, sys
 import lightgbm_tpu_torch
@@ -37,6 +38,15 @@ def _run(code, **env):
 
 def test_import_loads_no_jax():
     r = _run(_PROBE)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == ""
+
+
+def test_import_without_sklearn_loads_no_jax():
+    """The GPU host has no scikit-learn (and no pandas): the port, its
+    sklearn module included, imports there, and still loads no JAX."""
+    r = _run('import sys\nsys.modules["sklearn"] = None\n'
+             'sys.modules["pandas"] = None\n' + _PROBE)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == ""
 
