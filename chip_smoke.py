@@ -2,7 +2,10 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line).  Where a
+phase holds device scores against Booster.predict(raw_score=True), that
+call is the host f64 walk of every tree (LIGHTGBM_TPU_DEVICE_PREDICT=0,
+`host_walk`), a reference independent of the device predictors:
 
 1. build   — compile every CUDA kernel of lightgbm_tpu_torch/csrc/ (one
              nvcc per source, in parallel) and print the seconds taken.
@@ -181,10 +184,50 @@ Phases (any failure exits non-zero and prints no result line):
              iterations, stopped at 6 and resumed to 10 equals the
              uninterrupted run's.  Continuation from that model's file
              (init_model, 5 more iterations: 15, valid AUC no lower than
-             at 10), then two rollbacks: training and valid scores
-             within 1e-5 of a fresh replay of the trees left.  Early
-             stopping (early_stopping_rounds=3, lr 0.5, 30 rounds):
+             at 10).  Its init score (the init model's raw predictions
+             on the training rows, past the work gate the device walk)
+             must equal the init model's own Booster.predict bitwise and
+             lie within T * 2^-23 * sum|leaf| of the host walk with every
+             value and threshold rounded to f32 (the device's compares) on
+             every row; the rows more than 1e-5 off the f64 host walk are
+             counted.  Then two rollbacks: the training scores within
+             1e-5 of that init score plus a fresh replay of the trees
+             after it, the valid scores within 1e-5 of a fresh replay of
+             the trees left; the training scores' gap to a binned replay
+             of every tree (bin routing, as the f64 walk) is printed.
+             Early stopping (early_stopping_rounds=3, lr 0.5, 30 rounds):
              best_iteration printed.
+15. serving — the device predictors and the serving plane at
+             scripts/bench_serve.py's shape (:60-96): a model trained on
+             the card on RandomState(0).rand(20_000, 28) with a linear
+             label at its median (binary, 63 leaves, max_depth 8,
+             min_data_in_leaf 20, 500 iterations; a second of 100 on
+             RandomState(1)), written with its .refbin to a temporary
+             directory (lightgbm_tpu_torch.synth.train_serve_model).
+             predict_ensemble_any on the card (perfect layout) against the
+             same call on the CPU over RandomState(1).rand(200_000, 28),
+             and phase 3's booster (255 leaves) over its valid set: leaf
+             indices bitwise, raw scores within T * 2^-23 * sum|leaf|;
+             phase 3's card scores also within that bound of the host walk
+             on f32-rounded values and thresholds on every row (else
+             fail), and the rows more than 1e-5 off the f64 host walk
+             counted.
+             Booster.predict rows/s on the 200,000 rows, tensorized and
+             walk; phase 3's booster replayed onto its training store with
+             add_trees, tensorized against the walk (within the bound),
+             both timed.  Then a PredictionServer (ModelRegistry, one
+             replica, warmed at the 64-512-row buckets) on 127.0.0.1:0,
+             serve_quantize=binned from the .refbin, then raw: 8
+             closed-loop clients of 64 rows a request for 10 s; every
+             answer bitwise equal to the card's predict_ensemble_any after
+             the sigmoid, cache_misses unchanged through the loop;
+             p50/p95/p99 ms, requests/s and rows/s printed, and each
+             request buffer's bytes a row.  Two tenants co-stacked
+             (serve_costack): each tenant's answers bitwise equal to its
+             solo runtime on the card.  A hot swap on the raw server: the
+             model file overwritten with the second model and polled; the
+             generation flips, the answers are the second model's bitwise,
+             and cache_misses does not move.
 
 Every kernel's ms is timed by CUDA events around each call, the method
 of earlier versions of this script; it includes the wrapper's host
@@ -209,6 +252,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -255,6 +299,61 @@ GPU = "cuda"
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def host_walk(bst, X, **kw):
+    """Booster.predict through the host f64 walk of every tree, whatever
+    the batch's size (LIGHTGBM_TPU_DEVICE_PREDICT=0)."""
+    old = os.environ.get("LIGHTGBM_TPU_DEVICE_PREDICT")
+    os.environ["LIGHTGBM_TPU_DEVICE_PREDICT"] = "0"
+    try:
+        return bst.predict(X, **kw)
+    finally:
+        if old is None:
+            del os.environ["LIGHTGBM_TPU_DEVICE_PREDICT"]
+        else:
+            os.environ["LIGHTGBM_TPU_DEVICE_PREDICT"] = old
+
+
+def f32_host_walk(lt, bst, X):
+    """The host walk (raw scores) with every feature value and threshold
+    rounded to f32 first: the device walk's compares, made on the host,
+    so its leaves are the device's; only the order of the leaf sums
+    differs (within `tree_bound`)."""
+    twin = lt.Booster(params={"device_type": "cpu", "verbose": -1},
+                      model_str=bst.model_to_string())
+    for t in twin._gbdt.models:
+        t.threshold = t.threshold.astype(np.float32).astype(np.float64)
+    return host_walk(twin, np.asarray(X, np.float32).astype(np.float64),
+                     raw_score=True)
+
+
+def tree_bound(trees) -> float:
+    """T * 2^-23 * sum|leaf| a row (max |leaf| a tree): the f32
+    reordering bound of ops/predict.py."""
+    return len(trees) * 2.0 ** -23 * sum(
+        float(np.abs(t.leaf_value[:t.num_leaves]).max()) for t in trees)
+
+
+def check_device_walk(lt, label, bst, X, dev):
+    """`dev`, bst's raw scores over X from the device walk, against the
+    host: within `tree_bound` of the f32-operand host walk on every row
+    (else fail); the rows more than 1e-5 off the f64 walk (f32 rounding
+    sent them to another leaf) and the largest such gap, printed."""
+    host32 = f32_host_walk(lt, bst, X)
+    host64 = host_walk(bst, X, raw_score=True)
+    bound = tree_bound(bst._gbdt.models)
+    err32 = float(np.abs(dev - host32).max())
+    gap = np.abs(dev - host64)
+    off = int((gap > 1e-5).sum())
+    print(f"[{label}] device walk over {len(X)} rows: max |diff| to the "
+          f"f32-operand host walk {err32:.3e} (bound {bound:.3e}); rows "
+          f"> 1e-5 off the f64 host walk: {off}, largest gap "
+          f"{float(gap.max()):.3e}", flush=True)
+    if not err32 <= bound:
+        fail(f"{label}: the device walk is {err32} off the host walk on "
+             f"f32 operands (bound {bound})")
+    return off
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -1014,7 +1113,7 @@ def drive_ctr(torch, lt, kernels, dataset_mod, params, ds, vs, Xv,
     nd5 = res["valid_0"]["ndcg@5"]
     dev_raw = bst._gbdt.valid_sets[0][2].score[0].double().cpu().numpy()
     t = time.perf_counter()
-    host_raw = bst.predict(Xv, raw_score=True)
+    host_raw = host_walk(bst, Xv, raw_score=True)
     predict_s = time.perf_counter() - t
     st = dict(s_per_iter=(marks[1] - marks[0]) / timed, train_wall_s=wall,
               ndcg={k: [v[0], v[-1]] for k, v in res["valid_0"].items()},
@@ -1104,7 +1203,7 @@ def phase_main(torch, lt, kernels):
         fail(f"valid AUC {st['auc']} is not a trained model's")
     # the host f64 walk of the model against the device-scored valid set
     dev_raw = bst._gbdt.valid_sets[0][2].score[0].double().cpu().numpy()
-    host_raw = bst.predict(Xv, raw_score=True)
+    host_raw = host_walk(bst, Xv, raw_score=True)
     walk_err = float(np.abs(dev_raw - host_raw).max())
     print(f"[main] device valid score vs host walk: max |diff| {walk_err}",
           flush=True)
@@ -1120,7 +1219,7 @@ def phase_main(torch, lt, kernels):
             fail(f"main path (float32) never launched {k}")
     if not (math.isfinite(st32["auc"]) and st32["auc"] > 0.75):
         fail(f"float32 valid AUC {st32['auc']} is not a trained model's")
-    return st, st32, params, ds, vs, Xv
+    return st, st32, params, ds, vs, Xv, bst
 
 
 def tree_sums(per, label):
@@ -1611,7 +1710,8 @@ def drive_onehot(torch, lt, kernels, params, ds, vs, Xv, warmup, timed):
     auc = res["valid_0"]["auc"]
     models = bst._gbdt.models
     dev_raw = bst._gbdt.valid_sets[0][2].score[0].double().cpu().numpy()
-    walk_err = float(np.abs(dev_raw - bst.predict(Xv, raw_score=True)).max())
+    walk_err = float(np.abs(dev_raw - host_walk(bst, Xv,
+                                                raw_score=True)).max())
     st = dict(learner=type(bst._gbdt.learner).__name__,
               s_per_iter=(marks[1] - marks[0]) / timed, train_wall_s=wall,
               auc_first=auc[0], auc_last=auc[-1],
@@ -1808,7 +1908,7 @@ def drive_objective(torch, lt, kernels, params, X, y, Xv, yv, warmup,
     metric = params["metric"]
     vals = res["valid_0"][metric]
     dev = g.valid_sets[0][2].score.double().cpu().numpy()
-    host = bst.predict(Xv, raw_score=True).reshape(len(yv), K).T
+    host = host_walk(bst, Xv, raw_score=True).reshape(len(yv), K).T
     syncs = g.host_syncs_per_tree
     s_iter = (marks[1] - marks[0]) / timed
     return bst, dict(
@@ -2060,7 +2160,7 @@ def phase_dart(torch, lt, kernels, params, ds, vs, Xv):
         DART._dropping_trees, DART._normalize = real_drop, real_norm
     g = bst._gbdt
     dev_raw = g.valid_sets[0][2].score[0].double().cpu().numpy()
-    err = float(np.abs(dev_raw - bst.predict(Xv, raw_score=True)).max())
+    err = float(np.abs(dev_raw - host_walk(bst, Xv, raw_score=True)).max())
     st = dict(s_per_iter=(marks[1] - marks[0]) / (n - warm),
               dropped=drops, drop_walk_k3_launches=walk[0],
               syncs_per_tree=statistics.mean(g.host_syncs_per_tree),
@@ -2112,7 +2212,23 @@ def phase_resume(torch, lt, params, ds, vs, tmp):
     cont = lt.train(p, ds, 5, valid_sets=[vs], evals_result=res_c,
                     init_model=model, verbose_eval=False)
     t1 = time.perf_counter()
+    # the continued run's training scores started from its init score:
+    # the init model's raw predictions (Booster.predict: past its work
+    # gate the device walk, f32 compares on raw features), held here
+    # against the init model's own predict and the host walks
+    init_score = np.asarray(ds.get_init_score()).copy()
     ds.set_init_score(None)
+    init_bst = lt.Booster(params=p, model_file=model)
+    n_init = len(init_bst._gbdt.models)
+    raw_X = ds._raw_X if ds._raw_X is not None else ds.data
+    own = init_bst.predict(raw_X, raw_score=True)
+    print(f"[training surface] continuation's init score equal to the "
+          f"init model's predict: {np.array_equal(init_score, own)}",
+          flush=True)
+    if not np.array_equal(init_score, own):
+        fail("the continued run's init score is not the init model's "
+             "predict")
+    check_device_walk(lt, "training surface", init_bst, raw_X, own)
     auc15 = res_c["valid_0"]["auc"][-1]
     print(f"[training surface] continuation: {cont.current_iteration()} "
           f"iterations in {t1 - t0:.1f} s, valid AUC {auc10:.6f} after 10 "
@@ -2128,17 +2244,32 @@ def phase_resume(torch, lt, params, ds, vs, tmp):
     cont.rollback_one_iter()
     g = cont._gbdt
     errs = []
-    for su in (g.train_score, g.valid_sets[0][2]):
+    # the training scores started from the init model's predictions;
+    # the valid scores replayed every tree of the continued model
+    for su, init, trees in ((g.train_score, init_score, g.models[n_init:]),
+                            (g.valid_sets[0][2], None, g.models)):
         fresh = ScoreUpdater(su.bins_fn, su.num_data, 1, g.device,
-                             feat_tbl=su.feat_tbl)
-        fresh.add_trees(g.models, 1)
+                             init_score=init, feat_tbl=su.feat_tbl)
+        fresh.add_trees(trees, 1)
         errs.append(float((su.score - fresh.score).abs().max()))
     print(f"[training surface] rollback twice: {g.current_iteration()} "
-          f"iterations; training and valid scores vs a fresh replay of "
-          f"the {len(g.models)} trees left: max |diff| {errs}", flush=True)
+          f"iterations; training scores vs the init model's predictions "
+          f"plus a fresh replay of the {len(g.models) - n_init} trees "
+          f"after it, valid scores vs a fresh replay of the "
+          f"{len(g.models)} trees left: max |diff| {errs}", flush=True)
     if g.current_iteration() != 13 or max(errs) > 1e-5:
         fail(f"rollback: {g.current_iteration()} iterations, scores off a "
              f"fresh replay by {errs}")
+    # the training scores against a replay of every tree from the binned
+    # store (f64 routing by bin, as the host walk): printed, as the init
+    # score's f32 routing parts from it
+    su = g.train_score
+    fresh = ScoreUpdater(su.bins_fn, su.num_data, 1, g.device,
+                         feat_tbl=su.feat_tbl)
+    fresh.add_trees(g.models, 1)
+    print(f"[training surface] training scores vs a binned replay of all "
+          f"{len(g.models)} trees: max |diff| "
+          f"{float((su.score - fresh.score).abs().max())}", flush=True)
     return dict(resume_equal=same, auc_10=auc10, auc_15=auc15,
                 rollback_err=errs)
 
@@ -2171,6 +2302,416 @@ def phase_training_surface(torch, lt, kernels, params, ds, vs, Xv):
     return st
 
 
+# phase 15: the north-star serving shape (scripts/bench_serve.py:60-96):
+# 500 trees of 63 leaves at depth 8 over 28 features, 20,000 training
+# rows; 8 closed-loop clients of 64 rows a request for 10 s
+SERVE_TREES_B = 100
+SERVE_PREDICT_ROWS = 200_000
+SERVE_CLIENTS, SERVE_ROWS_PER_REQ, SERVE_SECONDS = 8, 64, 10.0
+# every batch the closed loop can form (1-8 requests of 64 rows)
+SERVE_BUCKETS = (64, 128, 256, 512)
+
+
+def serve_train(lt, seed: int, rounds: int, tmp: str, name: str):
+    """bench_serve.py's model (synth.train_serve_model on
+    RandomState(seed)'s rows), trained on the card; the model file and
+    its .refbin sidecar written to `tmp`."""
+    from lightgbm_tpu_torch.synth import train_serve_model
+    t0 = time.perf_counter()
+    bst, ds, X = train_serve_model(seed, rounds, device_type=GPU)
+    secs = time.perf_counter() - t0
+    path = os.path.join(tmp, name)
+    bst.save_model(path)
+    ds.save_refbin(path + ".refbin")
+    depth = max(t.max_depth_grown for t in bst._gbdt.models)
+    print(f"[serve] trained {name}: {bst.num_trees()} trees, "
+          f"{max(t.num_leaves for t in bst._gbdt.models)} leaves at most, "
+          f"depth {depth}, {secs:.1f} s on the card", flush=True)
+    if bst.num_trees() != rounds:
+        fail(f"serving model {name}: {bst.num_trees()} of {rounds} trees")
+    return bst, X, path
+
+
+def ensemble_on(torch, trees, X, device, chunk: int = 50_000):
+    """predict_ensemble_any and the model-order leaf indices of `trees`
+    over X on `device` (in row chunks), as host numpy."""
+    from lightgbm_tpu_torch.ops import predict as PR
+    stack, meta = PR.build_ensemble([trees])
+    st = PR.to_device(stack, device)
+    lstack, lmeta = PR.stack_ensemble([[t] for t in trees], binned=False)
+    lst = PR.to_device(lstack, device)
+    raw, leaf = [], []
+    for a in range(0, len(X), chunk):
+        xc = torch.as_tensor(np.ascontiguousarray(X[a:a + chunk],
+                                                  np.float32),
+                             device=device)
+        raw.append(PR.predict_ensemble_any(st, xc, meta=meta)[0].cpu())
+        leaf.append(PR.predict_ensemble_leaf(lst, xc, meta=lmeta).cpu())
+    return (torch.cat(raw).numpy(), torch.cat(leaf, dim=1).numpy(),
+            type(stack).__name__)
+
+
+def serve_predictors(torch, lt, label, trees, X):
+    """Card against CPU: leaf indices bitwise, raw within the bound.
+    Returns the layout and the card's raw scores."""
+    t0 = time.perf_counter()
+    raw_g, leaf_g, layout = ensemble_on(torch, trees, X, GPU)
+    t1 = time.perf_counter()
+    raw_c, leaf_c, _ = ensemble_on(torch, trees, X, "cpu")
+    t2 = time.perf_counter()
+    err = float(np.abs(raw_g - raw_c).max())
+    bound = tree_bound(trees)
+    same = bool(np.array_equal(leaf_g, leaf_c))
+    msg = (f"[serve] predictors, {label}: {len(trees)} trees, {layout}, "
+           f"{len(X)} rows; leaf indices card == CPU: {same}; raw max "
+           f"|card - CPU| {err:.3e} (bound {bound:.3e}); card "
+           f"{t1 - t0:.2f} s, CPU {t2 - t1:.2f} s")
+    print(msg, flush=True)
+    if not same:
+        fail(f"{label}: card and CPU leaf indices differ")
+    if not err <= bound:
+        fail(f"{label}: card and CPU raw scores differ by {err} > {bound}")
+    return layout, raw_g
+
+
+def serve_booster_rate(torch, lt, path, X):
+    """rows/s of Booster.predict on the device path, tensorized and
+    walk (one warm call each first)."""
+    out = {}
+    for kernel in ("tensorized", "walk"):
+        bst = lt.Booster(params={"device_type": GPU,
+                                 "predict_kernel": kernel},
+                         model_file=path)
+        bst.predict(X[:1000])
+        os.environ["LIGHTGBM_TPU_DEVICE_PREDICT"] = "1"
+        try:
+            bst.predict(X[:50_000])
+            t0 = time.perf_counter()
+            pred = bst.predict(X)
+            out[kernel] = len(X) / (time.perf_counter() - t0)
+        finally:
+            os.environ.pop("LIGHTGBM_TPU_DEVICE_PREDICT")
+        if not (pred.shape == (len(X),) and np.all(np.isfinite(pred))):
+            fail(f"Booster.predict ({kernel}) gave {pred.shape} or "
+                 "non-finite values")
+    print(f"[serve] Booster.predict rows/s on {len(X)} rows: tensorized "
+          f"{out['tensorized']:.0f}, walk {out['walk']:.0f}", flush=True)
+    return out
+
+
+def serve_replay(torch, lt, bst):
+    """The tensorized add_trees replay of phase 3's booster onto its
+    training store, against the walk replay."""
+    from lightgbm_tpu_torch.boosting.score_updater import ScoreUpdater
+    g = bst._gbdt
+    su = g.train_score
+    times, scores = {}, {}
+    for kernel in ("tensorized", "walk"):
+        fresh = ScoreUpdater(su.bins_fn, su.num_data, g.K, g.device,
+                             feat_tbl=su.feat_tbl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.add_trees(g.models, g.K, kernel)
+        torch.cuda.synchronize()
+        times[kernel] = time.perf_counter() - t0
+        scores[kernel] = fresh.score
+    err = float((scores["tensorized"] - scores["walk"]).abs().max())
+    bound = tree_bound(g.models)
+    print(f"[serve] replay of {len(g.models)} trees onto {su.num_data} "
+          f"training rows: tensorized {times['tensorized']:.4f} s, walk "
+          f"{times['walk']:.4f} s, max |diff| {err:.3e} (bound "
+          f"{bound:.3e})", flush=True)
+    if not err <= bound:
+        fail(f"tensorized replay off the walk replay by {err} > {bound}")
+    return times
+
+
+def closed_loop(srv, X, path="/predict", seconds=SERVE_SECONDS):
+    """SERVE_CLIENTS keep-alive clients, each sending SERVE_ROWS_PER_REQ
+    rows a request as soon as its last answer came (bench_serve.py's
+    closed loop).  Returns the latencies (s), the (row offset, answers)
+    of every request, the wall seconds and the errors."""
+    import http.client
+    lat, answers, errors = [], [], []
+    lock = threading.Lock()
+    t_end = time.monotonic() + seconds
+    span = len(X) - SERVE_ROWS_PER_REQ
+
+    def client(idx):
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=120)
+        k = 0
+        try:
+            while time.monotonic() < t_end:
+                k += 1
+                lo = (idx * 7919 + k * SERVE_ROWS_PER_REQ) % span
+                body = "\n".join(json.dumps([float(v) for v in r])
+                                 for r in X[lo:lo + SERVE_ROWS_PER_REQ])
+                t0 = time.perf_counter()
+                conn.request("POST", path, body)
+                resp = conn.getresponse()
+                text = resp.read().decode()
+                dt = time.perf_counter() - t0
+                if resp.status != 200:
+                    errors.append(f"HTTP {resp.status}: {text[:200]}")
+                    return
+                got = np.array([json.loads(v) for v in text.split()])
+                with lock:
+                    lat.append(dt)
+                    answers.append((lo, got))
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(SERVE_CLIENTS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=seconds + 120)
+    if any(t.is_alive() for t in threads):
+        errors.append("a client did not finish")
+    return lat, answers, time.monotonic() - t0, errors
+
+
+def loop_stats(lat, wall):
+    ms = np.sort(np.asarray(lat)) * 1e3
+    n = len(ms)
+
+    def q(p):   # nearest rank, as profiling.summary
+        return float(ms[min(n - 1, max(0, math.ceil(p * n) - 1))])
+    return dict(requests=n, p50_ms=q(0.5), p95_ms=q(0.95), p99_ms=q(0.99),
+                requests_per_s=n / wall,
+                rows_per_s=n * SERVE_ROWS_PER_REQ / wall)
+
+
+def value_ref(torch, trees, X, sigmoid: float):
+    """The card's predict_ensemble_any over X, after the sigmoid (the
+    runtime's device transform), as float64."""
+    from lightgbm_tpu_torch.ops import predict as PR
+    stack, meta = PR.build_ensemble([trees])
+    st = PR.to_device(stack, GPU)
+    xs = torch.as_tensor(np.ascontiguousarray(X, np.float32), device=GPU)
+    raw = PR.predict_ensemble_any(st, xs, meta=meta)
+    return torch.sigmoid(sigmoid * raw)[0].cpu().numpy().astype(np.float64)
+
+
+def check_answers(label, answers, ref):
+    bad = sum(1 for lo, got in answers
+              if not np.array_equal(got, ref[lo:lo + SERVE_ROWS_PER_REQ]))
+    print(f"[serve] {label}: {len(answers)} answers, {bad} not bitwise "
+          f"equal to predict_ensemble_any on the card", flush=True)
+    if bad:
+        fail(f"{label}: {bad} of {len(answers)} answers differ from "
+             "predict_ensemble_any on the card")
+
+
+def stats_of(srv):
+    import http.client
+    conn = http.client.HTTPConnection(srv.host, srv.port, timeout=60)
+    try:
+        conn.request("GET", "/stats")
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def serve_loop(torch, srv, X, ref, label, card):
+    """One closed loop against `srv`, checked row by row against `ref`
+    and for a warm cache.  The profiling registry is reset first, so the
+    server's /stats then describe this loop alone: its batches, the
+    seconds of serve/execute (the runtime's predict, host and device)
+    and the batcher's latency (enqueue to answer)."""
+    from lightgbm_tpu_torch import profiling
+    profiling.reset()
+    before = stats_of(srv)["cache_misses"]
+    lat, answers, wall, errors = closed_loop(srv, X)
+    stats = stats_of(srv)
+    after = stats["cache_misses"]
+    if errors or not lat:
+        fail(f"{label}: closed loop failed: {errors[:3]}")
+    st = loop_stats(lat, wall)
+    st["cache_misses_during_loop"] = after - before
+    batches = max(stats["batches"], 1)
+    st["batches"] = stats["batches"]
+    st["requests_per_batch"] = stats["requests"] / batches
+    st["execute_ms_per_batch"] = (
+        stats["phase_totals_s"].get("serve/execute", 0.0) * 1e3 / batches)
+    st["batcher_latency_ms"] = {k: stats["latency_ms"].get(k)
+                                for k in ("p50", "p99")}
+    print(f"[serve] {label} ({card}): {json.dumps(st)}", flush=True)
+    print(f"[serve] {label}: p50 {st['p50_ms']:.3f} ms, p95 "
+          f"{st['p95_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms, "
+          f"{st['requests_per_s']:.1f} requests/s, {st['rows_per_s']:.0f} "
+          f"rows/s; cache_misses {before} -> {after}", flush=True)
+    if after != before:
+        fail(f"{label}: cache_misses moved during the loop, "
+             f"{before} -> {after}")
+    check_answers(label, answers, ref)
+    return st
+
+
+def serve_costack(torch, lt, path_a, path_b, trees, X, sig):
+    """Two tenants co-stacked: each tenant's answers over HTTP bitwise
+    equal to its solo runtime on the card."""
+    import http.client
+    from lightgbm_tpu_torch.serving import (ModelCatalog, PredictionServer,
+                                            PredictorRuntime)
+    cat = ModelCatalog({"default": path_a, "b": path_b},
+                       params={"verbose": -1, "device_type": GPU},
+                       serve_quantize="raw",
+                       costack=True, warmup_buckets=SERVE_BUCKETS)
+    if len(cat._groups) != 1:
+        fail(f"two serving tenants formed {len(cat._groups)} groups")
+    group = next(iter(cat._groups.values()))
+    solo = {mid: PredictorRuntime(lt.Booster(params={"device_type": GPU},
+                                             model_file=p), replicas=1)
+            for mid, p in (("default", path_a), ("b", path_b))}
+    jobs = [(mid, 64 * i) for i in range(24) for mid in ("default", "b")]
+    res, errors = {}, []
+
+    def client(mid, lo):
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=120)
+        try:
+            body = "\n".join(json.dumps([float(v) for v in r])
+                             for r in X[lo:lo + 64])
+            conn.request("POST", f"/predict?model={mid}", body)
+            resp = conn.getresponse()
+            text = resp.read().decode()
+            if resp.status != 200:
+                errors.append(text[:200])
+                return
+            res[(mid, lo)] = np.array([json.loads(v) for v in text.split()])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            conn.close()
+
+    with PredictionServer(catalog=cat, model_poll_seconds=0) as srv:
+        threads = [threading.Thread(target=client, args=j, daemon=True)
+                   for j in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        stats = stats_of(srv)
+    if errors or len(res) != len(jobs):
+        fail(f"co-stacked requests failed: {errors[:3]}")
+    bad = sum(1 for (mid, lo), got in res.items()
+              if not np.array_equal(got, solo[mid].predict(X[lo:lo + 64])))
+    gid = next(iter(stats["groups"]))
+    g = stats["groups"][gid]
+    print(f"[serve] co-stacked {g['members']} ({g['trees']} trees, "
+          f"{g['costack_kernel']} kernel): {len(res)} answers, {bad} not "
+          f"bitwise equal to per-tenant dispatch; group batches rows "
+          f"{g['stacked_rows'] + g['segment_rows']:.0f}", flush=True)
+    if bad:
+        fail(f"{bad} co-stacked answers differ from per-tenant dispatch")
+    ref = value_ref(torch, trees, X[:64 * 24], sig)
+    if not all(np.array_equal(res[("default", lo)], ref[lo:lo + 64])
+               for _, lo in jobs):
+        fail("co-stacked default tenant off predict_ensemble_any")
+    return {"answers": len(res), "not_bitwise": bad}
+
+
+def serve_hot_swap(torch, srv, path_a, path_b, trees_b, X, sig):
+    """Overwrite the default tenant's model file with model B and poll:
+    the generation flips, answers follow model B, and the requests after
+    the swap's warmup build nothing."""
+    import http.client
+    import shutil
+    gen0 = srv.registry.generation
+    tmp = path_a + ".swap"
+    shutil.copyfile(path_b, tmp)
+    shutil.copyfile(path_b + ".refbin", path_a + ".refbin")
+    os.replace(tmp, path_a)
+    t0 = time.perf_counter()
+    swaps = srv.catalog.poll_once()
+    swap_s = time.perf_counter() - t0
+    gen1 = srv.registry.generation
+    before = stats_of(srv)["cache_misses"]
+    ref = value_ref(torch, trees_b, X[:64 * 16], sig)
+    bad = 0
+    conn = http.client.HTTPConnection(srv.host, srv.port, timeout=120)
+    try:
+        for i in range(16):
+            lo = 64 * i
+            body = "\n".join(json.dumps([float(v) for v in r])
+                             for r in X[lo:lo + 64])
+            conn.request("POST", "/predict", body)
+            resp = conn.getresponse()
+            text = resp.read().decode()
+            if resp.status != 200 or int(
+                    resp.getheader("X-Model-Generation")) != gen1:
+                fail(f"after the swap: HTTP {resp.status}, generation "
+                     f"{resp.getheader('X-Model-Generation')}")
+            got = np.array([json.loads(v) for v in text.split()])
+            bad += not np.array_equal(got, ref[lo:lo + 64])
+    finally:
+        conn.close()
+    after = stats_of(srv)["cache_misses"]
+    print(f"[serve] hot swap: {swaps} swap in {swap_s:.2f} s, generation "
+          f"{gen0} -> {gen1}; 16 requests after it, {bad} not bitwise "
+          f"model B's; cache_misses {before} -> {after}", flush=True)
+    if swaps != 1 or gen1 != gen0 + 1:
+        fail(f"hot swap: {swaps} swaps, generation {gen0} -> {gen1}")
+    if bad:
+        fail(f"{bad} answers after the swap are not model B's")
+    if after != before:
+        fail(f"hot swap: cache_misses moved {before} -> {after}")
+
+
+def phase_serving(torch, lt, ns_bst, ns_Xv, card):
+    """Phase 15: the predictors and the serving plane on the card."""
+    from lightgbm_tpu_torch.serving import ModelRegistry, PredictionServer
+    from lightgbm_tpu_torch.synth import SERVE_FEATURES, SERVE_TREES
+    st = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bst_a, X, path_a = serve_train(lt, 0, SERVE_TREES, tmp, "a.txt")
+        bst_b, _, path_b = serve_train(lt, 1, SERVE_TREES_B, tmp, "b.txt")
+        trees_a = lt.Booster(params={"device_type": GPU},
+                             model_file=path_a)._gbdt.models
+        trees_b = lt.Booster(params={"device_type": GPU},
+                             model_file=path_b)._gbdt.models
+        sig = float(bst_a._gbdt.objective.sigmoid)
+        X1 = np.random.RandomState(1).rand(SERVE_PREDICT_ROWS,
+                                           SERVE_FEATURES)
+        st["layout"], _ = serve_predictors(torch, lt, "serving model",
+                                           trees_a, X1)
+        _, raw = serve_predictors(torch, lt, "north-star booster",
+                                  ns_bst._gbdt.models, ns_Xv)
+        st["rows_off_f64_walk"] = check_device_walk(
+            lt, "serve", ns_bst, ns_Xv, raw.astype(np.float64))
+        st["booster_rows_per_s"] = serve_booster_rate(torch, lt, path_a, X1)
+        st["replay_s"] = serve_replay(torch, lt, ns_bst)
+        ref = value_ref(torch, trees_a, X, sig)
+        # binned first: the raw server's hot swap overwrites path_a
+        for variant in ("binned", "raw"):
+            reg = ModelRegistry(path_a,
+                                params={"verbose": -1, "device_type": GPU},
+                                replicas=1,
+                                serve_quantize=variant,
+                                warmup_buckets=SERVE_BUCKETS)
+            rt = reg.current()
+            if rt.variant != variant or rt.replicas[0].device.type != GPU:
+                fail(f"{variant} server runs {rt.variant} on "
+                     f"{rt.replicas[0].device}")
+            print(f"[serve] {variant} request buffer: "
+                  f"{np.dtype(rt._buf_dtype).itemsize * rt._buf_cols} "
+                  f"bytes a row", flush=True)
+            with PredictionServer(reg, model_poll_seconds=0) as srv:
+                st[variant] = serve_loop(torch, srv, X, ref,
+                                         f"server, {variant}", card)
+                if variant == "raw":
+                    st["costack"] = serve_costack(torch, lt, path_a,
+                                                  path_b, trees_a, X, sig)
+                    serve_hot_swap(torch, srv, path_a, path_b, trees_b, X,
+                                   sig)
+    print(f"[serve] {json.dumps(st)}", flush=True)
+    return st
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2191,8 +2732,8 @@ def main() -> None:
           f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})",
           flush=True)
     rows = phase_kernels(torch, kernels, H, LK, P)
-    st, st32, ns_params, ns_ds, ns_vs, ns_Xv = phase_main(torch, lt,
-                                                          kernels)
+    st, st32, ns_params, ns_ds, ns_vs, ns_Xv, ns_bst = phase_main(
+        torch, lt, kernels)
     for r in rows:
         src = st32 if r["name"] == "hist_masked_f32" else st
         r["launches"] = src["launches"][r["name"]]
@@ -2253,7 +2794,9 @@ def main() -> None:
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     phase_training_surface(torch, lt, kernels, ns_params, ns_ds, ns_vs,
                            ns_Xv)
-    del ns_ds, ns_vs, ns_Xv
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    phase_serving(torch, lt, ns_bst, ns_Xv, card)
+    del ns_ds, ns_vs, ns_Xv, ns_bst
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

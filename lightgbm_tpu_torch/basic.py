@@ -258,6 +258,13 @@ class Dataset:
         self.construct()
         return list(self._inner.feature_names)
 
+    def save_refbin(self, filename: str) -> "Dataset":
+        """Persist only the frozen bin-mapper set: the ``.refbin``
+        sidecar that ``serve_quantize=binned`` serves a model against."""
+        self.construct()
+        self._inner.save_refbin(filename)
+        return self
+
     def subset(self, used_indices: Sequence[int], params=None) -> "Dataset":
         """A dataset of the given rows, binned with this one's mappers
         (LightGBM's Dataset.subset), for cv()."""
@@ -416,6 +423,8 @@ class Booster:
                 "predicting a file is not ported yet: the text readers "
                 "come with the CLI (ROADMAP.md §A item 13)")
         data = _apply_pandas_categorical(data, self.pandas_categorical)
+        # scipy input densifies, as in the JAX package: the walks gather
+        # from a dense [rows, features] matrix
         X = (data.toarray() if _is_scipy_sparse(data)
              else _to_numpy(data))
         if X.ndim == 1:

@@ -53,6 +53,7 @@ class DART(GBDT):
         stop = GBDT.train_one_iter(self, gradient, hessian, False)
         if not stop:
             self._normalize()
+            self._models_changed()
             self.tree_weight.append(self.shrinkage_rate)
             self.sum_weight += self.shrinkage_rate
             if is_eval:

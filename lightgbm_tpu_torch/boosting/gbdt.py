@@ -6,9 +6,10 @@ iteration (one per class, K = the objective's trees per iteration) with
 the scores updated on the device, the degenerate-class bookkeeping of
 multiclass labels, objectives and metrics initialised with the query
 metadata, eval, rollback, early stopping, continued training (a loaded
-model replayed onto the training scores), checkpoint/resume, host
-prediction (values and leaf indices), and the LightGBM text model and
-JSON dump.
+model replayed onto the training scores), checkpoint/resume,
+prediction (values and leaf indices; the device ensemble walk of
+ops/predict.py past a work threshold, the host f64 walk below it), and
+the LightGBM text model and JSON dump.
 
 An iteration takes one of the JAX package's two paths (`_can_pipeline`):
 - the device-tree path, for class GBDT with one tree an iteration, the
@@ -159,6 +160,10 @@ class GBDT:
         # training's order, so its scores are bitwise those of the
         # uninterrupted run
         self._replay_kernel: Optional[str] = None
+        # device stacks of the predictor, by (kind, trees used, trees);
+        # emptied by `_models_changed` whenever a tree is added, removed
+        # or edited
+        self._predict_stack_cache: Dict = {}
         if train_set is not None:
             self.reset_training_data(train_set, objective)
 
@@ -299,6 +304,7 @@ class GBDT:
         early stopping when `is_eval`)."""
         device_path = (gradient is None and hessian is None
                        and self._can_pipeline())
+        self._models_changed()
         self._boost_from_average()
         if gradient is None or hessian is None:
             gradient, hessian = self.boosting_gradients()
@@ -349,6 +355,7 @@ class GBDT:
             for _, _, su, _ in self.valid_sets:
                 su.add_tree(tree, k)
         del self.models[-self.K:]
+        self._models_changed()
         self.iter_ -= 1
 
     def _train_device_tree(self, gradient: torch.Tensor,
@@ -456,6 +463,7 @@ class GBDT:
         if self.iter_ - best_iter >= esr:
             n_drop = (self.iter_ - best_iter) * self.K
             del self.models[-n_drop:]
+            self._models_changed()
             self.iter_ = best_iter
             return True
         return False
@@ -476,13 +484,106 @@ class GBDT:
             n = min(ni * self.K, n)
         return n
 
+    # batch rows x trees above which prediction takes the device walk
+    # (ops/predict.py); smaller calls keep the host f64 walk (exact
+    # double compares).  LIGHTGBM_TPU_DEVICE_PREDICT=1 forces the device,
+    # =0 the host.
+    _DEVICE_PREDICT_MIN_WORK = 2_000_000
+    _PREDICT_CHUNK = 262_144
+
+    def _predict_device(self) -> torch.device:
+        """The training device, or the Config's for a loaded model (a
+        GPU must be visible for device_type=cuda)."""
+        dev = getattr(self, "device", None)
+        return dev if dev is not None else resolve_device(self.config)
+
+    def _use_device_predict(self, n: int, used: int) -> bool:
+        force = os.environ.get("LIGHTGBM_TPU_DEVICE_PREDICT", "")
+        return used > 0 and force != "0" and (
+            force == "1" or n * used >= self._DEVICE_PREDICT_MIN_WORK)
+
+    def _models_changed(self) -> None:
+        """Drop the predictor's cached stacks: a tree was added, removed
+        or edited (training, rollback, early stopping, a loaded or
+        continued model).  A key of (kind, trees used, trees) alone would
+        hand a rolled-back-then-regrown model its old stack."""
+        self._predict_stack_cache.clear()
+
+    def _cached_stack(self, key, build):
+        """The device stack under `key`, built once for the current
+        trees (`_models_changed` empties the cache); a few keys at most
+        (more evict wholesale)."""
+        cache = self._predict_stack_cache
+        if key not in cache:
+            if len(cache) >= 4 * max(self.K, 1):
+                cache.clear()
+            cache[key] = build()
+        return cache[key]
+
+    def _run_chunked(self, X: np.ndarray, out: np.ndarray, kernel_fn,
+                     device: torch.device) -> None:
+        """The device-predict chunk loop: `_PREDICT_CHUNK` rows a pass
+        (the [T, rows] walk temporaries are freed between passes), one
+        host copy a pass.  `kernel_fn` maps a [rows, F] f32 tensor to
+        values whose last axis is rows; they land in out[..., a:b]."""
+        CHUNK = self._PREDICT_CHUNK
+        for a in range(0, X.shape[0], CHUNK):
+            b = min(a + CHUNK, X.shape[0])
+            chunk = torch.as_tensor(
+                np.ascontiguousarray(X[a:b], np.float32), device=device)
+            out[..., a:b] = kernel_fn(chunk).cpu().numpy()
+
+    def _trees_by_class(self, used: int) -> List[List[Tree]]:
+        return [[self.models[i] for i in range(used) if i % self.K == k]
+                for k in range(self.K)]
+
+    def _predict_raw_device(self, X: np.ndarray, used: int) -> np.ndarray:
+        """The device predictor: every tree and row advances one level a
+        step, with f32 feature/threshold compares.  ``tensorized`` (what
+        `auto` resolves to) walks every class's trees in one traversal,
+        ``walk`` one traversal a class."""
+        from ..ops.predict import (build_ensemble, ensemble_raw,
+                                   predict_ensemble_any,
+                                   resolve_predict_kernel, stack_trees,
+                                   to_device)
+        device = self._predict_device()
+        out = np.zeros((self.K, X.shape[0]), np.float64)
+        if resolve_predict_kernel(self.config.predict_kernel) == "walk":
+            def build():
+                stacks, depths = [], []
+                for trees in self._trees_by_class(used):
+                    stacks.append(to_device(stack_trees(trees, False),
+                                            device) if trees else None)
+                    depths.append(max((t.max_depth_grown for t in trees),
+                                      default=1) or 1)
+                return stacks, tuple(depths)
+            stacks, depths = self._cached_stack(
+                ("walk", used, len(self.models)), build)
+            self._run_chunked(
+                X, out, lambda c: ensemble_raw(stacks, c, depths=depths),
+                device)
+        else:
+            def build():
+                stack, meta = build_ensemble(self._trees_by_class(used),
+                                             binned=False)
+                return to_device(stack, device), meta
+            stack, meta = self._cached_stack(
+                ("ens", used, len(self.models)), build)
+            self._run_chunked(
+                X, out, lambda c: predict_ensemble_any(stack, c, meta=meta),
+                device)
+        return out[0] if self.K == 1 else out.T
+
     def predict_raw(self, X: np.ndarray, num_iteration: int = -1
                     ) -> np.ndarray:
         """Raw scores for a dense matrix (rows, raw features) -> [N] or
-        [N, K], through the host f64 walk of every tree."""
+        [N, K]: the device predictor past `_DEVICE_PREDICT_MIN_WORK`
+        (rows x trees), the host f64 walk of every tree below it."""
         X = np.ascontiguousarray(np.asarray(X, np.float64))
         n = X.shape[0]
         used = self._num_used_models(num_iteration)
+        if self._use_device_predict(n, used):
+            return self._predict_raw_device(X, used)
         out = np.zeros((self.K, n), np.float64)
         for i in range(used):
             out[i % self.K] += self.models[i].predict_raw(X)
@@ -496,15 +597,46 @@ class GBDT:
 
     def predict_leaf_index(self, X: np.ndarray, num_iteration: int = -1
                            ) -> np.ndarray:
-        """Leaf index per (row, model): [N, num_models] int32, by the host
-        walk of each tree (exact f64 compares).  The device leaf
-        predictor is a later slice (ROADMAP.md §A item 8)."""
+        """Leaf index per (row, model): [N, num_models] int32.  Under
+        ``predict_kernel=tensorized`` (`auto`) and the predict_raw work
+        gate, one device traversal of every model
+        (ops/predict.predict_ensemble_leaf); otherwise the host walk of
+        each tree (exact f64 compares).  The two give the same indices:
+        the device stack is built one tree a class in MODEL order (the
+        class-major flatten of the value kernels would permute a
+        multiclass model's columns), and its categorical compare carries
+        the host walk's finite mask."""
+        from ..ops.predict import resolve_predict_kernel
         X = np.ascontiguousarray(np.asarray(X, np.float64))
         used = self._num_used_models(num_iteration)
+        if (resolve_predict_kernel(self.config.predict_kernel)
+                == "tensorized" and self._use_device_predict(X.shape[0],
+                                                             used)):
+            return self._predict_leaf_device(X, used)
         if used == 0:
             return np.zeros((X.shape[0], 0), np.int32)
         return np.stack([self.models[i].predict_leaf_index(X)
                          for i in range(used)], axis=1)
+
+    def _predict_leaf_device(self, X: np.ndarray, used: int) -> np.ndarray:
+        """Tensorized leaf routing: one traversal of every model
+        (model-order stack, [T, rows] leaves), chunked like the value
+        kernels."""
+        from ..ops.predict import (predict_ensemble_leaf, stack_ensemble,
+                                   to_device)
+        device = self._predict_device()
+
+        def build():
+            stack, meta = stack_ensemble(
+                [[self.models[i]] for i in range(used)], binned=False)
+            return to_device(stack, device), meta
+        stack, meta = self._cached_stack(("leaf", used, len(self.models)),
+                                         build)
+        out = np.zeros((used, X.shape[0]), np.int32)
+        self._run_chunked(
+            X, out, lambda c: predict_ensemble_leaf(stack, c, meta=meta),
+            device)
+        return np.ascontiguousarray(out.T)
 
     # ------------------------------------------------------------------
     def feature_importance(self, importance_type: str = "split"
@@ -591,6 +723,7 @@ class GBDT:
         if fi:
             self.feature_infos = fi.split()
         self.models = []
+        self._models_changed()
         text = "\n".join(lines)
         parts = text.split("Tree=")
         for p in parts[1:]:

@@ -12,10 +12,11 @@ node's original feature to its store column and recovers the original
 bin from the packed slot (`feat_tbl`).  The training set adds by leaf
 id, and walks its learner's store (resolved on the first walk) where a
 tree has no leaf ids for it: bagged iterations of the exact learner,
-DART's drops and renormalization, rollback, and the replay of a resumed
-or continued model (`add_trees`, one tree at a time in training's
-order, so a resumed run's scores are bitwise those of the uninterrupted
-one).
+DART's drops and renormalization, and rollback.  A whole model replays
+(`add_trees`: a continued model, a valid set added to a trained one) in
+one tensorized ensemble traversal, or one tree at a time in training's
+order for a resumed run, whose scores are then bitwise those of the
+uninterrupted one.
 """
 from __future__ import annotations
 
@@ -26,6 +27,10 @@ import torch
 
 from ..ops.lookup import select_bin_by_feature, table_lookup
 from ..ops.predict import sparse_bin_lookup
+
+# elements of a [T, rows] (sparse: [T, rows, R]) temporary of the
+# tensorized replay: ~0.5 GB a temporary of int64 node ids
+REPLAY_CELLS = 1 << 26
 
 
 def _num_rows(bins_fn) -> int:
@@ -176,18 +181,44 @@ class ScoreUpdater:
 
     def add_trees(self, trees, K: int, kernel: str = "auto") -> None:
         """Replay a whole model onto the scores (a valid set added to a
-        trained model, a continued or resumed run): tree i adds to score
-        row i % K, one walk a tree in the model's order, as training
-        added them.  The JAX package's tensorized replay (one ensemble
-        traversal) needs the ensemble predictors; `auto` and `walk` take
-        the walk until they are ported."""
-        if kernel == "tensorized":
-            raise NotImplementedError(
-                "predict_kernel=tensorized replay needs the ensemble "
-                "predictors, not ported yet (ROADMAP.md §A item 8); use "
-                "predict_kernel=walk or auto")
-        for i, t in enumerate(trees):
-            self.add_tree(t, i % K)
+        trained model, a continued run): tree i adds to score row i % K.
+        ``walk`` walks one tree at a time in the model's order, as
+        training added them (a resumed run takes it, so its scores are
+        bitwise those of the uninterrupted run).  ``tensorized`` (what
+        ``auto`` resolves to) is one binned ensemble traversal, `depth`
+        steps over the store with integer bin compares and the EFB remap
+        (ops/predict.predict_ensemble_binned, or its sparse form, which
+        probes the ELL rows and never densifies); its per-class sums add
+        in another order than the walk's, within f32 reassociation."""
+        from ..ops.predict import (build_ensemble, predict_ensemble_binned,
+                                   predict_ensemble_binned_sparse,
+                                   resolve_predict_kernel, to_device)
+        if resolve_predict_kernel(kernel) != "tensorized" or len(trees) < 2:
+            for i, t in enumerate(trees):
+                self.add_tree(t, i % K)
+            return
+        trees_by_class = [[t for i, t in enumerate(trees) if i % K == k]
+                          for k in range(K)]
+        stack, meta = build_ensemble(trees_by_class, binned=True,
+                                     layout="soa")
+        stack = to_device(stack, self.device)
+        bins = self.bins_fn
+        sparse = isinstance(bins, (tuple, list))
+        N = _num_rows(bins)
+        # rows a pass, so the [T, rows] walk temporaries (x R entries a
+        # row for the sparse probe) stay near REPLAY_CELLS elements
+        width = len(trees) * (bins[0].shape[1] if sparse else 1)
+        step = max(1, REPLAY_CELLS // max(width, 1))
+        for a in range(0, N, step):
+            b = min(a + step, N)
+            if sparse:
+                raw = predict_ensemble_binned_sparse(
+                    stack, bins[0][a:b], bins[1][a:b], bins[2],
+                    self.feat_tbl, meta=meta)
+            else:
+                raw = predict_ensemble_binned(stack, bins[:, a:b],
+                                              self.feat_tbl, meta=meta)
+            self.score[:, a:b] += raw
 
     def get(self) -> np.ndarray:
         """The [K, N] scores on the host, in float64 (what a custom

@@ -619,3 +619,146 @@ class Dataset:
 
     def feature_infos(self) -> List[str]:
         return [m.feature_info() for m in self.mappers]
+
+    # -- binary cache: a magic line + npz (allow_pickle=False on load: a
+    #    data file is untrusted input and must never reach pickle).  The
+    #    JAX package's format, so each package reads the other's files.
+
+    BINARY_MAGIC = "lightgbm_tpu.dataset.v3"
+
+    @classmethod
+    def _empty_from_mappers(cls, cfg: Config, mappers: List[BinMapper],
+                            used: List[int], n: int, num_total: int,
+                            feature_names: Optional[List[str]],
+                            plan: Optional[BundlePlan] = None
+                            ) -> "Dataset":
+        """A Dataset shell (store + per-feature metadata) from existing
+        bin mappers; callers fill the store and the metadata."""
+        ds = cls.__new__(cls)
+        ds._init_store(cfg, mappers, list(used), n, num_total,
+                       feature_names, plan)
+        ds.metadata = Metadata()
+        return ds
+
+    def save_binary(self, path: str) -> None:
+        """Serialize the binned dataset (the dense store, its mappers,
+        bundle plan and metadata) so a reload skips parsing and
+        binning."""
+        md = self.metadata
+        arrays = {
+            "bins": self.dense_bins(site="binary_cache"),
+            "num_data": np.int64(self.num_data),
+            "num_total_features": np.int64(self.num_total_features),
+            "used_features": np.asarray(self.used_features, np.int64),
+            "feature_names": np.asarray(self.feature_names, dtype="U"),
+            "label": md.label,
+            "max_bin": np.int64(self.config.max_bin),
+            "enable_bundle": np.int64(1 if self.config.enable_bundle else 0),
+            "bundle_conflict_rows": np.int64(self.bundle_conflict_rows),
+        }
+        if self.bundle_plan is not None:
+            p = self.bundle_plan
+            arrays["bundle_feat"] = np.stack([
+                p.feat_col, p.feat_offset, p.feat_default, p.feat_nslots,
+                p.feat_packed.astype(np.int32)]).astype(np.int64)
+            arrays["bundle_col_bins"] = p.col_num_bins.astype(np.int64)
+        for opt, name in ((md.weights, "weights"),
+                          (md.query_boundaries, "query_boundaries"),
+                          (md.init_score, "init_score")):
+            if opt is not None:
+                arrays[name] = opt
+        for i, m in enumerate(self.mappers):
+            arrays[f"m{i}_meta"] = np.asarray(
+                [m.bin_type, m.num_bin, 1 if m.is_trivial else 0,
+                 m.default_bin], np.int64)
+            arrays[f"m{i}_fl"] = np.asarray(
+                [m.min_val, m.max_val, m.sparse_rate], np.float64)
+            arrays[f"m{i}_upper"] = np.asarray(m.bin_upper_bound, np.float64)
+            arrays[f"m{i}_cats"] = np.asarray(m.bin_2_categorical, np.int64)
+        with open(path, "wb") as f:
+            f.write(self.BINARY_MAGIC.encode() + b"\n")
+            np.savez_compressed(f, **arrays)
+
+    def save_refbin(self, path: str) -> None:
+        """Persist ONLY the frozen mapper set (+ bundle plan + used
+        features) as a 0-row binary-dataset shell: the ``.refbin``
+        sidecar that ``serve_quantize=binned`` serves a model against.
+        Loads back through `quantize.load_refbin` / `from_binary`."""
+        shell = Dataset._empty_from_mappers(
+            self.config, self.mappers, list(self.used_features), 0,
+            self.num_total_features, list(self.feature_names),
+            plan=self.bundle_plan)
+        shell.save_binary(path)
+
+    @classmethod
+    def from_binary(cls, path: str, config: Optional[Config] = None
+                    ) -> "Dataset":
+        cfg = config or Config()
+        with open(path, "rb") as f:
+            first = f.readline()
+            if first.strip().decode(errors="replace") != cls.BINARY_MAGIC:
+                raise ValueError(
+                    f"{path} is not a lightgbm_tpu binary dataset")
+            npz = np.load(f, allow_pickle=False)
+            d = {k: npz[k] for k in npz.files}  # materialize before close
+        return cls._from_binary_dict(d, cfg, path)
+
+    @classmethod
+    def _from_binary_dict(cls, d: Dict[str, np.ndarray], cfg: Config,
+                          path: str) -> "Dataset":
+        """Rebuild a Dataset from the parsed npz payload (`path` is for
+        error messages only), so `quantize.load_refbin` can hash and
+        parse a sidecar's bytes once."""
+        if int(d["max_bin"]) != cfg.max_bin:
+            raise ValueError(
+                f"binary dataset {path} was built with max_bin="
+                f"{int(d['max_bin'])}, config wants {cfg.max_bin}; "
+                "delete the cache to rebuild")
+        cached_eb = bool(int(d.get("enable_bundle", 0)))
+        if cached_eb != bool(cfg.enable_bundle):
+            raise ValueError(
+                f"binary dataset {path} was built with enable_bundle="
+                f"{cached_eb}, config wants {cfg.enable_bundle}; "
+                "delete the cache to rebuild")
+        num_total = int(d["num_total_features"])
+        mappers = []
+        for i in range(num_total):
+            meta = d[f"m{i}_meta"]
+            fl = d[f"m{i}_fl"]
+            mappers.append(BinMapper(
+                bin_type=int(meta[0]), num_bin=int(meta[1]),
+                is_trivial=bool(meta[2]), default_bin=int(meta[3]),
+                min_val=float(fl[0]), max_val=float(fl[1]),
+                sparse_rate=float(fl[2]),
+                bin_upper_bound=d[f"m{i}_upper"],
+                bin_2_categorical=[int(c) for c in d[f"m{i}_cats"]]))
+        plan = None
+        if "bundle_feat" in d:
+            bf = d["bundle_feat"]
+            plan = BundlePlan(
+                feat_col=bf[0].astype(np.int32),
+                feat_offset=bf[1].astype(np.int32),
+                feat_default=bf[2].astype(np.int32),
+                feat_nslots=bf[3].astype(np.int32),
+                feat_packed=bf[4] > 0,
+                col_num_bins=d["bundle_col_bins"].astype(np.int32))
+        ds = cls._empty_from_mappers(
+            cfg, mappers, [int(i) for i in d["used_features"]],
+            int(d["num_data"]), num_total,
+            [str(s) for s in d["feature_names"]], plan)
+        ds._bins = d["bins"].astype(ds._store_dtype, copy=False)
+        ds.bundle_conflict_rows = int(d.get("bundle_conflict_rows", 0))
+        ds.metadata = Metadata(
+            label=d["label"],
+            weights=d["weights"] if "weights" in d else None,
+            query_boundaries=(d["query_boundaries"]
+                              if "query_boundaries" in d else None),
+            init_score=d["init_score"] if "init_score" in d else None)
+        # the cache holds the dense layout; re-derive the sparse store
+        # when the config resolves csr, so a cache hit trains the path a
+        # fresh construction would (0-row refbin shells stay dense)
+        if ds.num_data and resolve_sparse_store(cfg, ds.mappers,
+                                                ds.used_features, plan):
+            _refuse_sparse_bundles(plan)
+            ds._sparsify_store()
+        return ds

@@ -76,6 +76,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if init_booster is not None:
         g, ig = booster._gbdt, init_booster._gbdt
         g.models = list(ig.models) + g.models
+        g._models_changed()
         g.num_init_iteration = ig.current_iteration()
         g.boost_from_average_used = ig.boost_from_average_used
 

@@ -27,6 +27,12 @@ a fixed (seed 0) logistic labelling.  `ONEHOT_PARAMS` is the training
 configuration bench.py runs on it (bench.py:278-293: binary, AUC, 255
 leaves, 255 bins, EFB on, the dense store pinned); chip_smoke.py,
 trace_main.py and the bundle tests run it.
+
+`synth_serve` and `SERVE_PARAMS` are the JAX package's serving benchmark
+model (scripts/bench_serve.py:60-96): rand(20,000, 28) with a linear
+label cut at its median, binary, 63 leaves at depth 8, 500 trees;
+`train_serve_model` trains it.  chip_smoke.py's phase 15 and
+trace_main.py's serve workload both serve it.
 """
 from __future__ import annotations
 
@@ -53,6 +59,11 @@ CTR_PARAMS = {"objective": "lambdarank", "metric": "ndcg",
 # histogram dtype and histograms in float32)
 ONEHOT_PARAMS = dict(NORTH_STAR_PARAMS, enable_bundle=True,
                      sparse_store="dense")
+
+# scripts/bench_serve.py:60-96: the serving model and its training rows
+SERVE_PARAMS = {"objective": "binary", "verbose": -1, "num_leaves": 63,
+                "max_depth": 8, "min_data_in_leaf": 20}
+SERVE_TREES, SERVE_FEATURES, SERVE_TRAIN_ROWS = 500, 28, 20_000
 
 
 def synth_higgs_target(n: int, f: int = 28, seed: int = 42):
@@ -116,3 +127,27 @@ def synth_onehot(n: int, groups: int = 40, card: int = 6, seed: int = 42):
         X[np.arange(n), g * card + codes[:, g]] = 1.0
     y = (X @ w + rng.logistic(size=n) * 0.5 > 0).astype(np.float64)
     return X, y
+
+
+def synth_serve(n: int = SERVE_TRAIN_ROWS, f: int = SERVE_FEATURES,
+                seed: int = 0):
+    """bench_serve.py's training rows: rand(n, f) from RandomState(seed)
+    and a 0/1 label, a random linear function of them cut at its
+    median.  Returns (X, y)."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, f)
+    z = X @ rng.randn(f)
+    return X, (z > np.median(z)).astype(float)
+
+
+def train_serve_model(seed: int = 0, rounds: int = SERVE_TREES,
+                      **params):
+    """The serving model: SERVE_PARAMS (with `params` over them) trained
+    for `rounds` iterations on synth_serve(seed=seed).  Returns
+    (booster, dataset, X)."""
+    from .basic import Dataset
+    from .engine import train
+    X, y = synth_serve(SERVE_TRAIN_ROWS, SERVE_FEATURES, seed)
+    p = dict(SERVE_PARAMS, **params)
+    ds = Dataset(X, y, params=p)
+    return train(p, ds, rounds, verbose_eval=False), ds, X

@@ -1,7 +1,7 @@
 """Where the time of a boosting iteration goes, on the GPU.
 
     python -m lightgbm_tpu_torch.trace_main
-        [--workload higgs|ctr|onehot|regression|multiclass|goss|dart]
+        [--workload higgs|ctr|onehot|regression|multiclass|goss|dart|serve]
         [--histogram-dtype int8|float32] [--rows N] [--trace PATH]
 
 Trains a configuration that chip_smoke.py runs — the north-star one
@@ -23,12 +23,20 @@ north-star configuration with boosting=goss, top_rate 0.2, other_rate
 10, its sampling warm-up at lr 0.1, so the traced iterations are
 sampled; dart: 5, so each traced iteration drops trees: drop_seed's
 draws drop 2, 1 and 1 trees in iterations 6-8), then traces 3 more with
-torch.profiler (CPU and CUDA activities).  Prints one JSON line: wall seconds per
-traced iteration, device busy seconds (union of the kernel intervals)
-and the idle share, kernel launches per iteration, the device time of
+torch.profiler (CPU and CUDA activities).  Prints one JSON line: wall
+seconds per traced iteration, device busy seconds (union of the kernel
+intervals) and the idle share, kernel launches per iteration, the device time of
 this package's kernels and of everything else, and the top device
 kernels and host ops.
 With --trace it also writes the Chrome trace.  Needs a CUDA device.
+
+`--workload serve` traces the serving request path instead:
+chip_smoke.py phase 15's model (scripts/bench_serve.py's shape: 500
+trees of 63 leaves at depth 8 over 28 features, trained on
+rand(20_000, 28)), a one-replica PredictorRuntime warmed at the 64-row
+bucket, then 20 traced dispatches of 64 rows each (raw features, value
+kind).  The JSON line gives the same fields a dispatch instead of an
+iteration.
 """
 from __future__ import annotations
 
@@ -41,6 +49,9 @@ import torch
 
 TRACED = 3
 WARMUP = 2
+# dispatches traced by --workload serve, and their rows
+SERVE_DISPATCHES = 20
+SERVE_ROWS = 64
 # the boosting variants of phase 14, and their warm-ups (see above)
 BOOSTING = {"goss": {"boosting": "goss", "top_rate": 0.2,
                      "other_rate": 0.1},
@@ -69,11 +80,88 @@ def _union_us(intervals) -> float:
     return total
 
 
+def _trace(step, n: int):
+    """(wall seconds, profile) of `n` calls of `step`, traced with
+    torch.profiler (CPU and CUDA activities) between synchronisations."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, prof
+
+
+def _summary(wall: float, prof, n: int, unit: str) -> dict:
+    """Busy time (union of the kernel intervals), idle share, launches,
+    and the top device kernels and host ops, a `unit`."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_s = _union_us([(e.time_range.start, e.time_range.end)
+                        for e in kernels]) * 1e-6
+    own = {v: 0.0 for v in OWN_KERNELS.values()}
+    other = 0.0
+    for e in kernels:
+        dur = (e.time_range.end - e.time_range.start) * 1e-6
+        tag = next((v for k, v in OWN_KERNELS.items() if k in e.name), None)
+        if tag is None:
+            other += dur
+        else:
+            own[tag] += dur
+    avg = prof.key_averages()
+    top_dev = sorted((a for a in avg if a.self_device_time_total > 0),
+                     key=lambda a: -a.self_device_time_total)[:12]
+    top_cpu = sorted(avg, key=lambda a: -a.self_cpu_time_total)[:12]
+    return {
+        f"wall_s_per_{unit}": wall / n,
+        f"device_busy_s_per_{unit}": busy_s / n,
+        "device_idle_share": 1.0 - busy_s / wall,
+        f"kernel_launches_per_{unit}": len(kernels) / n,
+        f"own_kernels_s_per_{unit}": {k: v / n for k, v in own.items()},
+        f"other_kernels_s_per_{unit}": other / n,
+        "top_device": [[a.key[:80], a.self_device_time_total * 1e-6 / n,
+                        a.count // n] for a in top_dev],
+        "top_host_self": [[a.key[:80], a.self_cpu_time_total * 1e-6 / n,
+                           a.count // n] for a in top_cpu],
+    }
+
+
+def _serve(args) -> None:
+    """--workload serve: SERVE_DISPATCHES dispatches of one 64-row
+    bucket through a warm one-replica runtime."""
+    from lightgbm_tpu_torch.serving import PredictorRuntime
+    from lightgbm_tpu_torch.synth import train_serve_model
+    bst, _, X = train_serve_model()
+    rt = PredictorRuntime(bst, replicas=1, min_bucket_rows=SERVE_ROWS)
+    rt.warmup([SERVE_ROWS])
+    rows = iter(range(0, 10_000, SERVE_ROWS))
+
+    def step():
+        lo = next(rows)
+        rt.predict(X[lo:lo + SERVE_ROWS])
+
+    for _ in range(3):
+        step()
+    wall, prof = _trace(step, SERVE_DISPATCHES)
+    out = {"device": torch.cuda.get_device_name(0), "workload": "serve",
+           "trees": bst.num_trees(), "rows_per_dispatch": SERVE_ROWS,
+           "traced_dispatches": SERVE_DISPATCHES,
+           "predict_kernel": rt.predict_kernel,
+           "layout": type(rt.replicas[0].stacks).__name__}
+    out.update(_summary(wall, prof, SERVE_DISPATCHES, "dispatch"))
+    print(json.dumps(out))
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", choices=("higgs", "ctr", "onehot",
                                            "regression", "multiclass",
-                                           "goss", "dart"),
+                                           "goss", "dart", "serve"),
                     default="higgs")
     ap.add_argument("--histogram-dtype", choices=("int8", "float32"),
                     default="int8",
@@ -86,8 +174,9 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         print("trace_main: no CUDA device is visible", file=sys.stderr)
         sys.exit(2)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    if args.workload == "serve":
+        _serve(args)
+        return
 
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import synth
@@ -137,50 +226,22 @@ def main(argv=None) -> None:
     for _ in range(WARMUPS.get(args.workload, WARMUP)):
         bst.update()
         bst.eval_valid()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(TRACED):
-            bst.update()
-            bst.eval_valid()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_s = _union_us([(e.time_range.start, e.time_range.end)
-                        for e in kernels]) * 1e-6
-    own = {v: 0.0 for v in OWN_KERNELS.values()}
-    other = 0.0
-    for e in kernels:
-        dur = (e.time_range.end - e.time_range.start) * 1e-6
-        tag = next((v for k, v in OWN_KERNELS.items() if k in e.name), None)
-        if tag is None:
-            other += dur
-        else:
-            own[tag] += dur
-    avg = prof.key_averages()
-    top_dev = sorted((a for a in avg if a.self_device_time_total > 0),
-                     key=lambda a: -a.self_device_time_total)[:12]
-    top_cpu = sorted(avg, key=lambda a: -a.self_cpu_time_total)[:12]
+
+    def step():
+        bst.update()
+        bst.eval_valid()
+
+    wall, prof = _trace(step, TRACED)
     out = {
         "device": torch.cuda.get_device_name(0),
         "workload": args.workload, "rows": args.rows,
         "histogram_dtype": params.get("histogram_dtype"),
         "traced_iterations": TRACED,
-        "wall_s_per_iter": wall / TRACED,
-        "device_busy_s_per_iter": busy_s / TRACED,
-        "device_idle_share": 1.0 - busy_s / wall,
-        "kernel_launches_per_iter": len(kernels) / TRACED,
-        "own_kernels_s_per_iter": {k: v / TRACED for k, v in own.items()},
-        "other_kernels_s_per_iter": other / TRACED,
         "boosting": type(bst._gbdt).__name__,
         "trees_per_iteration": bst._gbdt.K,
         "host_syncs_per_tree": bst._gbdt.host_syncs_per_tree[-1],
-        "top_device": [[a.key[:80], a.self_device_time_total * 1e-6 / TRACED,
-                        a.count // TRACED] for a in top_dev],
-        "top_host_self": [[a.key[:80], a.self_cpu_time_total * 1e-6 / TRACED,
-                           a.count // TRACED] for a in top_cpu],
     }
+    out.update(_summary(wall, prof, TRACED, "iter"))
     print(json.dumps(out))
     if args.trace:
         prof.export_chrome_trace(args.trace)

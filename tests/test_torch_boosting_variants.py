@@ -280,5 +280,7 @@ def test_rollback_matches_jax(probe, growth):
     fresh.add_trees(gt.models, 1)
     np.testing.assert_allclose(gt.train_score.get(), fresh.get(), rtol=0,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fresh.add_trees(gt.models, 1, "tensorized")
+    tens = ScoreUpdater(lambda: gt.learner.walk_bins, gt.num_data, 1,
+                        gt.device)
+    tens.add_trees(gt.models, 1, "tensorized")
+    np.testing.assert_allclose(tens.get(), fresh.get(), rtol=0, atol=1e-6)

@@ -19,7 +19,11 @@ import importlib, pkgutil, sys
 import lightgbm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     lightgbm_tpu_torch.__path__, "lightgbm_tpu_torch.")]
-assert "lightgbm_tpu_torch.ops.sparse_streams" in names, names
+for want in ("lightgbm_tpu_torch.ops.sparse_streams",
+             "lightgbm_tpu_torch.serving",
+             "lightgbm_tpu_torch.serving.server",
+             "lightgbm_tpu_torch.diagnostics.faults"):
+    assert want in names, (want, names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -87,3 +91,8 @@ def test_unported_paths_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lt.train({"bin_find": "sketch", "device_type": "cpu",
                   "verbose": -1}, lt.Dataset(X, X[:, 1]), 1)
+    # Booster.refit needs the online leaf refitter (item 14)
+    bst = lt.train({"device_type": "cpu", "verbose": -1},
+                   lt.Dataset(X, y), 2)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        bst.refit(X, y)
