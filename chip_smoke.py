@@ -228,6 +228,38 @@ call is the host f64 walk of every tree (LIGHTGBM_TPU_DEVICE_PREDICT=0,
              model file overwritten with the second model and polled; the
              generation flips, the answers are the second model's bitwise,
              and cache_misses does not move.
+16. online  — the online loop and the router at scripts/bench_online.py's
+             scenario, uncut (synth.synth_drift: 28 features, a base of
+             100,000 rows, a drifted window of 25,000, a drifted eval set
+             of 16,000; 60 trees of up to 255 leaves, max_bin 255, lr
+             0.1, min_data_in_leaf 20, min_sum_hessian_in_leaf 100,
+             refit_decay_rate 0, refit_min_rows 1).  A base model trained
+             on the card; LeafRefitter over a streaming window of the
+             training mappers, routed by the binned walk on the card: the
+             first refit and 5 steady refits (reset, refill with a fresh
+             drifted window, refit) timed; the leaf values held against
+             the CPU refit of the same model and window routed by the host
+             walk (within REFIT_RTOL relative + REFIT_ATOL), the rows the
+             two walks route differently counted, a second refit of the
+             first window bitwise the first; a 60-tree retrain on the
+             window timed; drifted-eval AUC of base, refit and retrain
+             (the refit's must beat the base's).  Then a PredictionServer
+             on the card (one replica, model_poll_seconds 0.2) over the
+             base model's file and an OnlineTrainer in refit mode fed the
+             window through append_traffic in 5 chunks: generation 1
+             published and adopted (publish to adoption timed), /stats
+             shows it with its refbin_sha1, cache_misses unchanged across
+             the swap, 16 answers of 64 rows bitwise the published
+             model's predict_ensemble_any after the sigmoid.  An
+             OnlineTrainer in continue mode appends 5 trees on the same
+             traffic, each launching K2, K4 and K3 (counts zeroed before
+             and read after).  Two backends on the card serving the
+             refitted model behind router_from_config: routed answers
+             bitwise the direct ones with X-Model-Id relayed; closed loops
+             (8 clients of 64 rows, 2 s) direct and routed, twice each,
+             interleaved, p50/p99 printed; the home backend stopped under
+             a routed loop with no client error, restarted on its port and
+             readmitted by the health sweep.
 
 Every kernel's ms is timed by CUDA events around each call, the method
 of earlier versions of this script; it includes the wrapper's host
@@ -1857,20 +1889,21 @@ TREE_KERNELS = ("hist_masked_int8", "partition_rows", "table_lookup")
 
 
 @contextlib.contextmanager
-def tree_launches(kernels):
-    """Each tree's launches of K1, K4 and K3 (TREE_KERNELS) while the
-    block runs: the rounds learner's train_device is wrapped to snapshot
-    the counts as each tree starts, so the counts between two snapshots
-    (the last taken when the block ends) are the histograms, partitions
-    and score adds (the training rows by leaf id, the valid walk, and any
-    walk of earlier trees before the next tree) of one tree.  Yields the
-    list that receives one [K1, K4, K3] entry a tree."""
+def tree_launches(kernels, names=TREE_KERNELS):
+    """Each tree's launches of the kernels `names` (K1, K4 and K3 by
+    default) while the block runs: the rounds learner's train_device is
+    wrapped to snapshot the counts as each tree starts, so the counts
+    between two snapshots (the last taken when the block ends) are the
+    histograms, partitions and score adds (the training rows by leaf id,
+    the valid walk, and any walk of earlier trees before the next tree)
+    of one tree.  Yields the list that receives one entry a tree, its
+    counts in the order of `names`."""
     from lightgbm_tpu_torch.learner.rounds import RoundsTreeLearner
     snaps, per_tree = [], []
     real = RoundsTreeLearner.train_device
 
     def wrapped(self, *a, **k):
-        snaps.append([kernels.LAUNCHES[n] for n in TREE_KERNELS])
+        snaps.append([kernels.LAUNCHES[n] for n in names])
         return real(self, *a, **k)
 
     RoundsTreeLearner.train_device = wrapped
@@ -1878,7 +1911,7 @@ def tree_launches(kernels):
         yield per_tree
     finally:
         RoundsTreeLearner.train_device = real
-        snaps.append([kernels.LAUNCHES[n] for n in TREE_KERNELS])
+        snaps.append([kernels.LAUNCHES[n] for n in names])
         per_tree.extend([b - a for a, b in zip(snaps[t], snaps[t + 1])]
                         for t in range(len(snaps) - 1))
 
@@ -2712,6 +2745,420 @@ def phase_serving(torch, lt, ns_bst, ns_Xv, card):
     return st
 
 
+# phase 16: the online loop and the router at scripts/bench_online.py's
+# scenario (:47-53, :111-123), uncut: 28 features, a 100,000-row base,
+# a 25,000-row drifted window, a 16,000-row drifted eval set, 60 trees
+ONLINE_BASE_ROWS, ONLINE_WINDOW, ONLINE_EVAL = 100_000, 25_000, 16_000
+ONLINE_TREES, ONLINE_REPS, ONLINE_CHUNKS = 60, 5, 5
+# card refit against the CPU refit of the same model and window: the
+# gradients differ in the last f32 bits (CUDA's exp against the host's),
+# and each iteration's scores feed the next, so a leaf may move by a few
+# f32 ulps of its gradient mass per iteration over 60 iterations
+REFIT_RTOL, REFIT_ATOL = 1e-4, 1e-6
+# continue mode: trees appended; the router's closed-loop rounds
+CONTINUE_TREES, ROUTE_SECONDS = 5, 2.0
+# the float32 path's kernels of one tree: K2, K4, K3
+F32_TREE_KERNELS = ("hist_masked_f32", "partition_rows", "table_lookup")
+
+
+def online_params(**kw) -> dict:
+    """scripts/bench_online.py's parameters on the card."""
+    from lightgbm_tpu_torch.synth import ONLINE_PARAMS
+    return dict(ONLINE_PARAMS, device_type=GPU, **kw)
+
+
+def auc(y, p) -> float:
+    """Rank-based AUC (Mann-Whitney, average ranks over tied scores), as
+    scripts/bench_online.py computes it."""
+    y = np.asarray(y) > 0.5
+    p = np.asarray(p, np.float64)
+    order = np.argsort(p, kind="mergesort")
+    _, inv, cnt = np.unique(p[order], return_inverse=True,
+                            return_counts=True)
+    ends = np.cumsum(cnt)
+    ranks = np.empty(len(p))
+    ranks[order] = ((ends - cnt + 1 + ends) / 2.0)[inv]
+    npos = int(y.sum())
+    nneg = len(y) - npos
+    return float((ranks[y].sum() - npos * (npos + 1) / 2) / (npos * nneg))
+
+
+def leaf_table(models) -> np.ndarray:
+    """Every tree's leaf values, padded with NaN: [trees, max leaves]."""
+    m = max(t.num_leaves for t in models)
+    out = np.full((len(models), m), np.nan)
+    for i, t in enumerate(models):
+        out[i, : t.num_leaves] = t.leaf_value[: t.num_leaves]
+    return out
+
+
+def online_refit(torch, lt, bst, Xw, yw, w_drift, Xe, ye, st):
+    """Part 1: LeafRefitter over a streaming window on the card (binned
+    routing), first and steady refits timed; the card's leaf values
+    against the CPU refit of the same model and window routed by the
+    host walk; run to run bitwise; AUCs of base, refit and retrain."""
+    from lightgbm_tpu_torch.dataset import Dataset as RawDataset
+    from lightgbm_tpu_torch.online import LeafRefitter, refit_gbdt
+    from lightgbm_tpu_torch.synth import synth_drift
+    g = bst._gbdt
+    cfg = g.config
+    cpu = lt.Booster(params=dict(bst.params, device_type="cpu"),
+                     model_str=bst.model_to_string())
+    window = RawDataset.streaming_from(g.train_set, cfg,
+                                       capacity=ONLINE_WINDOW)
+    window.append_rows(Xw, yw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refitter = LeafRefitter(g, window)
+    stats = refitter.refit()
+    torch.cuda.synchronize()
+    st["refit_first_s"] = time.perf_counter() - t0
+    if stats["trees_refit"] != ONLINE_TREES or refitter.device.type != GPU:
+        fail(f"refit on {refitter.device}: {stats}")
+    card = leaf_table(g.models)
+    st["auc_refit"] = auc(ye, host_walk(bst, Xe))
+    # the card's routes against the host walk's, on the same rows
+    card_leaf = refitter.route_binned().cpu().numpy().T
+    os.environ["LIGHTGBM_TPU_DEVICE_PREDICT"] = "0"
+    try:
+        host_leaf = cpu._gbdt.predict_leaf_index(Xw)
+    finally:
+        os.environ.pop("LIGHTGBM_TPU_DEVICE_PREDICT")
+    off = card_leaf != host_leaf
+    st["rows_routed_differently"] = int(off.any(axis=1).sum())
+    st["row_tree_pairs_routed_differently"] = int(off.sum())
+    t0 = time.perf_counter()
+    refit_gbdt(cpu._gbdt, window, leaf_idx=host_leaf)
+    st["cpu_refit_s"] = time.perf_counter() - t0
+    ref = leaf_table(cpu._gbdt.models)
+    err = np.abs(card - ref)
+    ok = err <= REFIT_RTOL * np.abs(ref) + REFIT_ATOL
+    st["refit_max_abs_err"] = float(np.nanmax(err))
+    st["refit_max_rel_err"] = float(np.nanmax(err / np.maximum(
+        np.abs(ref), 1e-12)))
+    # the daemon's cycle: reset, refill with a fresh drifted window, refit
+    steady = []
+    for i in range(ONLINE_REPS):
+        window.reset_rows()
+        Xr, yr = synth_drift(ONLINE_WINDOW, w_drift, seed=100 + i)
+        window.append_rows(Xr, yr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refitter.refit()
+        torch.cuda.synchronize()
+        steady.append(time.perf_counter() - t0)
+    st["refit_steady_s"] = steady
+    st["refit_steady_median_s"] = float(np.median(steady))
+    # the first window again: the same bits (the sums add in a fixed
+    # order; decay 0 makes the values independent of the last refit's)
+    window.reset_rows()
+    window.append_rows(Xw, yw)
+    refitter.refit()
+    same = bool(np.array_equal(leaf_table(g.models), card, equal_nan=True))
+    print(f"[online] refit on the card: first {st['refit_first_s']:.4f} s, "
+          f"steady median {st['refit_steady_median_s']:.4f} s "
+          f"({', '.join(f'{t:.4f}' for t in steady)}); CPU refit "
+          f"{st['cpu_refit_s']:.2f} s; {st['rows_routed_differently']} "
+          f"window rows ({st['row_tree_pairs_routed_differently']} "
+          f"(row, tree) pairs) routed differently by the card's binned "
+          f"walk and the host walk; leaf values card - CPU: max abs "
+          f"{st['refit_max_abs_err']:.3e}, max rel "
+          f"{st['refit_max_rel_err']:.3e} (tolerance {REFIT_RTOL:g} rel + "
+          f"{REFIT_ATOL:g}); run to run bitwise: {same}", flush=True)
+    if not ok[~np.isnan(ref)].all():
+        fail(f"card refit off the CPU refit: {int((~ok).sum())} leaves "
+             f"beyond {REFIT_RTOL:g} rel + {REFIT_ATOL:g}")
+    if not same:
+        fail("two card refits of one window differ")
+
+
+def online_serve_swap(torch, lt, path, Xw, yw, Xe, st):
+    """Part 2: a PredictionServer on the card polling `path`; an
+    OnlineTrainer (refit mode) fed the drifted window through
+    append_traffic in chunks publishes generation 1 to `path`; the
+    server adopts it with cache_misses unchanged and answers bitwise
+    the published model's value_ref."""
+    import http.client
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.online import OnlineTrainer, append_traffic
+    from lightgbm_tpu_torch.quantize import file_sha1
+    from lightgbm_tpu_torch.serving import ModelRegistry, PredictionServer
+    traffic = path + ".traffic.jsonl"
+    params = {"verbose": -1, "device_type": GPU}
+    reg = ModelRegistry(path, params=params, replicas=1,
+                        serve_quantize="raw", warmup_buckets=SERVE_BUCKETS)
+    if reg.current().replicas[0].device.type != GPU:
+        fail(f"online server runs on {reg.current().replicas[0].device}")
+    cfg = config_from_params(online_params(
+        online_trigger_rows=ONLINE_WINDOW))
+    trainer = OnlineTrainer(lt.Booster(params=params, model_file=path),
+                            traffic, path, config=cfg)
+    with PredictionServer(reg, model_poll_seconds=0.2) as srv:
+        if stats_of(srv)["online"] is not None:
+            fail("online block before any publish")
+        before = stats_of(srv)["cache_misses"]
+        gen0 = srv.registry.generation
+        step = ONLINE_WINDOW // ONLINE_CHUNKS
+        t0 = time.perf_counter()
+        published = []
+        for c in range(ONLINE_CHUNKS):
+            lo = c * step
+            append_traffic(traffic, Xw[lo:lo + step], yw[lo:lo + step],
+                           trace_ids=f"chunk-{c}")
+            published.append(trainer.poll_once())
+        t_pub = time.perf_counter()
+        st["traffic_and_refresh_s"] = t_pub - t0
+        if published != [False] * (ONLINE_CHUNKS - 1) + [True]:
+            fail(f"online trainer published {published}")
+        while srv.registry.generation == gen0:
+            if time.perf_counter() - t_pub > 60:
+                fail("the server did not adopt generation 1 in 60 s")
+            time.sleep(0.005)
+        st["swap_to_adoption_s"] = time.perf_counter() - t_pub
+        pub = lt.Booster(params=params, model_file=path)
+        ref = value_ref(torch, pub._gbdt.models, Xe[:64 * 16],
+                        float(pub._gbdt.objective.sigmoid))
+        bad = 0
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=120)
+        try:
+            for i in range(16):
+                lo = 64 * i
+                body = "\n".join(json.dumps([float(v) for v in r])
+                                 for r in Xe[lo:lo + 64])
+                conn.request("POST", "/predict", body)
+                resp = conn.getresponse()
+                text = resp.read().decode()
+                if resp.status != 200:
+                    fail(f"after the swap: HTTP {resp.status} {text[:200]}")
+                got = np.array([json.loads(v) for v in text.split()])
+                bad += not np.array_equal(got, ref[lo:lo + 64])
+        finally:
+            conn.close()
+        stats = stats_of(srv)
+    online = stats["online"] or {}
+    meta = trainer._read_meta() or {}
+    st["online_generation"] = online.get("generation")
+    st["refresh_seconds"] = meta.get("refresh_seconds")
+    print(f"[online] serve -> refit -> serve: {ONLINE_WINDOW} rows in "
+          f"{ONLINE_CHUNKS} chunks, traffic + refresh "
+          f"{st['traffic_and_refresh_s']:.2f} s (refresh "
+          f"{meta.get('refresh_seconds')} s), publish to adoption "
+          f"{st['swap_to_adoption_s']:.3f} s; /stats online generation "
+          f"{online.get('generation')}, refbin_sha1 "
+          f"{str(online.get('refbin_sha1'))[:12]}; cache_misses {before} "
+          f"-> {stats['cache_misses']}; 16 answers after the swap, {bad} "
+          f"not bitwise the published model's", flush=True)
+    if online.get("generation") != 1 or not online.get("refbin_sha1"):
+        fail(f"/stats online block: {online}")
+    if online["refbin_sha1"] != file_sha1(path + ".refbin"):
+        fail("published refbin_sha1 does not hash the .refbin")
+    if stats["cache_misses"] != before:
+        fail(f"the swap moved cache_misses {before} -> "
+             f"{stats['cache_misses']}")
+    if bad:
+        fail(f"{bad} answers after the swap are not the published model's")
+    return traffic
+
+
+def online_continue(torch, lt, kernels, path, traffic, tmp, st):
+    """Part 3: an OnlineTrainer in continue mode over the same traffic
+    appends CONTINUE_TREES trees through the float32 rounds learner: each
+    tree launches K2, K4 and K3 (counts zeroed before the refresh)."""
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.online import OnlineTrainer
+    params = {"verbose": -1, "device_type": GPU}
+    base = lt.Booster(params=params, model_file=path)
+    n0 = base.num_trees()
+    cfg = config_from_params(online_params(
+        online_mode="continue", num_iterations=CONTINUE_TREES,
+        online_trigger_rows=ONLINE_WINDOW))
+    trainer = OnlineTrainer(base, traffic, os.path.join(tmp, "cont.txt"),
+                            config=cfg)
+    kernels.reset_launches()
+    with tree_launches(kernels, F32_TREE_KERNELS) as per_tree:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = trainer.poll_once()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in F32_TREE_KERNELS}
+    n1 = lt.Booster(params=params,
+                    model_file=os.path.join(tmp, "cont.txt")).num_trees()
+    st["continue"] = dict(seconds=secs, trees=[n0, n1], launches=launches,
+                          per_tree=per_tree)
+    print(f"[online] continue mode: {n0} -> {n1} trees in {secs:.2f} s "
+          f"(parse, bin, replay, grow); launches {json.dumps(launches)}; "
+          f"per tree [K2, K4, K3] {per_tree}", flush=True)
+    if not done or n1 != n0 + CONTINUE_TREES:
+        fail(f"continue mode: published {done}, {n0} -> {n1} trees")
+    if len(per_tree) != CONTINUE_TREES or any(min(c) < 1 for c in per_tree):
+        fail(f"continue mode: a tree launched no K2, K4 or K3: {per_tree}")
+
+
+def online_router(torch, lt, path, Xe, tmp, st):
+    """Part 4: two backends on the card serving the refitted model behind
+    router_from_config: routed answers bitwise the direct ones with
+    X-Model-Id relayed; closed loops direct and routed, twice each,
+    interleaved; a backend stopped mid-loop with no client error, then
+    restarted on its port and readmitted by the health sweep."""
+    import http.client
+    import shutil
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.router import router_from_config
+    from lightgbm_tpu_torch.serving import ModelRegistry, PredictionServer
+    params = {"verbose": -1, "device_type": GPU}
+    model = os.path.join(tmp, "routed.txt")
+    shutil.copyfile(path, model)
+
+    def backend(port=0):
+        reg = ModelRegistry(model, params=params, replicas=1,
+                            serve_quantize="raw",
+                            warmup_buckets=SERVE_BUCKETS)
+        return PredictionServer(reg, port=port,
+                                model_poll_seconds=0).start()
+
+    servers = [backend(), backend()]
+    addrs = [f"127.0.0.1:{s.port}" for s in servers]
+    rt = router_from_config(config_from_params({
+        "task": "route", "route_backends": ",".join(addrs),
+        "route_port": 0, "serve_host": "127.0.0.1",
+        "route_health_interval_ms": 200}))
+    bst = lt.Booster(params=params, model_file=model)
+    ref = value_ref(torch, bst._gbdt.models, Xe,
+                    float(bst._gbdt.objective.sigmoid))
+    try:
+        with rt:
+            bad = 0
+            conn = http.client.HTTPConnection(rt.host, rt.port, timeout=120)
+            try:
+                for i in range(16):
+                    body = "\n".join(json.dumps([float(v) for v in r])
+                                     for r in Xe[64 * i:64 * i + 64])
+                    conn.request("POST", "/predict", body)
+                    resp = conn.getresponse()
+                    routed = resp.read()
+                    if (resp.status != 200
+                            or resp.getheader("X-Model-Id") != "default"):
+                        fail(f"routed: HTTP {resp.status}, X-Model-Id "
+                             f"{resp.getheader('X-Model-Id')}")
+                    for s in servers:
+                        c2 = http.client.HTTPConnection(s.host, s.port,
+                                                        timeout=120)
+                        try:
+                            c2.request("POST", "/predict", body)
+                            bad += c2.getresponse().read() != routed
+                        finally:
+                            c2.close()
+            finally:
+                conn.close()
+            print(f"[route] 16 routed answers, {bad} not bitwise the "
+                  "direct answers of both backends; X-Model-Id relayed",
+                  flush=True)
+            if bad:
+                fail(f"{bad} routed answers differ from direct ones")
+            home = addrs.index(rt.ring.place("default"))
+            loops = {}
+            for rnd in range(2):
+                for name, srv in (("direct", servers[home]),
+                                  ("routed", rt)):
+                    lat, answers, wall, errors = closed_loop(
+                        srv, Xe, seconds=ROUTE_SECONDS)
+                    if errors or not lat:
+                        fail(f"{name} loop: {errors[:3]}")
+                    check_answers(f"router, {name}", answers, ref)
+                    loops.setdefault(name, []).append(loop_stats(lat, wall))
+            best = {k: min(v, key=lambda d: d["p50_ms"])
+                    for k, v in loops.items()}
+            st["route"] = best
+            st["route_added_p50_ms"] = (best["routed"]["p50_ms"]
+                                        - best["direct"]["p50_ms"])
+            print(f"[route] closed loop ({SERVE_CLIENTS} clients x "
+                  f"{SERVE_ROWS_PER_REQ} rows, {ROUTE_SECONDS:g} s, best of "
+                  f"2 interleaved rounds): direct p50 "
+                  f"{best['direct']['p50_ms']:.3f} ms p99 "
+                  f"{best['direct']['p99_ms']:.3f} ms; routed p50 "
+                  f"{best['routed']['p50_ms']:.3f} ms p99 "
+                  f"{best['routed']['p99_ms']:.3f} ms; added p50 "
+                  f"{st['route_added_p50_ms']:.3f} ms", flush=True)
+            # the home backend dies under load: every request still 200
+            port = servers[home].port
+            out = {}
+            loop = threading.Thread(target=lambda: out.update(zip(
+                ("lat", "answers", "wall", "errors"),
+                closed_loop(rt, Xe, seconds=3 * ROUTE_SECONDS))))
+            loop.start()
+            time.sleep(ROUTE_SECONDS)
+            servers[home].stop()
+            loop.join(timeout=120)
+            if loop.is_alive() or out.get("errors") or not out.get("lat"):
+                fail(f"loop through a backend stop: "
+                     f"{(out.get('errors') or ['no answers'])[:3]}")
+            check_answers("router, backend stopped", out["answers"], ref)
+            healthy = rt.healthy_count()
+            servers[home] = backend(port)
+            t0 = time.perf_counter()
+            while rt.healthy_count() < 2:
+                if time.perf_counter() - t0 > 30:
+                    fail("the restarted backend was not readmitted in 30 s")
+                time.sleep(0.05)
+            st["readmit_s"] = time.perf_counter() - t0
+            print(f"[route] home backend stopped mid-loop: "
+                  f"{len(out['lat'])} requests, 0 client errors, healthy "
+                  f"{healthy} of 2 after; restarted on its port, readmitted "
+                  f"in {st['readmit_s']:.2f} s", flush=True)
+    finally:
+        for s in servers:
+            s.stop()
+
+
+def phase_online(torch, lt, kernels, card):
+    """Phase 16: the online loop and the router on the card."""
+    from lightgbm_tpu_torch.synth import drift_weights, synth_drift
+    t_phase = time.perf_counter()
+    params = online_params()
+    w_base, w_drift = drift_weights()
+    Xb, yb = synth_drift(ONLINE_BASE_ROWS, w_base, seed=1)
+    Xw, yw = synth_drift(ONLINE_WINDOW, w_drift, seed=2)
+    Xe, ye = synth_drift(ONLINE_EVAL, w_drift, seed=3)
+    st = {}
+    t0 = time.perf_counter()
+    bst = lt.train(params, lt.Dataset(Xb, yb, params=params), ONLINE_TREES,
+                   verbose_eval=False)
+    torch.cuda.synchronize()
+    st["base_train_s"] = time.perf_counter() - t0
+    if bst.num_trees() != ONLINE_TREES:
+        fail(f"online base model: {bst.num_trees()} of {ONLINE_TREES} trees")
+    st["auc_base"] = auc(ye, host_walk(bst, Xe))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.txt")
+        bst.save_model(path)
+        online_refit(torch, lt, bst, Xw, yw, w_drift, Xe, ye, st)
+        lt.train(params, lt.Dataset(Xw, yw, params=params), 2,
+                 verbose_eval=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        re_bst = lt.train(params, lt.Dataset(Xw, yw, params=params),
+                          ONLINE_TREES, verbose_eval=False)
+        torch.cuda.synchronize()
+        st["retrain_s"] = time.perf_counter() - t0
+        st["auc_retrain"] = auc(ye, host_walk(re_bst, Xe))
+        print(f"[online] base model {st['base_train_s']:.2f} s on "
+              f"{ONLINE_BASE_ROWS} rows; retrain of {ONLINE_TREES} trees on "
+              f"the window {st['retrain_s']:.2f} s; drifted-eval AUC base "
+              f"{st['auc_base']:.6f}, refit {st['auc_refit']:.6f}, retrain "
+              f"{st['auc_retrain']:.6f} ({card})", flush=True)
+        if not st["auc_refit"] > st["auc_base"]:
+            fail(f"refit AUC {st['auc_refit']} not above base "
+                 f"{st['auc_base']}")
+        traffic = online_serve_swap(torch, lt, path, Xw, yw, Xe, st)
+        online_continue(torch, lt, kernels, path, traffic, tmp, st)
+        online_router(torch, lt, path, Xe, tmp, st)
+    st["phase_s"] = time.perf_counter() - t_phase
+    print(f"[online] {json.dumps(st)}", flush=True)
+    print(f"[online] phase 16: {st['phase_s']:.1f} s", flush=True)
+    return st
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2797,6 +3244,10 @@ def main() -> None:
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     phase_serving(torch, lt, ns_bst, ns_Xv, card)
     del ns_ds, ns_vs, ns_Xv, ns_bst
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    phase_online(torch, lt, kernels, card)
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

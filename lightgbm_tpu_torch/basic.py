@@ -8,9 +8,9 @@ subsets (for `cv`) and pandas categoricals; a scipy sparse matrix goes to
 `Booster` built through `create_boosting` (gbdt, goss or dart, from the
 parameters or from a model's first line) with update (custom objectives
 too), rollback, parameter resets, eval with custom metrics, prediction
-(values, raw scores, leaf indices), the text model with its
-pandas-categorical trailer, the JSON dump, feature importances and
-pickling.  pandas is never imported here: a DataFrame is read through
+(values, raw scores, leaf indices), leaf refit (`Booster.refit`, over
+online/refit.py), the text model with its pandas-categorical trailer,
+the JSON dump, feature importances and pickling.  pandas is never imported here: a DataFrame is read through
 its own methods.
 """
 from __future__ import annotations
@@ -409,9 +409,33 @@ class Booster:
 
     def refit(self, data, label, decay_rate: float = 0.9, weight=None,
               **kwargs) -> "Booster":
-        raise NotImplementedError(
-            "Booster.refit needs the online leaf refitter "
-            "(online/refit.py), not ported yet (ROADMAP.md §A item 14)")
+        """Refit the model's LEAF VALUES on new data (tree structures
+        unchanged) and return the refitted Booster; `self` is untouched
+        (upstream's ``Booster.refit(data, label, decay_rate)``).
+
+        new_leaf = decay_rate * old + (1 - decay_rate) * newton_output,
+        by online/refit.py on the booster's device.  Rows are routed on
+        their raw values (`predict_leaf_index`, as upstream's pred_leaf
+        then LGBM_BoosterRefit).  kwargs become dataset and refit
+        parameters (``refit_min_rows``, say)."""
+        if label is None:
+            raise ValueError("refit needs labels")
+        params = dict(self.params)
+        params.update(kwargs)
+        new = Booster(params=params, model_str=self.model_to_string())
+        data = _apply_pandas_categorical(data, self.pandas_categorical)
+        X = _to_numpy(data)
+        if X.ndim == 1:
+            X = X.reshape(1, -1)
+        md = Metadata()
+        if weight is not None:
+            md.weights = _to_numpy(weight).reshape(-1).astype(np.float32)
+        inner = _InnerDataset(X, _to_numpy(label).reshape(-1),
+                              config_from_params(params), metadata=md)
+        from .online.refit import refit_gbdt
+        leaf = new._gbdt.predict_leaf_index(X)
+        refit_gbdt(new._gbdt, inner, decay_rate=decay_rate, leaf_idx=leaf)
+        return new
 
     # -- prediction ------------------------------------------------------------
 

@@ -28,6 +28,13 @@ learners translate between the two with `bundle_feat_table` and
 `unbundle_tables`.  Valid sets inherit their reference's plan.  A sparse
 store over bundled columns is not ported: where one would form,
 construction raises NotImplementedError.
+
+A streaming dataset (`streaming_from`, `from_stream`) bins appended
+chunks against frozen mappers into a store that grows along a
+power-of-two row-capacity ladder (`row_capacity_tier`); `reset_rows`
+empties it and keeps the tier, `compacted` copies its rows out.  The
+online trainer's window is one.  `bin_find=sketch` derives the mappers
+from mergeable quantile summaries (sharded/sketch.py).
 """
 from __future__ import annotations
 
@@ -45,6 +52,21 @@ from .quantize import bin_column_into, bin_rows_into
 
 # rows used to estimate pairwise feature conflicts when planning bundles
 BUNDLE_PLAN_SAMPLE_CNT = 50_000
+
+# smallest row capacity of a streaming (appendable) dataset store; growth
+# doubles from here, so the capacities form a power-of-two ladder
+STREAM_CAPACITY_BASE = 1024
+
+
+def row_capacity_tier(n: int, base: int = STREAM_CAPACITY_BASE) -> int:
+    """Smallest power-of-two multiple of `base` that is >= n: the row
+    capacity of a streaming store holding n rows.  Appends within a tier
+    keep the store's array, so the capacity grows O(log rows) times."""
+    cap = max(int(base), 1)
+    n = max(int(n), 1)
+    while cap < n:
+        cap <<= 1
+    return cap
 
 # densifications of a sparse store, by consumer site (the JAX package's
 # tree/sparse_fallbacks counter); a csr run reads 0 here
@@ -294,12 +316,12 @@ class Dataset:
             mappers, used = reference.mappers, reference.used_features
             plan = reference.bundle_plan
         else:
-            mappers, used, plan = self._find_mappers(X, cfg,
-                                                     categorical_feature)
+            mappers, used, plan = self._find_mappers(
+                X, cfg, categorical_feature,
+                sketch=cfg.bin_find == "sketch")
         self._init_store(cfg, mappers, used, n, num_raw, feature_names, plan)
         t1 = time.perf_counter()
-        self.bundle_conflict_rows += bin_rows_into(X, mappers, used, plan,
-                                                   self._bins, 0)
+        self._bin_rows_into(X, 0)
         self._check_realized_conflicts()
         # training sets by the resolver; valid sets follow their
         # reference's layout (a csr valid set is scored from its ELL rows)
@@ -314,18 +336,25 @@ class Dataset:
 
     @staticmethod
     def _find_mappers(sample: np.ndarray, cfg: Config,
-                      categorical_feature: Sequence[int]):
+                      categorical_feature: Sequence[int],
+                      sketch: bool = False):
         """(mappers, used features, bundle plan or None) from a
-        raw-valued row sample; refuses sketch bin finding, which is not
-        ported."""
-        if cfg.bin_find == "sketch":
-            raise NotImplementedError(
-                "bin_find=sketch is not ported yet (ROADMAP.md §A item 12)")
-        mappers = find_bin_mappers(
-            sample, cfg.max_bin, cfg.min_data_in_bin, cfg.min_data_in_leaf,
-            categorical=categorical_feature,
-            sample_cnt=cfg.bin_construct_sample_cnt,
-            seed=cfg.data_random_seed, bin_budget=cfg.bin_budget)
+        raw-valued row sample.  `sketch` (the dense constructor under
+        bin_find=sketch) derives the mappers from mergeable quantile
+        summaries over every row of `sample` (sharded/sketch.py), the
+        derivation of the streamed construction; exact whenever
+        sketch_eps holds every distinct value."""
+        if sketch:
+            from .sharded.sketch import sketch_columns
+            mappers = sketch_columns(
+                sample, cfg, categorical=categorical_feature
+            ).mappers_from_config(cfg)
+        else:
+            mappers = find_bin_mappers(
+                sample, cfg.max_bin, cfg.min_data_in_bin,
+                cfg.min_data_in_leaf, categorical=categorical_feature,
+                sample_cnt=cfg.bin_construct_sample_cnt,
+                seed=cfg.data_random_seed, bin_budget=cfg.bin_budget)
         used = [i for i, m in enumerate(mappers) if not m.is_trivial]
         plan = _plan_bundles_from_sample(sample, mappers, used, cfg)
         _log_bundle_state(plan, len(used), cfg)
@@ -527,6 +556,141 @@ class Dataset:
                 torch.as_tensor(sp.bins.astype(np.int32), device=device),
                 torch.as_tensor(sp.zero_bin.astype(np.int32),
                                 device=device))
+
+    # -- streaming append path ---------------------------------------------
+    #
+    # A streaming dataset shares a reference dataset's FROZEN BinMappers
+    # and BundlePlan (incoming chunks are never re-quantized: they bin
+    # into the store layout the model's trees were rebinned to) and grows
+    # its [C, capacity] host store along the power-of-two capacity ladder.
+    # Rows past num_data hold bin 0.
+
+    @property
+    def row_capacity(self) -> int:
+        """Allocated row slots of the store (num_data except for a
+        streaming dataset, whose store grows in capacity tiers)."""
+        if self._bins is None and self.sparse is not None:
+            return int(self.num_data)
+        return int(self._bins.shape[1])
+
+    @classmethod
+    def from_stream(cls, chunks, config: Optional[Config] = None,
+                    reference: Optional["Dataset"] = None,
+                    feature_names: Optional[List[str]] = None,
+                    categorical_feature: Sequence[int] = (),
+                    capacity: int = 0) -> "Dataset":
+        """Out-of-core streamed construction (sharded/ingest.py): a
+        sketch pass over the chunk stream derives the bin mappers, then
+        each chunk bins straight into the capacity-tiered store; while
+        the data fits the sample budget the mappers are bitwise the batch
+        construction's.  `chunks` is a callable returning a fresh
+        iterator of (X, y, w) tuples, a list of such tuples, or an
+        (X, y[, w]) array tuple; `reference` skips the sketch pass and
+        bins against its frozen mappers (the online window)."""
+        from .sharded.ingest import dataset_from_stream
+        return dataset_from_stream(
+            chunks, config=config, reference=reference,
+            feature_names=feature_names,
+            categorical_feature=categorical_feature, capacity=capacity)
+
+    @classmethod
+    def streaming_from(cls, reference: "Dataset",
+                       config: Optional[Config] = None,
+                       capacity: int = STREAM_CAPACITY_BASE) -> "Dataset":
+        """An empty appendable Dataset binning against `reference`'s
+        frozen mappers and bundle plan; `capacity` seeds the tier."""
+        cfg = config or reference.config
+        ds = cls._empty_from_mappers(cfg, reference.mappers,
+                                     list(reference.used_features),
+                                     row_capacity_tier(capacity),
+                                     reference.num_total_features,
+                                     list(reference.feature_names),
+                                     plan=reference.bundle_plan)
+        ds._bins[:] = 0
+        ds.num_data = 0
+        return ds
+
+    def _bin_rows_into(self, X: np.ndarray, row0: int) -> None:
+        """Bin raw rows X into store rows [row0, row0 + len(X)) through
+        quantize.bin_rows_into (the construction's own mapper
+        application); realized bundle conflicts are counted."""
+        self.bundle_conflict_rows += bin_rows_into(
+            X, self.mappers, self.used_features, self.bundle_plan,
+            self._bins, row0)
+
+    def _reserve_rows(self, n: int) -> None:
+        """Grow the store to the next capacity tier holding n rows."""
+        cap = self.row_capacity
+        if n <= cap:
+            return
+        new_cap = row_capacity_tier(n, base=max(cap, 1) * 2)
+        grown = np.zeros((self._bins.shape[0], new_cap), self._bins.dtype)
+        grown[:, :cap] = self._bins
+        self._bins = grown
+
+    def append_rows(self, X: np.ndarray, label=None, weight=None) -> int:
+        """Bin a chunk of raw rows into the store (frozen mappers) and
+        append its labels and weights; returns the new row count."""
+        X = np.ascontiguousarray(np.asarray(X, np.float64))
+        if X.ndim != 2 or X.shape[1] != self.num_total_features:
+            raise ValueError(
+                f"append_rows expects [rows, {self.num_total_features}] "
+                f"features, got {X.shape}")
+        n0, add = self.num_data, len(X)
+        if add == 0:
+            return n0
+        self._reserve_rows(n0 + add)
+        self._bin_rows_into(X, n0)
+        md = self.metadata
+        if label is not None:
+            lab = np.asarray(label, np.float32).reshape(-1)
+            if lab.size != add:
+                raise ValueError("label length mismatch")
+            if n0 and md.label.size != n0:
+                raise ValueError(
+                    "cannot append labeled rows to an unlabeled dataset")
+            md.label = np.concatenate([md.label, lab]) if n0 else lab
+        elif md.label.size:
+            raise ValueError(
+                "cannot append unlabeled rows to a labeled dataset")
+        if weight is not None:
+            w = np.asarray(weight, np.float32).reshape(-1)
+            if w.size != add:
+                raise ValueError("weight length mismatch")
+            if md.weights is None:
+                md.weights = (np.concatenate(
+                    [np.ones(n0, np.float32), w]) if n0 else w)
+            else:
+                md.weights = np.concatenate([md.weights, w])
+        elif md.weights is not None:
+            md.weights = np.concatenate(
+                [md.weights, np.ones(add, np.float32)])
+        self.num_data = n0 + add
+        return self.num_data
+
+    def reset_rows(self) -> None:
+        """Drop every row but keep the capacity tier (the online
+        trainer's window between refreshes)."""
+        self._bins[:] = 0
+        self.num_data = 0
+        self.bundle_conflict_rows = 0
+        self.metadata = Metadata()
+
+    def compacted(self) -> "Dataset":
+        """A [C, num_data] copy of a streaming dataset (the capacity
+        slack dropped), what the learners train on.  The metadata is
+        shared (its arrays already have num_data rows)."""
+        ds = Dataset._empty_from_mappers(
+            self.config, self.mappers, list(self.used_features), 0,
+            self.num_total_features, list(self.feature_names),
+            plan=self.bundle_plan)
+        ds.num_data = self.num_data
+        # a copy: at num_data == capacity the slice is the whole array,
+        # and reset_rows() would zero an alias in place
+        ds._bins = self._bins[:, : self.num_data].copy()
+        ds.bundle_conflict_rows = self.bundle_conflict_rows
+        ds.metadata = self.metadata
+        return ds
 
     # -- bundle views --------------------------------------------------------
 

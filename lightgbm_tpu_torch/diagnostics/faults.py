@@ -28,10 +28,25 @@ Spec grammar: ``site:seqs`` groups separated by ``;``; ``seqs`` is a
 comma list of 1-based sequence numbers and ``a-b`` ranges, or ``*``
 (every hit).  A bare ``site`` means ``site:*``.
 
-Sites wired into the port: ``serve.dispatch`` / ``serve.dispatch.r<N>``
-— a replica dispatch (any / replica N) raises before executing
-(serving/runtime.py).  The JAX package's training, router and online
-seams come with those modules.
+Sites wired into the port:
+
+- ``serve.dispatch`` / ``serve.dispatch.r<N>`` — replica dispatch (any /
+  replica N) raises before executing (serving/runtime.py)
+- ``route.backend`` / ``route.backend.b<N>`` — router→backend round-trip
+  (any / backend N) raises before connecting: covers proxied requests,
+  health probes, and stats fetches
+- ``online.before_publish`` — crash after refresh compute, before the
+  model/meta renames
+- ``online.publish_model`` — published model file torn mid-write, crash
+- ``online.between_renames`` — crash after the model rename, before the
+  meta rename (resolved by the intent's staged-model sha1)
+- ``online.after_publish`` — crash after the renames, before the state
+  sidecar flush (the publish-intent recovery case)
+- ``online.state_write`` — daemon state sidecar torn mid-write, crash
+- ``traffic.append`` — traffic-log record torn mid-append, crash
+
+The JAX package's training seams (``train.checkpoint``,
+``train.after_checkpoint``) come with ROADMAP.md §A item 15.
 """
 from __future__ import annotations
 

@@ -123,10 +123,33 @@ SERVE_GROUP_SEGMENT_ROWS = "serve/group_segment_rows"
 SERVE_GROUP_STACKED_ROWS = "serve/group_stacked_rows"
 SERVE_GROUP_QUANTIZE_SHARED = "serve/group_quantize_shared"
 
+# Canonical router-tier counters (router/server.py), fed through count()
+# by the router fronting M backend serving processes:
+#  - ROUTER_REQUESTS: /predict requests accepted by the router (the
+#    per-model and per-backend labeled series ride the same base name).
+#  - ROUTER_RETRIES: proxied dispatches that failed at the transport
+#    layer and were re-run once on a different healthy backend.
+#  - ROUTER_REJECTED: requests shed with 503 — the `route_max_inflight`
+#    admission cap, or no healthy backend placeable for the model.
+#  - ROUTER_BACKEND_FAILURES / ROUTER_BACKEND_BROKEN /
+#    ROUTER_BACKEND_READMITTED / ROUTER_BACKEND_PROBES: per-event
+#    transitions of the per-backend circuit breakers.
+#  - ROUTER_REHASHES: requests whose placement (override target or
+#    ring-home backend) was open-breaker and re-placed onto the next
+#    healthy backend clockwise.
+ROUTER_REQUESTS = "router/requests"
+ROUTER_RETRIES = "router/retries"
+ROUTER_REJECTED = "router/rejected"
+ROUTER_BACKEND_FAILURES = "router/backend_failures"
+ROUTER_BACKEND_BROKEN = "router/backend_broken"
+ROUTER_BACKEND_READMITTED = "router/backend_readmitted"
+ROUTER_BACKEND_PROBES = "router/backend_probes"
+ROUTER_REHASHES = "router/rehashes"
+
 # Every canonical counter constant of this module, in one tuple: the
 # Prometheus exposition (telemetry.prometheus_text) seeds each of these
 # at 0 so a scrape always covers the full canonical set.  The JAX
-# package's learner and router counters come with those modules.
+# package's learner counters come with the multi-device learners.
 CANONICAL_COUNTERS = (
     REGISTRY_SWAP_FAILURES, SERVE_CHUNK_RETRIES, SERVE_REPLICA_FAILURES,
     SERVE_REPLICA_BROKEN, SERVE_REPLICA_READMITTED, SERVE_REPLICA_PROBES,
@@ -135,6 +158,9 @@ CANONICAL_COUNTERS = (
     SERVE_SHADOW_REJECTIONS, SERVE_GROUP_COMPILES, SERVE_GROUP_RESTACKS,
     SERVE_GROUP_SEGMENT_ROWS, SERVE_GROUP_STACKED_ROWS,
     SERVE_GROUP_QUANTIZE_SHARED,
+    ROUTER_REQUESTS, ROUTER_RETRIES, ROUTER_REJECTED,
+    ROUTER_BACKEND_FAILURES, ROUTER_BACKEND_BROKEN,
+    ROUTER_BACKEND_READMITTED, ROUTER_BACKEND_PROBES, ROUTER_REHASHES,
 )
 
 

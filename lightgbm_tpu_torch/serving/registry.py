@@ -271,10 +271,15 @@ class ModelRegistry:
                     # for BOTH this registry's warmup kinds and whatever
                     # kinds actually saw traffic (so no post-swap request
                     # of either output kind compiles on the request path).
-                    # Co-stacked tenants skip this: their traffic runs on
-                    # the group's executable, which the catalog restack
-                    # warms (or cache-transplants) after this swap lands.
+                    # A same-shape republish (a refit changes leaf values,
+                    # not shapes) first transplants the outgoing entries,
+                    # so the warmup builds only what the old generation
+                    # lacked.  Co-stacked tenants skip this: their
+                    # traffic runs on the group's executable, which the
+                    # catalog restack warms (or cache-transplants) after
+                    # this swap lands.
                     if not self.costacked:
+                        runtime.adopt_cache_from(old)
                         buckets = ({b for b, _k in old.buckets_compiled()}
                                    or {1})
                         kinds = ({k for _b, k in old.buckets_compiled()}

@@ -196,6 +196,17 @@ class _Replica:
         self.probes = 0         # half-open probes attempted
 
 
+def _value_signature(runtime: "PredictorRuntime"):
+    """Hashable identity of a runtime's fused device transform — part of
+    the program signature (transplanting entries across a transform
+    change would serve wrong values)."""
+    if runtime._device_value is None:
+        return None
+    obj = runtime.objective
+    return (getattr(obj, "name", ""),
+            float(getattr(obj, "sigmoid", 0.0) or 0.0))
+
+
 def _sigmoid_fn(sig: float):
     return lambda raw: torch.sigmoid(sig * raw)
 
@@ -493,6 +504,45 @@ class PredictorRuntime:
             self.cache_misses += 1
             profiling.count("serve.cache_miss")
         return winner
+
+    # -- swap transplant ------------------------------------------------
+
+    def program_signature(self):
+        """What an entry's program depends on besides the stacks it takes
+        at each call: the stacks' shapes and dtypes, the walk's meta, the
+        kernel and buffer, and the fused transform — never the leaf or
+        threshold values.  Two runtimes with one signature can share
+        entries (a refit republish)."""
+        def shapes(st):
+            if st is None:
+                return None
+            if isinstance(st, list):
+                return tuple(shapes(x) for x in st)
+            return tuple((tuple(a.shape), str(a.dtype)) for a in st)
+        return (self.variant, self.predict_kernel,
+                str(np.dtype(self._buf_dtype)), self._buf_cols, self.K,
+                self._meta, tuple(getattr(self, "_depths", ())),
+                _value_signature(self), shapes(self.replicas[0].stacks))
+
+    def adopt_cache_from(self, old: "PredictorRuntime") -> bool:
+        """Carry the outgoing runtime's prepared entries over to this
+        runtime's stacks when the program signature, the replica count
+        and their devices match, so a same-shape swap builds nothing.
+        Returns False (the caller warms instead) on any mismatch."""
+        if (type(old) is not type(self)
+                or len(old.replicas) != len(self.replicas)
+                or any(m.device != o.device
+                       for m, o in zip(self.replicas, old.replicas))
+                or old.program_signature() != self.program_signature()):
+            return False
+        with old._lock:
+            snap = [(dict(r.compiled), dict(r.exe_bytes))
+                    for r in old.replicas]
+        with self._lock:
+            for mine, (compiled, exe_bytes) in zip(self.replicas, snap):
+                mine.compiled = compiled
+                mine.exe_bytes = exe_bytes
+        return True
 
     # -- introspection --------------------------------------------------
 

@@ -48,7 +48,8 @@ import numpy as np
 
 from .. import profiling, telemetry
 from ..log import LightGBMError
-from .runtime import OUTPUT_KINDS, PredictorRuntime, _Replica
+from .runtime import (OUTPUT_KINDS, PredictorRuntime, _Replica,
+                      _value_signature)
 
 # the tenant-id column must fit the narrowest binned buffer dtype
 # (uint8): ids 0..255.  Groups larger than this split into chunks.
@@ -107,17 +108,6 @@ def _quantizer_signature(q) -> Optional[tuple]:
             h.update(np.ascontiguousarray(bins).tobytes())
     return (q.num_total_features, q.num_columns, str(np.dtype(q.dtype)),
             int(q.missing_bin), h.hexdigest())
-
-
-def _value_signature(runtime: PredictorRuntime):
-    """Hashable identity of a member's fused device transform — part of
-    the group program signature (transplanting executables across a
-    transform change would serve wrong values)."""
-    if runtime._device_value is None:
-        return None
-    obj = runtime.objective
-    return (getattr(obj, "name", ""),
-            float(getattr(obj, "sigmoid", 0.0) or 0.0))
 
 
 class GroupRuntime(PredictorRuntime):
@@ -275,32 +265,6 @@ class GroupRuntime(PredictorRuntime):
 
     def program_signature(self):
         return self._signature
-
-    def adopt_cache_from(self, old: "GroupRuntime") -> bool:
-        """Carry the outgoing group's prepared entries over to this
-        runtime's (new) stacks.  Valid only when the program signature
-        is unchanged — an entry takes the stacks at each call and
-        depends on their shapes and dtypes, not their values, so a
-        same-shape restack (the common refit republish) rebuilds
-        NOTHING.  Returns False (caller warms instead) on any
-        mismatch."""
-        if not isinstance(old, GroupRuntime):
-            return False
-        if old.program_signature() != self.program_signature():
-            return False
-        if len(old.replicas) != len(self.replicas):
-            return False
-        if any(m.device != o.device
-               for m, o in zip(self.replicas, old.replicas)):
-            return False
-        with old._lock:
-            snap = [(dict(r.compiled), dict(r.exe_bytes))
-                    for r in old.replicas]
-        with self._lock:
-            for mine, (compiled, exe_bytes) in zip(self.replicas, snap):
-                mine.compiled = compiled
-                mine.exe_bytes = exe_bytes
-        return True
 
     # -- prediction ------------------------------------------------------
 

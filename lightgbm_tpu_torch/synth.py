@@ -33,6 +33,14 @@ model (scripts/bench_serve.py:60-96): rand(20,000, 28) with a linear
 label cut at its median, binary, 63 leaves at depth 8, 500 trees;
 `train_serve_model` trains it.  chip_smoke.py's phase 15 and
 trace_main.py's serve workload both serve it.
+
+`synth_drift` with `drift_weights` and `ONLINE_PARAMS` are the JAX
+package's online-learning scenario (scripts/bench_online.py:60-68,
+:111-123): HIGGS-shaped standard-normal rows labeled by a linear
+function with logistic noise; the world drifts when the first half of
+the label weights flips sign, so the tree structures stay informative
+while their leaf values go stale.  chip_smoke.py's phase 16 and the
+online tests run it.
 """
 from __future__ import annotations
 
@@ -151,3 +159,29 @@ def train_serve_model(seed: int = 0, rounds: int = SERVE_TREES,
     p = dict(SERVE_PARAMS, **params)
     ds = Dataset(X, y, params=p)
     return train(p, ds, rounds, verbose_eval=False), ds, X
+
+
+# scripts/bench_online.py:111-116: the base model and its refits
+ONLINE_FEATURES = 28
+ONLINE_PARAMS = {"objective": "binary", "metric": "auc", "verbose": -1,
+                 "num_leaves": 255, "max_bin": 255, "learning_rate": 0.1,
+                 "min_data_in_leaf": 20, "min_sum_hessian_in_leaf": 100.0,
+                 "refit_decay_rate": 0.0, "refit_min_rows": 1}
+
+
+def drift_weights(f: int = ONLINE_FEATURES):
+    """(base, drifted) label weights: default_rng(7) normals, the first
+    f // 2 flipped in sign for the drifted world."""
+    w_base = np.random.default_rng(7).standard_normal(f)
+    w_drift = w_base.copy()
+    w_drift[: f // 2] *= -1.0
+    return w_base, w_drift
+
+
+def synth_drift(n: int, weights: np.ndarray, seed: int):
+    """n rows of standard normals labeled (X @ weights + 0.5 logistic
+    noise > 0) as float64 0/1, from default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, len(weights)))
+    y = (X @ weights + rng.logistic(size=n) * 0.5 > 0).astype(np.float64)
+    return X, y

@@ -1,7 +1,8 @@
 """Where the time of a boosting iteration goes, on the GPU.
 
     python -m lightgbm_tpu_torch.trace_main
-        [--workload higgs|ctr|onehot|regression|multiclass|goss|dart|serve]
+        [--workload higgs|ctr|onehot|regression|multiclass|goss|dart|serve|
+                    refit]
         [--histogram-dtype int8|float32] [--rows N] [--trace PATH]
 
 Trains a configuration that chip_smoke.py runs — the north-star one
@@ -37,6 +38,13 @@ rand(20_000, 28)), a one-replica PredictorRuntime warmed at the 64-row
 bucket, then 20 traced dispatches of 64 rows each (raw features, value
 kind).  The JSON line gives the same fields a dispatch instead of an
 iteration.
+
+`--workload refit` traces the online leaf refit: chip_smoke.py phase
+16's base model (scripts/bench_online.py's scenario: 60 trees of up to
+255 leaves on 100,000 rows of synth_drift x 28), a 25,000-row drifted
+window streamed against its training mappers, a LeafRefitter warmed by
+2 refits, then 3 traced refits (binned routing and the 60-iteration
+leaf loop); the same fields a refit.
 """
 from __future__ import annotations
 
@@ -157,11 +165,44 @@ def _serve(args) -> None:
         prof.export_chrome_trace(args.trace)
 
 
+def _refit(args) -> None:
+    """--workload refit: TRACED refits of phase 16's base model over its
+    drifted window, after WARMUP."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.dataset import Dataset as RawDataset
+    from lightgbm_tpu_torch.online import LeafRefitter
+    from lightgbm_tpu_torch.synth import (ONLINE_PARAMS, drift_weights,
+                                          synth_drift)
+    args.rows = args.rows or 100_000
+    params = dict(ONLINE_PARAMS)
+    w_base, w_drift = drift_weights()
+    X, y = synth_drift(args.rows, w_base, seed=1)
+    Xw, yw = synth_drift(25_000, w_drift, seed=2)
+    bst = lt.train(params, lt.Dataset(X, y, params=params), 60,
+                   verbose_eval=False)
+    g = bst._gbdt
+    window = RawDataset.streaming_from(g.train_set, g.config,
+                                       capacity=len(Xw))
+    window.append_rows(Xw, yw)
+    refitter = LeafRefitter(g, window)
+    for _ in range(WARMUP):
+        refitter.refit()
+    wall, prof = _trace(refitter.refit, TRACED)
+    out = {"device": torch.cuda.get_device_name(0), "workload": "refit",
+           "rows": args.rows, "window_rows": len(Xw),
+           "trees": bst.num_trees(), "traced_refits": TRACED}
+    out.update(_summary(wall, prof, TRACED, "refit"))
+    print(json.dumps(out))
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", choices=("higgs", "ctr", "onehot",
                                            "regression", "multiclass",
-                                           "goss", "dart", "serve"),
+                                           "goss", "dart", "serve",
+                                           "refit"),
                     default="higgs")
     ap.add_argument("--histogram-dtype", choices=("int8", "float32"),
                     default="int8",
@@ -176,6 +217,9 @@ def main(argv=None) -> None:
         sys.exit(2)
     if args.workload == "serve":
         _serve(args)
+        return
+    if args.workload == "refit":
+        _refit(args)
         return
 
     import lightgbm_tpu_torch as lt

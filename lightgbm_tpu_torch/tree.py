@@ -98,6 +98,11 @@ class Tree:
         self.shrinkage *= rate
         self._device_cache = None
 
+    def set_leaf_values(self, values: np.ndarray) -> None:
+        """Replace the leaf values (a refit); the structure stays."""
+        self.leaf_value[: self.num_leaves] = values[: self.num_leaves]
+        self._device_cache = None
+
     @property
     def max_depth_grown(self) -> int:
         return int(self.leaf_depth[: self.num_leaves].max()) if self.num_leaves > 1 else 0

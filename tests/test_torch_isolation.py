@@ -22,7 +22,15 @@ names = [m.name for m in pkgutil.walk_packages(
 for want in ("lightgbm_tpu_torch.ops.sparse_streams",
              "lightgbm_tpu_torch.serving",
              "lightgbm_tpu_torch.serving.server",
-             "lightgbm_tpu_torch.diagnostics.faults"):
+             "lightgbm_tpu_torch.diagnostics.faults",
+             "lightgbm_tpu_torch.online",
+             "lightgbm_tpu_torch.online.refit",
+             "lightgbm_tpu_torch.online.stream",
+             "lightgbm_tpu_torch.online.trainer",
+             "lightgbm_tpu_torch.router",
+             "lightgbm_tpu_torch.router.server",
+             "lightgbm_tpu_torch.sharded.sketch",
+             "lightgbm_tpu_torch.sharded.ingest"):
     assert want in names, (want, names)
 for name in names:
     importlib.import_module(name)
@@ -83,16 +91,41 @@ def test_unported_paths_raise_not_implemented():
     X = rng.randn(300, 4)
     y = (X[:, 0] > 0) * 1.0
     import lightgbm_tpu_torch as lt
-    # multi-device learners and sketch bin finding are still unported
-    # (the exact learner, EFB bundles and every objective are ported)
+    # the multi-device learners are still unported (the exact learner,
+    # EFB bundles, every objective, sketch bin finding and the leaf
+    # refit are ported)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lt.train({"tree_learner": "data", "device_type": "cpu",
                   "verbose": -1}, lt.Dataset(X, y), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.train({"bin_find": "sketch", "device_type": "cpu",
-                  "verbose": -1}, lt.Dataset(X, X[:, 1]), 1)
-    # Booster.refit needs the online leaf refitter (item 14)
+    sk = lt.train({"bin_find": "sketch", "device_type": "cpu",
+                   "verbose": -1}, lt.Dataset(X, X[:, 1]), 1)
+    assert sk.num_trees() == 2
     bst = lt.train({"device_type": "cpu", "verbose": -1},
                    lt.Dataset(X, y), 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        bst.refit(X, y)
+    assert bst.refit(X, 1 - y).num_trees() == bst.num_trees()
+
+
+def test_online_entry_points_raise_without_gpu():
+    """With the default device_type and no visible GPU, Booster.refit
+    and OnlineTrainer raise instead of running on the CPU."""
+    code = """
+import numpy as np
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.online import OnlineTrainer
+X = np.random.RandomState(0).randn(200, 3); y = (X[:, 0] > 0) * 1.0
+cpu = lt.train({"objective": "binary", "verbose": -1, "device_type": "cpu"},
+               lt.Dataset(X, y), 2)
+bst = lt.Booster(params={"verbose": -1}, model_str=cpu.model_to_string())
+for name, fn in (("refit", lambda: bst.refit(X, y)),
+                 ("trainer", lambda: OnlineTrainer(bst, "t.jsonl", "p.txt"))):
+    try:
+        fn()
+        print(name, "ran")
+    except RuntimeError as e:
+        print(name, "raised:", e)
+"""
+    r = _run(code, CUDA_VISIBLE_DEVICES="")
+    assert r.returncode == 0, r.stderr
+    for name in ("refit", "trainer"):
+        assert (f"{name} raised: device_type=cuda but no CUDA device is "
+                "visible") in r.stdout, r.stdout
