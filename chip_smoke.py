@@ -260,6 +260,40 @@ call is the host f64 walk of every tree (LIGHTGBM_TPU_DEVICE_PREDICT=0,
              interleaved, p50/p99 printed; the home backend stopped under
              a routed loop with no client error, restarted on its port and
              readmitted by the health sweep.
+17. files and the C ABI — the product surface through files at the
+             north-star width (28 features, 255 leaves, max_bin 255, int8
+             histograms, lr 0.1, metric auc), in a temporary directory:
+             synth_higgs(500_000) written to train.csv (label first,
+             %.9g) with a seeded train.csv.weight, synth_higgs(100_000,
+             seed=7) to valid.tsv with a header, and a train.conf in the
+             reference's `key = value` format with # comments (20
+             iterations, is_save_binary_file=true).  Application on the
+             config in-process (the native parser must have read
+             train.csv; K1, K3 and K4 must launch); `python -m
+             lightgbm_tpu_torch` on the same config as a subprocess
+             (cache off, so it parses the CSV too), lt.train on
+             parse_text_file of the same files, and an in-process rerun
+             that must load train.csv.bin: all four model strings equal
+             (where they are not, the first differing line is printed,
+             every structural line must be equal and every float line
+             within rtol 1e-6).  A two-round load of train.csv (5
+             iterations, valid AUC above 0.75).  task=predict on
+             valid.tsv: bitwise Predictor.predict, within 1e-6 of the
+             host f64 walk, within 1e-7 of a run in chunks of 37,000
+             rows.  task=refit on a copy of 100,000 training rows with
+             flipped labels: leaf values bitwise Booster.refit's.
+             task=serve as a subprocess: /healthz answers, four 64-row
+             requests answered bitwise as resolve_runtime on the same
+             model file in-process, exit 0 on SIGTERM.  The training C
+             ABI (liblgbt_train_torch, built with g++ against the
+             interpreter's headers, loaded with ctypes):
+             LGBM_DatasetCreateFromFile on train.csv, the valid set from
+             a matrix with its reference, 10 LGBM_BoosterUpdateOneIter on
+             the card (K1, K3, K4 must launch), LGBM_BoosterPredictForMat
+             bitwise Booster.predict on the saved model string,
+             LGBM_BoosterRefit on PREDICT_LEAF leaves bitwise
+             refit_gbdt(leaf_idx=) from Python; lightgbm_tpu never loaded.
+             Seconds of each step printed.
 
 Every kernel's ms is timed by CUDA events around each call, the method
 of earlier versions of this script; it includes the wrapper's host
@@ -3159,6 +3193,465 @@ def phase_online(torch, lt, kernels, card):
     return st
 
 
+# phase 17: the product surface through files — the config file, the CLI
+# (in-process and `python -m`), the binary cache, two-round loading,
+# task=predict/refit/serve, and the training C ABI — at the north-star
+# width (FILE_TRAIN_ROWS x 28, as the north-star bench's valid split)
+FILE_TRAIN_ROWS = 500_000
+FILE_VALID_ROWS = 100_000
+FILE_DRIFT_ROWS = 100_000
+FILE_ITERS = 20
+FILE_CAPI_ITERS = 10
+FILE_PREDICT_CHUNK = 37_000
+FILE_SERVE_REQUESTS = 4
+FILE_SERVE_ROWS = 64
+# the checkout's root: the subprocesses import lightgbm_tpu_torch from it
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+_FLOAT_LINES = ("split_gain", "leaf_value", "internal_value")
+
+
+def file_params() -> dict:
+    from lightgbm_tpu_torch.synth import NORTH_STAR_PARAMS
+    return dict(NORTH_STAR_PARAMS, device_type=GPU)
+
+
+def write_conf(path: str, params: dict, data: str, model: str) -> None:
+    """A training config in the reference's `key = value` format."""
+    lines = ["# phase 17: the north-star configuration, trained from files",
+             "task = train", f"data = {data}", f"output_model = {model}",
+             f"num_iterations = {FILE_ITERS}",
+             "is_save_binary_file = true  # train.csv.bin for the rerun",
+             "is_training_metric = true", "metric_freq = 10"]
+    # verbose 1: the load seconds and the cache line are read off the log
+    lines += [f"{k} = {v}" for k, v in dict(params, verbose=1).items()]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def same_model(label: str, ref: str, got: str) -> bool:
+    """True when the model strings are equal.  Otherwise print the first
+    differing line and fail unless every structural line is equal and
+    every float line is within rtol 1e-6 (the float lines then differ by
+    an operation of the card that is not bitwise from run to run)."""
+    if got == ref:
+        return True
+    a, b = ref.splitlines(), got.splitlines()
+    if len(a) != len(b):
+        fail(f"{label}: {len(b)} model lines against {len(a)}")
+    first = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    print(f"[files] {label}: first differing line {first}: {a[first]!r} "
+          f"against {b[first]!r}", flush=True)
+    for i, (x, y) in enumerate(zip(a, b)):
+        key = x.split("=", 1)[0]
+        if x == y:
+            continue
+        if key not in _FLOAT_LINES or y.split("=", 1)[0] != key:
+            fail(f"{label}: structural line {i} differs: {x!r} / {y!r}")
+        va = np.array(x.split("=", 1)[1].split(), np.float64)
+        vb = np.array(y.split("=", 1)[1].split(), np.float64)
+        if va.shape != vb.shape or not np.allclose(vb, va, rtol=1e-6,
+                                                   atol=0):
+            fail(f"{label}: float line {i} beyond rtol 1e-6")
+    return False
+
+
+def read_text(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def files_write(tmp: str, st: dict):
+    """Step 1: the data files, the weight side file and the config."""
+    from lightgbm_tpu_torch.synth import synth_higgs
+    X, y = synth_higgs(FILE_TRAIN_ROWS)
+    Xv, yv = synth_higgs(FILE_VALID_ROWS, seed=7)
+    w = np.random.RandomState(11).rand(FILE_TRAIN_ROWS) + 0.5
+    paths = {k: os.path.join(tmp, n) for k, n in (
+        ("train", "train.csv"), ("valid", "valid.tsv"),
+        ("conf", "train.conf"), ("model", "model.txt"),
+        ("drift", "drift.csv"))}
+    t0 = time.perf_counter()
+    np.savetxt(paths["train"], np.column_stack([y, X]), delimiter=",",
+               fmt="%.9g")
+    np.savetxt(paths["train"] + ".weight", w, fmt="%.9g")
+    header = "\t".join(["label"] + [f"f{j}" for j in range(X.shape[1])])
+    np.savetxt(paths["valid"], np.column_stack([yv, Xv]), delimiter="\t",
+               fmt="%.9g", header=header, comments="")
+    Xd = X[:FILE_DRIFT_ROWS]
+    np.savetxt(paths["drift"], np.column_stack([1.0 - y[:FILE_DRIFT_ROWS],
+                                                Xd]),
+               delimiter=",", fmt="%.9g")
+    write_conf(paths["conf"], file_params(), paths["train"], paths["model"])
+    st["write_s"] = time.perf_counter() - t0
+    st["file_mb"] = sum(os.path.getsize(p) for p in (
+        paths["train"], paths["train"] + ".weight", paths["valid"],
+        paths["drift"])) / 1e6
+    print(f"[files] wrote {st['file_mb']:.1f} MB in {st['write_s']:.2f} s",
+          flush=True)
+    return paths
+
+
+def run_app(torch, argv):
+    """Application(argv).run() in-process; returns (its log, seconds)."""
+    import contextlib
+    import io
+    from lightgbm_tpu_torch.application import Application
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        Application(argv).run()
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def files_train(torch, lt, kernels, paths, st):
+    """Steps 2-4: the config in-process, `python -m` in a subprocess,
+    lt.train on the parsed files, and the in-process rerun from the
+    binary cache; one model string."""
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.dataset import parse_text_file
+    conf, model = paths["conf"], paths["model"]
+    parses = dict(native.PARSES)
+    kernels.reset_launches()
+    out, st["cli_s"] = run_app(torch, [f"config={conf}"])
+    launches = dict(kernels.LAUNCHES)
+    st["cli_launches"] = launches
+    for k in TREE_KERNELS:
+        if not launches[k]:
+            fail(f"task=train from the config: {k} launched 0 times")
+    st["parser"] = ("native" if native.PARSES["native"] > parses["native"]
+                    else "numpy")
+    if st["parser"] != "native":
+        fail("train.csv was not read by the native parser")
+    st["cli_load_s"] = float(out.split("finished loading data in ")[1]
+                             .split(" seconds")[0])
+    if not os.path.exists(paths["train"] + ".bin"):
+        fail("is_save_binary_file wrote no train.csv.bin")
+    ref = read_text(model)
+    print(f"[files] task=train in-process {st['cli_s']:.2f} s (load "
+          f"{st['cli_load_s']:.2f} s, {st['parser']} parser; launches "
+          f"{json.dumps(launches)})", flush=True)
+
+    sub_model = os.path.join(os.path.dirname(model), "model_sub.txt")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "lightgbm_tpu_torch", f"config={conf}",
+         f"output_model={sub_model}", "is_save_binary_file=false",
+         "enable_load_from_binary_file=false"],
+        cwd=REPO_DIR, capture_output=True, text=True, timeout=600)
+    st["subprocess_s"] = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"python -m lightgbm_tpu_torch: rc {r.returncode}\n"
+             f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    st["bitwise"] = {"subprocess": same_model(
+        "python -m lightgbm_tpu_torch", ref, read_text(sub_model))}
+
+    params = file_params()
+    t0 = time.perf_counter()
+    X, y, _ = parse_text_file(paths["train"])
+    w = np.loadtxt(paths["train"] + ".weight", dtype=np.float32)
+    bst = lt.train(params, lt.Dataset(X, y, weight=w, params=params),
+                   FILE_ITERS, verbose_eval=False)
+    torch.cuda.synchronize()
+    st["api_s"] = time.perf_counter() - t0
+    st["bitwise"]["lt.train"] = same_model("lt.train on parse_text_file",
+                                           ref, bst.model_to_string())
+
+    rerun = os.path.join(os.path.dirname(model), "model_rerun.txt")
+    out, st["rerun_s"] = run_app(torch, [f"config={conf}",
+                                         f"output_model={rerun}"])
+    if f"loading binary dataset cache {paths['train']}.bin" not in out:
+        fail("the rerun did not load train.csv.bin")
+    st["rerun_load_s"] = float(out.split("finished loading data in ")[1]
+                               .split(" seconds")[0])
+    st["bitwise"]["cache"] = same_model("rerun from train.csv.bin", ref,
+                                        read_text(rerun))
+    print(f"[files] python -m {st['subprocess_s']:.2f} s; lt.train "
+          f"{st['api_s']:.2f} s; rerun from the cache {st['rerun_s']:.2f} s "
+          f"(load {st['rerun_load_s']:.2f} s); model strings equal "
+          f"{json.dumps(st['bitwise'])}", flush=True)
+    return X, y, w
+
+
+def files_two_round(lt, paths, Xv, yv, st):
+    """Step 5: the train file in two streaming passes, 5 iterations."""
+    params = dict(file_params(), use_two_round_loading=True,
+                  enable_load_from_binary_file=False)
+    t0 = time.perf_counter()
+    ds = lt.Dataset(paths["train"], params=params).construct()
+    st["two_round_load_s"] = time.perf_counter() - t0
+    bst = lt.train(params, ds, 5, verbose_eval=False)
+    st["two_round_auc"] = auc(yv, host_walk(bst, Xv))
+    print(f"[files] two-round load {st['two_round_load_s']:.2f} s; 5 "
+          f"iterations: valid AUC {st['two_round_auc']:.6f}", flush=True)
+    if not st["two_round_auc"] > 0.75:
+        fail(f"two-round valid AUC {st['two_round_auc']}")
+
+
+def files_predict(lt, paths, Xv, st):
+    """Step 6: task=predict on valid.tsv."""
+    from lightgbm_tpu_torch.application import Predictor, main as cli_main
+    out = os.path.join(os.path.dirname(paths["model"]), "pred.txt")
+    t0 = time.perf_counter()
+    if cli_main(["task=predict", f"data={paths['valid']}",
+                 "has_header=true", f"input_model={paths['model']}",
+                 f"output_result={out}", "verbose=-1",
+                 f"device_type={GPU}"]) != 0:
+        fail("task=predict returned non-zero")
+    st["predict_s"] = time.perf_counter() - t0
+    got = np.loadtxt(out)
+    bst = lt.Booster(model_file=paths["model"], params={"device_type": GPU})
+    cfg = lt.config_from_params({})
+    pred = Predictor(bst, num_iteration=cfg.num_iteration_predict,
+                     predict_kernel=cfg.predict_kernel,
+                     serve_quantize=cfg.serve_quantize,
+                     refbin=paths["model"] + ".refbin")
+    if not np.array_equal(got, pred.predict(Xv)):
+        fail("task=predict differs from Predictor.predict")
+    st["predict_vs_host"] = float(np.abs(got - host_walk(bst, Xv)).max())
+    if not st["predict_vs_host"] <= 1e-6:
+        fail(f"task=predict {st['predict_vs_host']} off the host walk")
+    chunked = out + ".chunked"
+    pred.predict_file(paths["valid"], chunked, has_header=True,
+                      chunk_rows=FILE_PREDICT_CHUNK)
+    st["predict_chunked_diff"] = float(np.abs(np.loadtxt(chunked)
+                                              - got).max())
+    if not st["predict_chunked_diff"] <= 1e-7:
+        fail(f"chunked task=predict {st['predict_chunked_diff']} off")
+    print(f"[files] task=predict {st['predict_s']:.2f} s on "
+          f"{FILE_VALID_ROWS} rows; max |diff| host walk "
+          f"{st['predict_vs_host']:.3g}, chunks of {FILE_PREDICT_CHUNK} "
+          f"{st['predict_chunked_diff']:.3g}", flush=True)
+
+
+def files_refit(torch, lt, paths, st):
+    """Step 7: task=refit on a copy of training rows with flipped labels,
+    against Booster.refit on the same rows (both route on raw values)."""
+    from lightgbm_tpu_torch.application import main as cli_main
+    from lightgbm_tpu_torch.dataset import parse_text_file
+    out = os.path.join(os.path.dirname(paths["model"]), "refit.txt")
+    t0 = time.perf_counter()
+    if cli_main(["task=refit", f"data={paths['drift']}",
+                 f"input_model={paths['model']}", f"output_model={out}",
+                 "refit_decay_rate=0.5", "verbose=-1",
+                 f"device_type={GPU}"]) != 0:
+        fail("task=refit returned non-zero")
+    torch.cuda.synchronize()
+    st["refit_s"] = time.perf_counter() - t0
+    Xd, yd, _ = parse_text_file(paths["drift"])
+    ref = lt.Booster(model_file=paths["model"], params={
+        "device_type": GPU}).refit(Xd, yd, decay_rate=0.5)
+    got = lt.Booster(model_file=out, params={"device_type": GPU})
+    if not np.array_equal(leaf_table(got._gbdt.models),
+                          leaf_table(ref._gbdt.models), equal_nan=True):
+        fail("task=refit leaf values differ from Booster.refit")
+    print(f"[files] task=refit {st['refit_s']:.2f} s on {FILE_DRIFT_ROWS} "
+          "rows: leaf values bitwise Booster.refit", flush=True)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def files_serve(lt, paths, Xv, st):
+    """Step 8: task=serve as a subprocess, against resolve_runtime on the
+    same model file in-process."""
+    import http.client
+    import signal
+    from lightgbm_tpu_torch.serving.runtime import resolve_runtime
+    port = free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "task=serve",
+         f"input_model={paths['model']}", f"serve_port={port}",
+         "serve_host=127.0.0.1", "model_poll_seconds=0",
+         f"device_type={GPU}"],
+        cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+    def request(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request(method, path, body=body)
+            r = conn.getresponse()
+            return r.status, r.read().decode()
+        finally:
+            conn.close()
+
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"task=serve exited: {proc.stdout.read()[-3000:]}")
+            if time.perf_counter() - t0 > 300:
+                fail("task=serve: no /healthz answer in 300 s")
+            try:
+                if request("GET", "/healthz")[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        st["serve_start_s"] = time.perf_counter() - t0
+        rt = resolve_runtime(
+            lt.Booster(model_file=paths["model"],
+                       params={"device_type": GPU}),
+            serve_quantize="auto", refbin=paths["model"] + ".refbin")
+        for i in range(FILE_SERVE_REQUESTS):
+            rows = Xv[i * FILE_SERVE_ROWS:(i + 1) * FILE_SERVE_ROWS]
+            status, text = request("POST", "/predict", "\n".join(
+                json.dumps(r.tolist()) for r in rows))
+            if status != 200:
+                fail(f"task=serve answered {status}: {text[:500]}")
+            got = np.array([json.loads(t) for t in text.splitlines()])
+            if not np.array_equal(got, rt.predict(rows)):
+                fail(f"task=serve request {i} differs from resolve_runtime")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail("task=serve did not stop on SIGTERM")
+    if proc.returncode != 0:
+        fail(f"task=serve exited {proc.returncode}: {out[-2000:]}")
+    print(f"[files] task=serve subprocess answered /healthz after "
+          f"{st['serve_start_s']:.2f} s; {FILE_SERVE_REQUESTS} requests of "
+          f"{FILE_SERVE_ROWS} rows bitwise resolve_runtime; exit 0 on "
+          "SIGTERM", flush=True)
+
+
+def files_capi(torch, lt, kernels, paths, X, Xv, st):
+    """Step 9: the training C ABI, loaded into this process."""
+    import ctypes
+    import sysconfig
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.online.refit import refit_gbdt
+    inc = sysconfig.get_path("include")
+    if not os.path.exists(os.path.join(inc, "Python.h")):
+        st["capi"] = f"left out: no Python.h under {inc}"
+        print(f"[files] C ABI {st['capi']}", flush=True)
+        return
+    t0 = time.perf_counter()
+    lib = native.train_lib()
+    st["capi_build_s"] = time.perf_counter() - t0
+
+    def check(rc):
+        if rc != 0:
+            fail(f"C ABI: {lib.LGBM_GetLastError().decode()}")
+
+    pstr = " ".join(f"{k}={v}" for k, v in file_params().items()).encode()
+    t0 = time.perf_counter()
+    ds = ctypes.c_void_p()
+    check(lib.LGBM_DatasetCreateFromFile(paths["train"].encode(), pstr, None,
+                                         ctypes.byref(ds)))
+    Xvc = np.ascontiguousarray(Xv, np.float64)
+    dv = ctypes.c_void_p()
+    check(lib.LGBM_DatasetCreateFromMat(
+        Xvc.ctypes.data_as(ctypes.c_void_p), 1, ctypes.c_int32(len(Xv)),
+        ctypes.c_int32(Xv.shape[1]), 1, pstr, ds, ctypes.byref(dv)))
+    bst = ctypes.c_void_p()
+    check(lib.LGBM_BoosterCreate(ds, pstr, ctypes.byref(bst)))
+    check(lib.LGBM_BoosterAddValidData(bst, dv))
+    st["capi_setup_s"] = time.perf_counter() - t0
+    kernels.reset_launches()
+    fin = ctypes.c_int()
+    t0 = time.perf_counter()
+    for _ in range(FILE_CAPI_ITERS):
+        check(lib.LGBM_BoosterUpdateOneIter(bst, ctypes.byref(fin)))
+    torch.cuda.synchronize()
+    st["capi_train_s"] = time.perf_counter() - t0
+    st["capi_launches"] = dict(kernels.LAUNCHES)
+    for k in TREE_KERNELS:
+        if not st["capi_launches"][k]:
+            fail(f"LGBM_BoosterUpdateOneIter: {k} launched 0 times")
+
+    ln = ctypes.c_int()
+    check(lib.LGBM_BoosterSaveModelToString(bst, -1, 0, ctypes.byref(ln),
+                                            None))
+    buf = ctypes.create_string_buffer(ln.value)
+    check(lib.LGBM_BoosterSaveModelToString(bst, -1, ln.value,
+                                            ctypes.byref(ln), buf))
+    text = buf.value.decode()
+    py = lt.Booster(model_str=text, params={"device_type": GPU})
+
+    def predict(X, ptype):
+        n = ctypes.c_int64()
+        check(lib.LGBM_BoosterCalcNumPredict(bst, len(X), ptype, -1,
+                                             ctypes.byref(n)))
+        out = np.empty(n.value, np.float64)
+        Xc = np.ascontiguousarray(X, np.float64)
+        check(lib.LGBM_BoosterPredictForMat(
+            bst, Xc.ctypes.data_as(ctypes.c_void_p), 1,
+            ctypes.c_int32(len(X)), ctypes.c_int32(X.shape[1]), 1, ptype,
+            -1, ctypes.byref(n), out.ctypes.data_as(
+                ctypes.POINTER(ctypes.c_double))))
+        return out
+
+    t0 = time.perf_counter()
+    if not np.array_equal(predict(Xv, 0), py.predict(Xv)):
+        fail("LGBM_BoosterPredictForMat differs from Booster.predict")
+    st["capi_predict_s"] = time.perf_counter() - t0
+    leaf = predict(X, 2).astype(np.int32)
+    ref = lt.Booster(model_str=text, params=file_params())
+    inner = lt.Dataset(paths["train"], params=file_params()
+                       ).construct()._inner
+    refit_gbdt(ref._gbdt, inner,
+               leaf_idx=leaf.reshape(len(X), -1).copy())
+    t0 = time.perf_counter()
+    check(lib.LGBM_BoosterRefit(
+        bst, leaf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.c_int32(len(X)), ctypes.c_int32(leaf.size // len(X))))
+    torch.cuda.synchronize()
+    st["capi_refit_s"] = time.perf_counter() - t0
+    check(lib.LGBM_BoosterSaveModelToString(bst, -1, 0, ctypes.byref(ln),
+                                            None))
+    buf = ctypes.create_string_buffer(ln.value)
+    check(lib.LGBM_BoosterSaveModelToString(bst, -1, ln.value,
+                                            ctypes.byref(ln), buf))
+    got = lt.Booster(model_str=buf.value.decode(),
+                     params={"device_type": GPU})
+    if not np.array_equal(leaf_table(got._gbdt.models),
+                          leaf_table(ref._gbdt.models), equal_nan=True):
+        fail("LGBM_BoosterRefit differs from refit_gbdt(leaf_idx=)")
+    for h, free in ((bst, lib.LGBM_BoosterFree), (dv, lib.LGBM_DatasetFree),
+                    (ds, lib.LGBM_DatasetFree)):
+        check(free(h))
+    if any(m == "lightgbm_tpu" or m.startswith("lightgbm_tpu.")
+           for m in sys.modules):
+        fail("the C ABI loaded the JAX package")
+    st["capi"] = "ran"
+    print(f"[files] C ABI: build {st['capi_build_s']:.2f} s, datasets and "
+          f"booster {st['capi_setup_s']:.2f} s, {FILE_CAPI_ITERS} "
+          f"UpdateOneIter {st['capi_train_s']:.2f} s (launches "
+          f"{json.dumps(st['capi_launches'])}), PredictForMat bitwise "
+          f"Booster.predict, Refit bitwise refit_gbdt "
+          f"({st['capi_refit_s']:.2f} s); lightgbm_tpu not loaded",
+          flush=True)
+
+
+def phase_files(torch, lt, kernels, card):
+    """Phase 17: files, the CLI and the C ABI on the card."""
+    from lightgbm_tpu_torch.dataset import parse_text_file
+    t_phase = time.perf_counter()
+    st = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = files_write(tmp, st)
+        X, _, _ = files_train(torch, lt, kernels, paths, st)
+        Xv, yv, _ = parse_text_file(paths["valid"], has_header=True)
+        files_two_round(lt, paths, Xv, yv, st)
+        files_predict(lt, paths, Xv, st)
+        files_refit(torch, lt, paths, st)
+        files_serve(lt, paths, Xv, st)
+        files_capi(torch, lt, kernels, paths, X, Xv, st)
+    st["phase_s"] = time.perf_counter() - t_phase
+    print(f"[files] {json.dumps(st)}", flush=True)
+    print(f"[files] phase 17: {st['phase_s']:.1f} s ({card})", flush=True)
+    return st
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3248,6 +3741,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     phase_online(torch, lt, kernels, card)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    phase_files(torch, lt, kernels, card)
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -4,7 +4,8 @@ Port of lightgbm_tpu/basic.py (LightGBM's python-package basic.py): a
 `Dataset` with lazy construction, reference alignment for validation
 data, query groups, the label/weight/group/init-score setters, row
 subsets (for `cv`) and pandas categoricals; a scipy sparse matrix goes to
-`Dataset.from_csc`, so the dense [N, F] matrix never materializes.  A
+`Dataset.from_csc`, so the dense [N, F] matrix never materializes, and a
+path to a data file (text or binary) to `Dataset.from_file`.  A
 `Booster` built through `create_boosting` (gbdt, goss or dart, from the
 parameters or from a model's first line) with update (custom objectives
 too), rollback, parameter resets, eval with custom metrics, prediction
@@ -153,15 +154,17 @@ class Dataset:
                   ) -> "Dataset":
         if self._inner is not None:
             return self
-        if isinstance(self.data, str):
-            raise NotImplementedError(
-                "a Dataset from a file is not ported yet: the text and "
-                "binary dataset readers come with the CLI (ROADMAP.md §A "
-                "item 13)")
         merged = dict(self.params)
         for k, v in (extra_params or {}).items():
             merged.setdefault(k, v)
         cfg = config_from_params(merged)
+        if isinstance(self.data, str):
+            ref_inner = (self.reference.construct(extra_params)._inner
+                         if self.reference is not None else None)
+            self._inner = _InnerDataset.from_file(self.data, cfg,
+                                                  reference=ref_inner)
+            self._raw_X = None
+            return self
         data, cats, self.pandas_categorical = _resolve_categorical(
             self.data, self.categorical_feature, self.feature_name)
         y = None if self.label is None else _to_numpy(self.label).reshape(-1)
@@ -258,6 +261,14 @@ class Dataset:
         self.construct()
         return list(self._inner.feature_names)
 
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the constructed binned dataset as a binary file, which
+        `Dataset(filename)` (or the cache rule of a text file's
+        `<file>.bin`) loads without parsing or binning."""
+        self.construct()
+        self._inner.save_binary(filename)
+        return self
+
     def save_refbin(self, filename: str) -> "Dataset":
         """Persist only the frozen bin-mapper set: the ``.refbin``
         sidecar that ``serve_quantize=binned`` serves a model against."""
@@ -269,6 +280,8 @@ class Dataset:
         """A dataset of the given rows, binned with this one's mappers
         (LightGBM's Dataset.subset), for cv()."""
         self.construct()
+        if isinstance(self.data, str):
+            raise LightGBMError("subset of file-backed Dataset not supported")
         if self._raw_X is None:
             raise LightGBMError("cannot subset when raw data was freed")
         idx = np.asarray(used_indices, np.int64)
@@ -443,14 +456,15 @@ class Booster:
                 pred_leaf: bool = False, data_has_header: bool = False,
                 is_reshape: bool = True) -> np.ndarray:
         if isinstance(data, str):
-            raise NotImplementedError(
-                "predicting a file is not ported yet: the text readers "
-                "come with the CLI (ROADMAP.md §A item 13)")
-        data = _apply_pandas_categorical(data, self.pandas_categorical)
-        # scipy input densifies, as in the JAX package: the walks gather
-        # from a dense [rows, features] matrix
-        X = (data.toarray() if _is_scipy_sparse(data)
-             else _to_numpy(data))
+            # a data file: its label column (the first) is dropped
+            from .dataset import parse_text_file
+            X, _, _ = parse_text_file(data, data_has_header)
+        else:
+            data = _apply_pandas_categorical(data, self.pandas_categorical)
+            # scipy input densifies, as in the JAX package: the walks
+            # gather from a dense [rows, features] matrix
+            X = (data.toarray() if _is_scipy_sparse(data)
+                 else _to_numpy(data))
         if X.ndim == 1:
             X = X.reshape(1, -1)
         if pred_leaf:

@@ -38,9 +38,11 @@ from mergeable quantile summaries (sharded/sketch.py).
 """
 from __future__ import annotations
 
+import os
 import time
+import warnings
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -148,6 +150,140 @@ def store_zero_bins(mappers: List[BinMapper],
     return np.asarray([mappers[i].default_bin for i in used], np.int32)
 
 
+# ----------------------------------------------------------------------------
+# Text files (the reference's parser.cpp): CSV, TSV and LibSVM
+# ----------------------------------------------------------------------------
+
+def _detect_format(line: str) -> str:
+    """Probe one data line: 'libsvm' | 'tsv' | 'csv' (a space-separated
+    line reads as tsv)."""
+    toks = line.strip().split()
+    if len(toks) > 1 and ":" in toks[1]:
+        return "libsvm"
+    if "\t" in line:
+        return "tsv"
+    if "," in line:
+        return "csv"
+    return "tsv"
+
+
+def _header_names(line: str) -> List[str]:
+    sep = "\t" if "\t" in line else ("," if "," in line else None)
+    return [t.strip() for t in line.strip().split(sep)]
+
+
+def _parse_libsvm(f) -> Tuple[np.ndarray, np.ndarray]:
+    """(X, y) of the LibSVM lines left in the open file `f`."""
+    labels: List[float] = []
+    rows: List[Dict[int, float]] = []
+    max_idx = -1
+    for line in f:
+        line = line.strip()
+        if not line:
+            continue
+        toks = line.split()
+        labels.append(float(toks[0]))
+        row: Dict[int, float] = {}
+        for t in toks[1:]:
+            if ":" not in t:
+                continue
+            k, v = t.split(":", 1)
+            ki = int(k)
+            row[ki] = float(v)
+            max_idx = max(max_idx, ki)
+        rows.append(row)
+    X = np.zeros((len(rows), max_idx + 1), dtype=np.float64)
+    for i, row in enumerate(rows):
+        for k, v in row.items():
+            X[i, k] = v
+    return X, np.asarray(labels, dtype=np.float64)
+
+
+def probe_text_file(path: str, has_header: bool
+                     ) -> Tuple[str, Optional[List[str]]]:
+    """(format, header names or None) of a text file; raises on an empty
+    one."""
+    with open(path, "r") as f:
+        first = f.readline()
+        if not first:
+            raise ValueError(f"empty data file: {path}")
+        names = None
+        if has_header:
+            names = _header_names(first)
+            first = f.readline() or first
+    return _detect_format(first), names
+
+
+def parse_text_file_numpy(path: str, has_header: bool = False,
+                          label_idx: int = 0
+                          ) -> Tuple[np.ndarray, np.ndarray,
+                                     Optional[List[str]]]:
+    """`parse_text_file` without the native parser: `np.loadtxt` for
+    CSV/TSV (correctly rounded, '#' starts a comment), a line loop for
+    LibSVM."""
+    fmt, header_names = probe_text_file(path, has_header)
+    if fmt == "libsvm":
+        with open(path, "r") as f:
+            if has_header:
+                f.readline()
+            X, y = _parse_libsvm(f)
+        return X, y, header_names
+    raw = np.loadtxt(path, delimiter="," if fmt == "csv" else None,
+                     skiprows=1 if has_header else 0, dtype=np.float64,
+                     ndmin=2)
+    y = raw[:, label_idx].copy()
+    return np.delete(raw, label_idx, axis=1), y, header_names
+
+
+def parse_text_file(path: str, has_header: bool = False, label_idx: int = 0
+                    ) -> Tuple[np.ndarray, np.ndarray, Optional[List[str]]]:
+    """Parse a CSV/TSV/LibSVM data file into (X, y, feature_names).
+
+    The format is detected from the first data line; the label is column
+    `label_idx` for CSV/TSV and the first token for LibSVM.  A file
+    without a header goes through the native parser (native.py, a
+    correctly rounded `std::from_chars` loop) where g++ could build it,
+    else through `parse_text_file_numpy`, with the same values; header
+    names are read by the NumPy parser only, as in the JAX package.  An
+    empty file raises ValueError on every path."""
+    from . import native
+    if os.path.getsize(path) == 0:
+        raise ValueError(f"empty data file: {path}")
+    if not has_header:
+        res = native.parse_text_native(path, has_header, label_idx)
+        if res is not None:
+            native.PARSES["native"] += 1
+            return res[0], res[1], None
+    native.PARSES["numpy"] += 1
+    return parse_text_file_numpy(path, has_header, label_idx)
+
+
+def iter_text_chunks(path: str, fmt: str, has_header: bool,
+                     chunk_rows: int):
+    """Yield the rows of a CSV/TSV file as float64 [rows, columns] blocks
+    of exactly `chunk_rows` rows (the last one shorter), read by
+    `np.loadtxt(max_rows=)` from one open file: the values of the
+    one-shot parse, correctly rounded, and the chunk boundaries of
+    `pd.read_csv(chunksize=)`, which the two-round sampler draws its
+    random numbers by.  Comment and blank lines hold no row."""
+    delim = "," if fmt == "csv" else None
+    with open(path, "r") as f:
+        if has_header:
+            f.readline()
+        while True:
+            with warnings.catch_warnings():
+                # the read past the last row finds no data
+                warnings.filterwarnings("ignore", "loadtxt: input "
+                                        "contained no data")
+                arr = np.loadtxt(f, delimiter=delim, max_rows=chunk_rows,
+                                 dtype=np.float64, ndmin=2)
+            if len(arr) == 0:
+                return
+            yield arr
+            if len(arr) < chunk_rows:
+                return
+
+
 @dataclass
 class Metadata:
     label: np.ndarray = field(default_factory=lambda: np.zeros(0, np.float32))
@@ -183,6 +319,23 @@ class Metadata:
             self.weights.astype(np.float64))])
         sums = csum[qb[1:]] - csum[qb[:-1]]
         return (sums / np.maximum(sizes, 1)).astype(np.float32)
+
+    @staticmethod
+    def load_side_files(data_path: str, num_data: int) -> "Metadata":
+        """`<data>.weight`, `<data>.init` and `<data>.query` beside a data
+        file, where present (the reference's metadata.cpp)."""
+        md = Metadata()
+        wpath = data_path + ".weight"
+        if os.path.exists(wpath):
+            md.weights = np.loadtxt(wpath, dtype=np.float32).reshape(-1)
+        ipath = data_path + ".init"
+        if os.path.exists(ipath):
+            md.init_score = np.loadtxt(ipath, dtype=np.float64).reshape(-1)
+        qpath = data_path + ".query"
+        if os.path.exists(qpath):
+            md.set_query_from_sizes(
+                np.loadtxt(qpath, dtype=np.int64).reshape(-1))
+        return md
 
 
 def _plan_bundles_from_sample(sample: np.ndarray, mappers: List[BinMapper],
@@ -294,7 +447,10 @@ class Dataset:
     num_bins : np.ndarray [num_used_features] int32 per-feature bin counts
     mappers : list[BinMapper], one per RAW feature
     used_features : list[int] raw indices of non-trivial features
+    source : str or None — the data file the rows were read from
     """
+
+    source: Optional[str] = None
 
     def __init__(self, X: np.ndarray, label: Optional[np.ndarray] = None,
                  config: Optional[Config] = None,
@@ -926,3 +1082,306 @@ class Dataset:
             _refuse_sparse_bundles(plan)
             ds._sparsify_store()
         return ds
+
+    # -- data files (the reference's dataset_loader.cpp) -------------------
+
+    @staticmethod
+    def _is_binary_file(path: str) -> bool:
+        try:
+            with open(path, "rb") as f:
+                head = f.read(len(Dataset.BINARY_MAGIC) + 1)
+            return head.startswith(Dataset.BINARY_MAGIC.encode())
+        except OSError:
+            return False
+
+    @staticmethod
+    def from_file(path: str, config: Optional[Config] = None,
+                  reference: Optional["Dataset"] = None) -> "Dataset":
+        """A Dataset from a data file: a binary dataset (the file itself,
+        or a `<path>.bin` cache at least as new as the file), else the
+        text file, one-shot or, under `use_two_round_loading`, in two
+        streaming passes.  Side files and the in-file column selectors
+        (`label_column`, `weight_column`, `group_column`,
+        `ignore_column`, `categorical_column`) apply as in the JAX
+        package.  `source` names the file the rows came from."""
+        cfg = config or Config()
+        if cfg.num_machines > 1:
+            raise NotImplementedError(
+                "num_machines > 1: loading a data file across processes "
+                "is not ported (ROADMAP.md §A item 12)")
+        if cfg.enable_load_from_binary_file:
+            bin_path = None
+            if Dataset._is_binary_file(path):
+                bin_path = path
+            elif (Dataset._is_binary_file(path + ".bin")
+                  and os.path.getmtime(path + ".bin")
+                  >= os.path.getmtime(path)):
+                bin_path = path + ".bin"
+            if bin_path is not None:
+                if cfg.verbose >= 1:
+                    log.info(f"loading binary dataset cache {bin_path}")
+                ds = Dataset.from_binary(bin_path, cfg)
+                # valid-set alignment (the reference's CheckAlign): the
+                # cache must hold the training set's bins
+                if reference is not None and (
+                        ds.num_total_features
+                        != reference.num_total_features
+                        or any(a.num_bin != b.num_bin for a, b in
+                               zip(ds.mappers, reference.mappers))):
+                    raise ValueError(
+                        f"binary validation data {bin_path} was binned "
+                        "differently from the training data")
+                ds.source = bin_path
+                return ds
+        if cfg.use_two_round_loading:
+            ds = load_file_two_round(path, cfg, reference)
+            ds.source = path
+            return ds
+        X, y, md, x_names, cats = read_text_file(path, cfg)
+        ds = Dataset(X, y, cfg, reference=reference, metadata=md,
+                     feature_names=x_names, categorical_feature=cats)
+        ds.source = path
+        return ds
+
+
+def read_text_file(path: str, cfg: Config):
+    """(X, y, metadata, feature names or None, categorical columns) of a
+    text data file as `Dataset.from_file` reads it: the side files, and
+    the in-file column selectors applied (weight and group columns go to
+    the metadata; they and the ignored columns leave X).  Columns are
+    counted in the file, label included; `name:` selectors need a
+    header."""
+    label_idx = _label_index(cfg)
+    X, y, names = parse_text_file(path, cfg.has_header, label_idx)
+    md = Metadata.load_side_files(path, len(y))
+    xw, xg, drop = _resolve_column_selectors(cfg, names, label_idx,
+                                             X.shape[1])
+    if xw is not None:
+        if md.weights is not None:
+            log.warning("weight_column overrides the .weight side file")
+        md.weights = X[:, xw].astype(np.float32)
+    if xg is not None:
+        if md.query_boundaries is not None:
+            log.warning("group_column overrides the .query side file")
+        md.query_boundaries = _query_boundaries_from_ids(X[:, xg])
+    x_names = None
+    if names:
+        if len(names) == X.shape[1] + 1:
+            x_names = [nm for c, nm in enumerate(names) if c != label_idx]
+        elif len(names) == X.shape[1]:
+            x_names = list(names)
+    if drop:
+        keep = [c for c in range(X.shape[1]) if c not in set(drop)]
+        X = X[:, keep]
+        if x_names is not None:
+            x_names = [x_names[c] for c in keep]
+    cats = _parse_categorical_column(cfg.categorical_column, x_names,
+                                     X.shape[1])
+    return X, y, md, x_names, cats
+
+
+def _label_index(cfg: Config) -> int:
+    """The file column of the label (`label_column`, 0 by default); a
+    `name:` label is not supported, as in the JAX package."""
+    if cfg.label_column.startswith("name:"):
+        raise NotImplementedError("label by name requires header support")
+    return int(cfg.label_column) if cfg.label_column else 0
+
+
+def _parse_categorical_column(spec: str, feature_names: Optional[List[str]],
+                              num_features: int) -> List[int]:
+    """The `categorical_column` selector: an index list, or `name:`
+    followed by header names."""
+    if not spec:
+        return []
+    out: List[int] = []
+    if spec.startswith("name:"):
+        if not feature_names:
+            raise ValueError("categorical_column=name: requires a header")
+        for w in spec[5:].split(","):
+            out.append(feature_names.index(w.strip()))
+    else:
+        for tok in spec.replace(",", " ").split():
+            out.append(int(tok))
+    return [i for i in out if 0 <= i < num_features]
+
+
+def _resolve_column_selectors(cfg: Config, names: Optional[List[str]],
+                              label_idx: int, n_xcols: int
+                              ) -> Tuple[Optional[int], Optional[int],
+                                         List[int]]:
+    """`weight_column` / `group_column` / `ignore_column` as X-space
+    column indices (file columns with the label removed): (weight column,
+    group column, columns to drop, the first two among them).  Indices
+    count the file's columns; `name:` selectors need a header."""
+
+    def _resolve(spec: str, what: str) -> Optional[int]:
+        spec = spec.strip()
+        if not spec:
+            return None
+        if spec.startswith("name:"):
+            if not names:
+                raise ValueError(
+                    f"{what}={spec} needs has_header=true with a header")
+            nm = spec[5:].strip()
+            if nm not in names:
+                raise ValueError(f"{what}: no column named {nm!r}")
+            return names.index(nm)
+        return int(spec)
+
+    def _xcol(c: int, what: str) -> int:
+        if c == label_idx:
+            raise ValueError(f"{what} column {c} is the label column")
+        if not 0 <= c <= n_xcols:
+            raise ValueError(f"{what} column {c} out of range")
+        return c - 1 if c > label_idx else c
+
+    drop: List[int] = []
+    xw = xg = None
+    wi = _resolve(cfg.weight_column, "weight_column")
+    if wi is not None:
+        xw = _xcol(wi, "weight_column")
+        drop.append(xw)
+    gi = _resolve(cfg.group_column, "group_column")
+    if gi is not None:
+        xg = _xcol(gi, "group_column")
+        drop.append(xg)
+    ign = cfg.ignore_column.strip()
+    if ign.startswith("name:"):
+        # `name:` prefixes the whole comma-separated list
+        for nm in ign[5:].split(","):
+            ci = _resolve(f"name:{nm.strip()}", "ignore_column")
+            if ci is not None:
+                drop.append(_xcol(ci, "ignore_column"))
+    elif ign:
+        for tok in ign.replace(",", " ").split():
+            drop.append(_xcol(int(tok), "ignore_column"))
+    return xw, xg, drop
+
+
+def _query_boundaries_from_ids(qid: np.ndarray) -> np.ndarray:
+    """Per-row query ids -> query boundaries; a query's rows must be
+    contiguous."""
+    change = np.nonzero(qid[1:] != qid[:-1])[0] + 1
+    starts = np.concatenate([[0], change])
+    if len(np.unique(qid)) != len(starts):
+        raise ValueError("group_column: rows of the same query must be "
+                         "contiguous in the data file")
+    return np.concatenate([starts, [len(qid)]]).astype(np.int32)
+
+
+def load_file_two_round(path: str, cfg: Config,
+                        reference: Optional[Dataset] = None,
+                        chunk_rows: int = 0) -> Dataset:
+    """Two streaming passes over a CSV/TSV file (the reference's
+    two-round loading): the first reservoir-samples
+    `bin_construct_sample_cnt` rows for the bin mappers and keeps the
+    label and selector columns, the second bins each chunk straight into
+    the store, so the float64 matrix never exists.  Chunks are
+    `stream_chunk_rows` rows, the JAX package's `pd.read_csv` chunks, so
+    the sample (one `rand` and one `randint` draw a chunk) and with it
+    the mappers are the JAX package's; the values are the one-shot
+    parse's, correctly rounded.  LibSVM files take the one-shot path."""
+    chunk_rows = chunk_rows or int(cfg.stream_chunk_rows)
+    label_idx = _label_index(cfg)
+    fmt, names = probe_text_file(path, cfg.has_header)
+    if fmt == "libsvm":
+        raise ValueError("use_two_round_loading supports csv/tsv only")
+
+    def chunks():
+        return iter_text_chunks(path, fmt, cfg.has_header, chunk_rows)
+
+    # pass 1: count rows, reservoir-sample, keep the label and selectors
+    S = int(cfg.bin_construct_sample_cnt)
+    rng = np.random.RandomState(cfg.data_random_seed)
+    sample: Optional[np.ndarray] = None
+    filled = 0
+    labels: List[np.ndarray] = []
+    wvals: List[np.ndarray] = []
+    gvals: List[np.ndarray] = []
+    sel = None                      # (weight, group, kept, file columns)
+    n_seen = 0
+    for arr in chunks():
+        labels.append(arr[:, label_idx].copy())
+        if sel is None:
+            n_x = arr.shape[1] - 1
+            xw, xg, drop = _resolve_column_selectors(cfg, names, label_idx,
+                                                     n_x)
+
+            def _fcol(c):           # X-space -> file column
+                return c + 1 if c >= label_idx else c
+            dropped = set(drop)
+            use_cols = [_fcol(c) for c in range(n_x) if c not in dropped]
+            keep = ([c for c in range(n_x) if c not in dropped]
+                    if drop else None)
+            sel = (None if xw is None else _fcol(xw),
+                   None if xg is None else _fcol(xg), keep, use_cols)
+        wcol, gcol, keep, use_cols = sel
+        if wcol is not None:
+            wvals.append(arr[:, wcol].copy())
+        if gcol is not None:
+            gvals.append(arr[:, gcol].copy())
+        X = arr[:, use_cols]
+        if sample is None:
+            sample = np.empty((S, X.shape[1]), np.float64)
+        take = min(S - filled, len(X))          # fill
+        if take > 0:
+            sample[filled:filled + take] = X[:take]
+            filled += take
+        rest = X[take:]                         # replace
+        if len(rest):
+            gidx = np.arange(n_seen + take, n_seen + take + len(rest))
+            accept = rng.rand(len(rest)) < S / (gidx + 1.0)
+            if accept.any():
+                slots = rng.randint(0, S, size=int(accept.sum()))
+                sample[slots] = rest[accept]
+        n_seen += len(X)
+    if sel is None or n_seen == 0:
+        raise ValueError(f"empty data file: {path}")
+    y = np.concatenate(labels)
+    n = len(y)
+    sample = sample[:filled]
+    md = Metadata.load_side_files(path, n)
+    md.label = np.asarray(y, np.float32)
+    wcol, gcol, keep, use_cols = sel
+    if wcol is not None:
+        if md.weights is not None:
+            log.warning("weight_column overrides the .weight side file")
+        md.weights = np.concatenate(wvals).astype(np.float32)
+    if gcol is not None:
+        if md.query_boundaries is not None:
+            log.warning("group_column overrides the .query side file")
+        md.query_boundaries = _query_boundaries_from_ids(
+            np.concatenate(gvals))
+    x_names = None
+    if names:
+        x_names = [nm for c, nm in enumerate(names) if c != label_idx]
+        if keep is not None:
+            x_names = [x_names[c] for c in keep]
+
+    cats = _parse_categorical_column(cfg.categorical_column, x_names,
+                                     sample.shape[1])
+    if reference is not None:
+        if sample.shape[1] != reference.num_total_features:
+            raise ValueError("validation data has different #features")
+        mappers, used = reference.mappers, reference.used_features
+        plan = reference.bundle_plan
+    else:
+        mappers = find_bin_mappers(
+            sample, cfg.max_bin, cfg.min_data_in_bin, cfg.min_data_in_leaf,
+            categorical=cats, sample_cnt=len(sample),
+            seed=cfg.data_random_seed, bin_budget=cfg.bin_budget)
+        used = [i for i, m in enumerate(mappers) if not m.is_trivial]
+        plan = _plan_bundles_from_sample(sample, mappers, used, cfg)
+        _log_bundle_state(plan, len(used), cfg)
+
+    # pass 2: bin straight into the store
+    ds = Dataset._empty_from_mappers(cfg, mappers, used, n, sample.shape[1],
+                                     x_names, plan=plan)
+    row = 0
+    for arr in chunks():
+        ds._bin_rows_into(arr[:, use_cols], row)
+        row += len(arr)
+    ds._check_realized_conflicts()
+    ds.metadata = md
+    return ds

@@ -28,6 +28,21 @@ _ROUND_ALIASES = ("num_iterations", "num_iteration", "num_trees",
                   "num_tree", "num_rounds", "num_round")
 
 
+def _raw_features(train_set: Dataset):
+    """The raw feature values of a constructed training set: its matrix,
+    or its text file's as `Dataset.from_file` reads them."""
+    if train_set._raw_X is not None:
+        return train_set._raw_X
+    if not isinstance(train_set.data, str):
+        return train_set.data
+    from .dataset import Dataset as _InnerDataset, read_text_file
+    if _InnerDataset._is_binary_file(train_set.data):
+        raise log.LightGBMError(
+            f"init_model needs raw feature values; {train_set.data} is a "
+            "binary dataset")
+    return read_text_file(train_set.data, train_set._inner.config)[0]
+
+
 def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100,
           valid_sets: Optional[Union[Dataset, List[Dataset]]] = None,
@@ -67,9 +82,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
         init_booster = (Booster(model_file=init_model, params=params)
                         if isinstance(init_model, str) else init_model)
         train_set.construct(params)
-        raw_X = (train_set._raw_X if train_set._raw_X is not None
-                 else train_set.data)
-        init_raw = init_booster.predict(raw_X, raw_score=True)
+        init_raw = init_booster.predict(_raw_features(train_set),
+                                        raw_score=True)
         train_set.set_init_score(
             np.asarray(init_raw, np.float64).T.reshape(-1))
     booster = Booster(params=params, train_set=train_set)

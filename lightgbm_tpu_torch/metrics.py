@@ -47,6 +47,11 @@ class Metric:
     def _device_param(self) -> float:
         return 0.0
 
+    def result_names(self) -> List[str]:
+        """The names `eval` returns, without evaluating (the C ABI's
+        GetEvalCounts/GetEvalNames read them)."""
+        return [self.name]
+
     def eval(self, score: torch.Tensor) -> List[Tuple[str, torch.Tensor]]:
         """The weighted mean of the metric's pointwise loss."""
         return [(self.name, deval.pointwise_loss(
@@ -174,6 +179,9 @@ class NDCGMetric(Metric):
         self._qw = None if qw is None else torch.as_tensor(qw, device=device)
         self._label_int = torch.as_tensor(
             np.asarray(metadata.label).astype(np.int32), device=device)
+
+    def result_names(self) -> List[str]:
+        return [f"{self.name}@{int(k)}" for k in self.config.ndcg_eval_at]
 
     def eval(self, score):
         ks = tuple(int(k) for k in self.config.ndcg_eval_at)

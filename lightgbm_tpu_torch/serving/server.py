@@ -27,8 +27,8 @@ Port of lightgbm_tpu/serving/server.py.  Endpoints:
 
 Requests flow HTTP handler → MicroBatcher → PredictorRuntime, with
 ModelRegistry hot-swapping generations underneath.  The entry points
-are `PredictionServer` and `server_from_config`; ``task=serve`` comes
-with the CLI (ROADMAP.md §A item 13).
+are `PredictionServer`, `server_from_config` and `serve_from_config`,
+which ``python -m lightgbm_tpu_torch task=serve`` runs (application.py).
 """
 from __future__ import annotations
 

@@ -13,13 +13,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # imports every module of the port (found by walking the package: the
 # sklearn wrappers and the callback library too) and chip_smoke.py, then
-# names any JAX or JAX-package module loaded
+# names any JAX or JAX-package module loaded; importing builds no native
+# library and loads none (the C ABI's library embeds an interpreter)
 _PROBE = """
 import importlib, pkgutil, sys
 import lightgbm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     lightgbm_tpu_torch.__path__, "lightgbm_tpu_torch.")]
-for want in ("lightgbm_tpu_torch.ops.sparse_streams",
+for want in ("lightgbm_tpu_torch.application",
+             "lightgbm_tpu_torch.__main__",
+             "lightgbm_tpu_torch.capi",
+             "lightgbm_tpu_torch.native",
+             "lightgbm_tpu_torch.pmml",
+             "lightgbm_tpu_torch.plotting",
+             "lightgbm_tpu_torch.ops.sparse_streams",
              "lightgbm_tpu_torch.serving",
              "lightgbm_tpu_torch.serving.server",
              "lightgbm_tpu_torch.diagnostics.faults",
@@ -35,6 +42,10 @@ for want in ("lightgbm_tpu_torch.ops.sparse_streams",
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from lightgbm_tpu_torch import native
+with open("/proc/self/maps") as f:
+    assert "liblgbt_" not in f.read()
+assert not native._TRIED and native._LIB is None
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "lightgbm_tpu" or m.startswith("lightgbm_tpu."))
