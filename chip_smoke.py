@@ -121,8 +121,11 @@ call is the host f64 walk of every tree (LIGHTGBM_TPU_DEVICE_PREDICT=0,
              prebuilt flat indices (index_add_ for K5; for K6 one
              scatter_add_ over stride-0 views, since its flat index would
              hold F*M*C = 7.2e9 entries).
-10. onehot main — the exact leaf-wise learner (tree_growth=exact) on the
-             phase-8 datasets, 12 iterations (s/iter over iterations 3-12,
+10. onehot main — the serial exact leaf-wise learner (tree_growth=exact
+             with the SerialTreeLearner built on the card directly, as
+             the JAX package's tests build a learner: the card's `exact`
+             is the fused builder of phase 18) on the phase-8 datasets,
+             12 iterations (s/iter over iterations 3-12,
              timed as in phase 3), valid AUC every iteration; fails unless
              the learner is the exact one, K5 launched, AUC rose from
              iteration 1 to 12, and the device-scored valid set agrees with
@@ -140,7 +143,9 @@ call is the host f64 walk of every tree (LIGHTGBM_TPU_DEVICE_PREDICT=0,
 12. onehot card vs CPU — 5 iterations of the exact learner on the CPU and
              on the card, on synth_onehot(50_000) with ONEHOT_PARAMS and on
              synth_higgs(50_000) with the north-star parameters: first
-             trees as in phase 7, valid AUC within 1e-4.
+             trees as in phase 7, valid AUC within 1e-4; the serial
+             learner on both, and the card's fused builder against the
+             CPU's serial learner.
 13. objectives — regression and 5-class multiclass through the rounds
              learner at the main path's shape: synth_higgs(2_000_000) x 28
              with its labeling function left unthresholded (the target:
@@ -294,6 +299,48 @@ call is the host f64 walk of every tree (LIGHTGBM_TPU_DEVICE_PREDICT=0,
              LGBM_BoosterRefit on PREDICT_LEAF leaves bitwise
              refit_gbdt(leaf_idx=) from Python; lightgbm_tpu never loaded.
              Seconds of each step printed.
+
+18. the bundled sparse store and the fused builder (~120 s; its
+             parts run beside the phases whose data they share, and print
+             "[phase 18...]"):
+             18a (after phase 7) — synth_ctr(500_000) x 5,000 (bench.py's
+             BENCH_CTR_FEATURES knob of the ctr shape) with CTR_PARAMS
+             and enable_bundle=true: store columns, bundles, conflicting
+             rows, nnz and set-up seconds; 12 iterations through the
+             rounds learner (K8, K3; s/iter as in phase 3, the tree/*
+             counters printed), valid NDCG@5 must not fall, no store
+             densified, device valid scores within 1e-4 of the host walk
+             on the valid rows without a bundle conflict (a conflicting
+             row keeps one member in any bundled store); K8 over the
+             bundled store against its plain version (a K=31 pass, as
+             phase 5), timed — its row in the {"kernels"} line.  On a
+             50,000-row cut, with dyadic gradients (every sum exact): the
+             rounds learner's tree over the bundled csr store bitwise the
+             one over the dense bundled store; card and CPU first trees
+             (phase 7's rule).  The 20,000 x 3,000 sparse probe at
+             density 0.01 with the stock parameters: a bundle plan, the
+             csr store, 2 iterations, no densification.
+             18d — the fused builder (tree_growth=exact) on the same cut:
+             its sparse feed (K8, K=1 a pass) bitwise its dense feed (K2)
+             with dyadic gradients, no densification.
+             18b (after phase 10) — the fused builder on the onehot
+             datasets of phase 8, 12 iterations (s/iter as in phase 3)
+             under HotPathSanitizer(warmup=1, strict): every tree after
+             the first makes no synchronising call and builds no kernel,
+             the host reads each tree once (one packed read), K2
+             launches once at the root and once a split of every tree and
+             K5 never; valid AUC must rise; its first tree structurally
+             the serial learner's of phase 10 unless the first differing
+             split is an f32 gain tie.  K2's one-slot pass as the builder
+             calls it (a leaf of half the rows in the mask) against its
+             plain version, timed — its row in the {"kernels"} line.
+             18c (after phase 15, so that serving runs as before it) —
+             the fused builder on phase 3's north-star datasets,
+             float32, 6 iterations, with 18b's checks; 3 more with
+             bagging 0.8 (the row mask); its first tree against the
+             serial learner's on the card; s/iter of the fused and the
+             serial learner alternating, F S F S (4 iterations each
+             after the first, 3 timed).
 
 Every kernel's ms is timed by CUDA events around each call, the method
 of earlier versions of this script; it includes the wrapper's host
@@ -1157,10 +1204,11 @@ def phase_learner_passes(torch, lt, H, SS, params, ds, sp):
 
 
 def drive_ctr(torch, lt, kernels, dataset_mod, params, ds, vs, Xv,
-              warmup, timed):
+              warmup, timed, rows_ok=None):
     """lightgbm_tpu_torch.train on the built ctr Datasets, NDCG@1..5 of
     the valid set every iteration; counts zeroed before, read after.
-    s/iter as in `drive`."""
+    s/iter as in `drive`.  `rows_ok` (a bool mask) limits the comparison
+    of the device valid scores with the host walk to those rows."""
     gc.collect()
     kernels.reset_launches()
     dataset_mod.reset_sparse_fallbacks()
@@ -1181,6 +1229,8 @@ def drive_ctr(torch, lt, kernels, dataset_mod, params, ds, vs, Xv,
     t = time.perf_counter()
     host_raw = host_walk(bst, Xv, raw_score=True)
     predict_s = time.perf_counter() - t
+    if rows_ok is not None:
+        dev_raw, host_raw = dev_raw[rows_ok], host_raw[rows_ok]
     st = dict(s_per_iter=(marks[1] - marks[0]) / timed, train_wall_s=wall,
               ndcg={k: [v[0], v[-1]] for k, v in res["valid_0"].items()},
               syncs_per_tree=statistics.mean(bst._gbdt.host_syncs_per_tree),
@@ -1481,7 +1531,9 @@ def phase_k5_tree(torch, lt, H, params, ds):
         return real(bins_t, gp, hp, idx, B, input_dtype, count, nb)
     H._from_indices_cuda = record
     try:
-        lt.train(dict(params, tree_growth="exact"), ds, 1, verbose_eval=False)
+        with serial_exact():
+            lt.train(dict(params, tree_growth="exact"), ds, 1,
+                     verbose_eval=False)
     finally:
         H._from_indices_cuda = real
     per = []
@@ -1792,12 +1844,14 @@ def drive_onehot(torch, lt, kernels, params, ds, vs, Xv, warmup, timed):
     if walk_err > 1e-4:
         fail(f"onehot device valid scores disagree with the host walk: "
              f"{walk_err}")
-    return st
+    return st, models[0]
 
 
 def phase_onehot_main(torch, lt, kernels, params, ds, vs, Xv):
-    st = drive_onehot(torch, lt, kernels, dict(params, tree_growth="exact"),
-                      ds, vs, Xv, 2, 10)
+    with serial_exact():
+        st, first = drive_onehot(torch, lt, kernels,
+                                 dict(params, tree_growth="exact"), ds, vs,
+                                 Xv, 2, 10)
     print(f"[onehot main] exact: {json.dumps(st)}", flush=True)
     if st["learner"] != "SerialTreeLearner":
         fail(f"tree_growth=exact ran {st['learner']}")
@@ -1806,7 +1860,7 @@ def phase_onehot_main(torch, lt, kernels, params, ds, vs, Xv):
     if not st["auc_last"] > st["auc_first"]:
         fail(f"onehot valid AUC did not rise: {st['auc_first']} -> "
              f"{st['auc_last']}")
-    rd = drive_onehot(torch, lt, kernels, params, ds, vs, Xv, 2, 4)
+    rd, _ = drive_onehot(torch, lt, kernels, params, ds, vs, Xv, 2, 4)
     print(f"[onehot main] rounds: {json.dumps(rd)}", flush=True)
     if rd["learner"] != "RoundsTreeLearner":
         fail(f"tree_growth=auto ran {rd['learner']}")
@@ -1814,7 +1868,7 @@ def phase_onehot_main(torch, lt, kernels, params, ds, vs, Xv):
         if rd["launches"][k] <= 0:
             fail(f"the rounds learner on the bundled store never launched "
                  f"{k}")
-    return st, rd
+    return st, rd, first
 
 
 def phase_lossless(lt):
@@ -1841,7 +1895,9 @@ def phase_lossless(lt):
 
 
 def phase_onehot_card_vs_cpu(lt):
-    """The exact learner on the CPU and on the card (phase 12)."""
+    """The exact learners on the CPU and on the card (phase 12): the
+    serial learner on both, and the card's fused builder (its `exact`)
+    against the CPU's serial learner."""
     from lightgbm_tpu_torch.synth import (NORTH_STAR_PARAMS, ONEHOT_PARAMS,
                                           synth_higgs, synth_onehot)
     for label, data, base in (("onehot exact", synth_onehot, ONEHOT_PARAMS),
@@ -1850,16 +1906,25 @@ def phase_onehot_card_vs_cpu(lt):
         X, y = data(ONEHOT_COMPARE)
         Xv, yv = data(ONEHOT_COMPARE // 5, seed=7)
         out = {}
-        for dev in ("cpu", GPU):
+        for run, dev in (("cpu", "cpu"), ("serial", GPU), ("fused", GPU)):
             p = dict(base, device_type=dev, tree_growth="exact")
             ds = lt.Dataset(X, y, params=p)
             res = {}
-            bst = lt.train(p, ds, 5, valid_sets=[lt.Dataset(Xv, yv,
-                                                            reference=ds)],
-                           evals_result=res, verbose_eval=False)
-            out[dev] = (bst._gbdt.models[0], res["valid_0"]["auc"][-1])
-        compare_first_trees(label, out["cpu"][0], out[GPU][0], out["cpu"][1],
-                            out[GPU][1], "auc")
+            with (serial_exact() if run == "serial"
+                  else contextlib.nullcontext()):
+                bst = lt.train(p, ds, 5, valid_sets=[lt.Dataset(
+                    Xv, yv, reference=ds)], evals_result=res,
+                    verbose_eval=False)
+            want = "FusedTreeLearner" if run == "fused" \
+                else "SerialTreeLearner"
+            if type(bst._gbdt.learner).__name__ != want:
+                fail(f"{label} ({run}) ran {type(bst._gbdt.learner)}")
+            out[run] = (bst._gbdt.models[0], res["valid_0"]["auc"][-1])
+        compare_first_trees(label, out["cpu"][0], out["serial"][0],
+                            out["cpu"][1], out["serial"][1], "auc")
+        compare_first_trees(f"{label}, fused (card) vs serial (CPU)",
+                            out["cpu"][0], out["fused"][0], out["cpu"][1],
+                            out["fused"][1], "auc")
 
 
 def phase_card_vs_cpu(lt):
@@ -3652,6 +3717,477 @@ def phase_files(torch, lt, kernels, card):
     return st
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the bundled sparse store and the fused single-split builder
+# ---------------------------------------------------------------------------
+
+CTRB_ROWS = 500_000
+CTRB_FEATURES = 5_000
+CTRB_ITERS = (2, 10)
+CTRB_CUT = 50_000
+PROBE_SHAPE = (20_000, 3_000)
+FUSED_ONEHOT_ITERS = (2, 10)
+FUSED_NS_ITERS = (2, 4)
+FUSED_BAG_ITERS = 3
+FUSED_AB_ITERS = 4
+
+
+@contextlib.contextmanager
+def serial_exact():
+    """tree_growth=exact builds the serial (host-loop) learner on the card,
+    as the JAX package's own tests build a learner directly: the card's
+    `exact` is the fused builder, and the phases that time K5 and hold
+    the serial learner against the CPU need the serial one."""
+    from lightgbm_tpu_torch.boosting import gbdt
+    from lightgbm_tpu_torch.learner.serial import SerialTreeLearner
+    real = gbdt.create_tree_learner
+
+    def make(ds, cfg):
+        if getattr(cfg, "tree_growth", "auto") == "exact":
+            return SerialTreeLearner(ds, cfg)
+        return real(ds, cfg)
+    gbdt.create_tree_learner = make
+    try:
+        yield
+    finally:
+        gbdt.create_tree_learner = real
+
+
+@contextlib.contextmanager
+def sanitized_trees(san):
+    """Every FusedTreeLearner.train (one tree) inside one `san.step()`."""
+    from lightgbm_tpu_torch.learner.fused import FusedTreeLearner
+    real = FusedTreeLearner.train
+
+    def train(self, *a, **k):
+        with san.step():
+            return real(self, *a, **k)
+    FusedTreeLearner.train = train
+    try:
+        yield
+    finally:
+        FusedTreeLearner.train = real
+
+
+def tree_counters(profiling, before):
+    """The tree/* counters' growth since `before` (a counters() dict)."""
+    now = profiling.counters("tree/")
+    return {k: now.get(k, 0.0) - before.get(k, 0.0) for k in
+            (profiling.HIST_ROWS_TOUCHED, profiling.SPARSE_NNZ_TOUCHED,
+             profiling.SPARSE_FALLBACKS)}
+
+
+def drive_fused(torch, lt, kernels, params, ds, vs, Xv, warmup, timed,
+                label):
+    """The fused builder (tree_growth=exact on the card) through
+    lightgbm_tpu_torch.train, under HotPathSanitizer(warmup=1, strict):
+    every tree after the first must make no synchronising call (one
+    explicit packed read a tree) and build no kernel.  Fails unless the
+    learner is the fused one, K2 launched once at the root and once a
+    split of every tree, K5 never, and the host read each tree once."""
+    from lightgbm_tpu_torch.diagnostics.sanitize import HotPathSanitizer
+    with HotPathSanitizer(warmup=1, strict=True, label=label) as san:
+        with sanitized_trees(san):
+            st, first = drive_onehot(torch, lt, kernels, params, ds, vs, Xv,
+                                     warmup, timed)
+    san.check()
+    L = int(params["num_leaves"])
+    n = warmup + timed
+    rep = san.report()
+    st.update(sanitize={k: rep[k] for k in (
+        "steps", "retraces_after_warmup", "implicit_transfers",
+        "compiles_total")},
+        k2_per_tree=st["launches"].get("hist_masked_f32", 0) / n)
+    if st["learner"] != "FusedTreeLearner":
+        fail(f"tree_growth=exact on the card ran {st['learner']} ({label})")
+    if st["launches"].get("hist_masked_f32", 0) != n * L:
+        fail(f"K2 launched {st['launches'].get('hist_masked_f32')} times "
+             f"in {n} fused trees of {L} leaves ({label})")
+    if st["launches"].get("hist_gathered", 0):
+        fail(f"the fused builder launched K5 ({label})")
+    if st["syncs_per_tree"] != 1:
+        fail(f"the fused builder read the host {st['syncs_per_tree']} "
+             f"times a tree ({label})")
+    if rep["steps"] != n:
+        fail(f"the sanitizer saw {rep['steps']} trees of {n} ({label})")
+    return st, first
+
+
+def fused_k2_row(torch, H, learner, launches):
+    """Kernel K2 as the fused builder calls it: one slot, the masked feed
+    over every row of the learner's store (byte copy), a leaf of about
+    half the rows in the mask; real gradients within n * 2^-23 * sum|x|
+    a cell and dyadic ones bitwise against its plain version, two runs
+    bitwise; timed, with its bound and one index_add_."""
+    dev = torch.device(GPU)
+    bins, rows = learner.bins_dev, learner.rows
+    F, N = bins.shape
+    B = learner.B
+    rng = np.random.RandomState(18)
+    mask = torch.as_tensor((rng.rand(N) < 0.5).astype(np.float32),
+                           device=dev)
+    g = torch.as_tensor(rng.randn(N).astype(np.float32), device=dev)
+    h = torch.as_tensor(rng.rand(N).astype(np.float32), device=dev)
+    gd = torch.as_tensor((np.round(rng.randn(N) * 16) / 16
+                          ).astype(np.float32), device=dev)
+    hd = torch.as_tensor((np.round(rng.rand(N) * 64) / 256
+                          ).astype(np.float32), device=dev)
+    errs = []
+    for gg, hh, exact in ((g, h, False), (gd, hd, True)):
+        gh8, lid, sl = H._mask_feed(gg, hh, mask)
+        got = H._hist_f_cuda(bins, rows, None, gh8, B, lid=lid, sl=sl)
+        again = H._hist_f_cuda(bins, rows, None, gh8, B, lid=lid, sl=sl)
+        ref = H._hist_plain(bins, None, lid, gh8, sl, B, rows=rows)
+        torch.cuda.synchronize()
+        errs.append((got.double() - ref.double()).abs().max().item())
+        if not torch.equal(got, again):
+            fail("K2 (fused one-slot pass) differs from run to run")
+        if exact and not torch.equal(got, ref):
+            fail(f"K2 (fused one-slot pass) differs from its plain version "
+                 f"on dyadic values: {errs[-1]}")
+        if not exact:
+            tol = reorder_tol(torch, lambda v: H._hist_plain(
+                bins, None, lid, v, sl, B, rows=rows), gh8)
+            if ((got.double() - ref.double()).abs() > tol).any():
+                fail(f"K2 (fused one-slot pass) beyond n*2^-23*sum|x|: "
+                     f"{errs[-1]}")
+        full = H.histogram_full_masked(bins, gg, hh, mask,
+                                       num_bins_padded=B, rows=rows)
+        if not torch.equal(full, got[0]):
+            fail("histogram_full_masked did not run K2's one-slot pass")
+    gh8, lid, sl = H._mask_feed(g, h, mask)
+
+    def k2():
+        return H._hist_f_cuda(bins, rows, None, gh8, B, lid=lid, sl=sl)
+    ms = time_ms(torch, k2, 20)
+    graph = graph_ms(torch, k2)
+    plain = time_ms(torch, lambda: H._hist_plain(bins, None, lid, gh8, sl, B,
+                                                 rows=rows), 3, 1)
+    b = (bins.long() + (128 if bins.dtype == torch.int8 else 0))
+    live = (lid == 0)
+    idx = (torch.arange(F, device=dev)[:, None] * (3 * B) + b)[:, live]
+    idx = torch.cat([idx.reshape(-1) + ch * B for ch in range(3)])
+    v = torch.cat([gh8[ch][live][None].expand(F, -1).reshape(-1)
+                   for ch in range(3)])
+    out = torch.zeros(F * 3 * B, dtype=torch.float32, device=dev)
+    lib = time_ms(torch, lambda: out.zero_().index_add_(0, idx, v), 5, 1)
+    del idx, v, out, b
+    F4 = rows.rows.shape[1]
+    # the leaf id of every row (which rows are in the mask), the byte row
+    # and 3 values of each row in the mask, the [F, 3, B] output once
+    n = int(live.sum())
+    bms, by = bound_ms(N * 4 + n * (F4 + 12) + F * 3 * B * 4, 3.0 * F * n)
+    print(f"[phase 18b] hist_masked_f32 (fused one-slot pass): N={N} F={F} "
+          f"B={B} max_abs_err={max(errs):.3g} ms={ms:.4f} "
+          f"graph_ms={graph:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+          f"bound_ms={bms:.4f} ({by})", flush=True)
+    return dict(name="hist_masked_f32 (fused exact, one slot)", route="cuda",
+                source="lightgbm_tpu_torch/csrc/histogram.cu",
+                replaces="lightgbm_tpu/ops/histogram.py:443",
+                launches=launches, max_abs_err=max(errs), ms=ms,
+                graph_ms=graph, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=lib)
+
+
+def phase_fused_onehot(torch, lt, kernels, params, ds, vs, Xv, serial_first):
+    """Phase 18b: the fused builder on the onehot workload (phase 8's
+    datasets, 40 bundle columns), its first tree against the serial
+    learner's (phase 10) on the card, and K2's one-slot pass."""
+    t0 = time.perf_counter()
+    p = dict(params, tree_growth="exact")
+    st, first = drive_fused(torch, lt, kernels, p, ds, vs, Xv,
+                            *FUSED_ONEHOT_ITERS, "fused onehot")
+    print(f"[phase 18b] fused exact, onehot: {json.dumps(st)}", flush=True)
+    if not st["auc_last"] > st["auc_first"]:
+        fail(f"fused onehot valid AUC did not rise: {st['auc_first']} -> "
+             f"{st['auc_last']}")
+    compare_first_trees("onehot, fused vs serial learner on the card",
+                        serial_first, first, 0.0, 0.0, "-")
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.learner.fused import FusedTreeLearner
+    from lightgbm_tpu_torch.ops import histogram as H
+    learner = FusedTreeLearner(ds._inner, config_from_params(p))
+    row = fused_k2_row(torch, H, learner, st["launches"]["hist_masked_f32"])
+    del learner
+    gc.collect()
+    torch.cuda.empty_cache()
+    st["phase_s"] = time.perf_counter() - t0
+    print(f"[phase 18b] {st['phase_s']:.1f} s", flush=True)
+    return st, row
+
+
+def phase_fused_northstar(torch, lt, kernels, ns_params, ds, vs, Xv):
+    """Phase 18c: the fused builder on the north-star datasets (phase 3's,
+    2M rows), float32; a bagged run for the row mask; its first tree
+    against the serial learner's on the card."""
+    t0 = time.perf_counter()
+    p = dict(ns_params, tree_growth="exact", histogram_dtype="float32")
+    st, first = drive_fused(torch, lt, kernels, p, ds, vs, Xv,
+                            *FUSED_NS_ITERS, "fused north-star")
+    print(f"[phase 18c] fused exact, north-star: {json.dumps(st)}",
+          flush=True)
+    if not st["auc_last"] > st["auc_first"]:
+        fail(f"fused north-star valid AUC did not rise: {st['auc_first']} "
+             f"-> {st['auc_last']}")
+    pb = dict(p, bagging_fraction=0.8, bagging_freq=1, bagging_seed=3)
+    bag, _ = drive_fused(torch, lt, kernels, pb, ds, vs, Xv, 1,
+                         FUSED_BAG_ITERS - 1, "fused north-star, bagged")
+    print(f"[phase 18c] fused exact, north-star, bagging 0.8: "
+          f"{json.dumps(bag)}", flush=True)
+    # the serial learner on the same data, alternating with the fused
+    # one: F S F S, each a steady window of FUSED_AB_ITERS - 1 iterations
+    pairs = []
+    for rep in range(2):
+        if rep:
+            fu, _ = drive_fused(torch, lt, kernels, p, ds, vs, Xv, 1,
+                                FUSED_AB_ITERS - 1, "fused north-star, A/B")
+            pairs.append(("fused", fu["s_per_iter"]))
+        else:
+            pairs.append(("fused", st["s_per_iter"]))
+        with serial_exact():
+            se, sfirst = drive_onehot(torch, lt, kernels, p, ds, vs, Xv, 1,
+                                      FUSED_AB_ITERS - 1)
+        if se["learner"] != "SerialTreeLearner":
+            fail("the serial learner was not built on the card")
+        pairs.append(("serial", se["s_per_iter"]))
+        if not rep:
+            compare_first_trees("north-star, fused vs serial learner on "
+                                "the card", sfirst, first, 0.0, 0.0, "-")
+    st["ab_s_per_iter"] = pairs
+    print(f"[phase 18c] north-star float32 s/iter, fused and serial "
+          f"learners alternating: {json.dumps(pairs)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    st["phase_s"] = time.perf_counter() - t0
+    print(f"[phase 18c] {st['phase_s']:.1f} s", flush=True)
+    return st
+
+
+def dyadic_gh(torch, y, device):
+    """Dyadic gradients (-1 / +1 by label, hessian 0.5: every histogram
+    sum exact in any order) on `device`."""
+    g = np.where(np.asarray(y) > 0, -1.0, 1.0).astype(np.float32)
+    return (torch.as_tensor(g, device=device),
+            torch.full((len(g),), 0.5, dtype=torch.float32, device=device))
+
+
+def same_tree(label, a, la, b, lb):
+    """Trees a and b (leaf ids la, lb) bitwise: structure, leaf values
+    and leaf ids."""
+    n = a.num_leaves
+    ok = b.num_leaves == n and all(
+        np.array_equal(getattr(a, f)[:n - 1], getattr(b, f)[:n - 1])
+        for f in ("split_feature", "threshold_in_bin", "left_child",
+                  "right_child"))
+    ok = ok and np.array_equal(a.leaf_value[:n], b.leaf_value[:n])
+    ok = ok and np.array_equal(la.cpu().numpy(), lb.cpu().numpy())
+    print(f"[phase 18] {label}: leaves {n} / {b.num_leaves}, bitwise: {ok}",
+          flush=True)
+    if not ok:
+        fail(f"{label}: the trees differ")
+
+
+def conflict_rows(inner, X):
+    """[rows] bool: the rows of raw X on which two members of one bundle
+    of `inner`'s plan are both off their default bin.  Such a row keeps
+    one of them in any bundled store (EFB's loss, counted as
+    bundle_conflict_rows), so its binned walk may leave the raw one."""
+    plan = inner.bundle_plan
+    cnt = np.zeros((X.shape[0], plan.num_columns), np.int32)
+    for k, i in enumerate(inner.used_features):
+        if plan.feat_packed[k]:
+            m = inner.mappers[i]
+            off = m.value_to_bin(np.asarray(X[:, i], np.float64)) \
+                != m.default_bin
+            cnt[off, int(plan.feat_col[k])] += 1
+    return (cnt > 1).any(axis=1)
+
+
+def bundled_k8_row(torch, H, SS, ds, launches):
+    """K8 on the bundled csr store: one K=31 float32 pass (as
+    phase 5 on the unbundled one) against its plain version, real
+    gradients within the reorder bound and dyadic ones bitwise; timed,
+    with its bound and one index_add_."""
+    dev = torch.device(GPU)
+    cols, binsv, zb = ds._inner.sparse_triple(dev)
+    Cp = int(zb.shape[0])
+    streams = SS.build_sparse_streams(cols, binsv, Cp)
+    N, K, B = cols.shape[0], CTR_SLOTS, 128
+    lid, sl, gh_dy, gh = sparse_pass_inputs(torch, H, N, K, 18)
+    srow, vals, tot, _ = H._sparse_pass(lid, gh, sl, "float32")
+    name = "hist_sparse_f32 (bundled csr)"
+    errs = [sparse_check(torch, H, SS, name, streams, zb, srow, vals, tot,
+                         None, K, Cp, B, False)]
+    dsrow, dvals, dtot, _ = H._sparse_pass(lid, gh_dy, sl, "float32")
+    errs.append(sparse_check(torch, H, SS, name, streams, zb, dsrow, dvals,
+                             dtot, None, K, Cp, B, True))
+    del dsrow, dvals, dtot
+    ms = time_ms(torch, lambda: SS._hist_streams_cuda(
+        streams, zb, srow, vals, tot, None, K, Cp, B), 10)
+    plain = time_ms(torch, lambda: SS.hist_streams_plain(
+        streams, zb, srow, vals, tot, None, K, Cp, B), 2, 1)
+    r0, j0 = torch.nonzero((cols < Cp) & (srow < K)[:, None], as_tuple=True)
+    base = ((srow[r0].long() * Cp + cols[r0, j0].long()) * (3 * B)
+            + binsv[r0, j0].long().clamp(max=B - 1))
+    idx = torch.cat([base + ch * B for ch in range(3)])
+    v = torch.cat([vals[ch, r0] for ch in range(3)])
+    out = torch.zeros(K * Cp * 3 * B, dtype=torch.float32, device=dev)
+    del base, r0, j0
+    lib = time_ms(torch, lambda: out.zero_().index_add_(0, idx, v), 5, 1)
+    del idx, v, out
+    bms, by, _, entries = sparse_bound(torch, cols, srow, vals, K, Cp, B)
+    print(f"[phase 18a] {name}: N={N} nnz={ds._inner.sparse.nnz} "
+          f"(of rows in a slot, with a value: {entries}) K={K} Cp={Cp} "
+          f"B={B} max_abs_err={max(errs):.3g} ms={ms:.4f} "
+          f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={bms:.4f} "
+          f"({by})", flush=True)
+    del streams, cols, binsv, srow, vals, tot
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(name=name, route="cuda",
+                source="lightgbm_tpu_torch/csrc/hist_sparse.cu",
+                replaces="lightgbm_tpu/ops/histogram.py:1133",
+                launches=launches, max_abs_err=max(errs), ms=ms,
+                plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib)
+
+
+def phase_ctr_bundled(torch, lt, kernels, dataset_mod, profiling, H, SS):
+    """Phase 18a (the bundled csr CTR store, trained by the rounds
+    learner) and 18d (the fused builder's sparse feed on a cut of it),
+    and the wide sparse probe with default parameters."""
+    import scipy.sparse as spm
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.learner.fused import FusedTreeLearner
+    from lightgbm_tpu_torch.learner.rounds import RoundsTreeLearner
+    from lightgbm_tpu_torch.synth import CTR_PARAMS, synth_ctr
+    t_phase = time.perf_counter()
+    dev = torch.device(GPU)
+    params = dict(CTR_PARAMS, enable_bundle=True, device_type=GPU)
+    t0 = time.perf_counter()
+    X, y, g = synth_ctr(CTRB_ROWS, CTRB_FEATURES, CTR_DENSITY)
+    Xv, yv, gv = synth_ctr(CTR_VALID_ROWS, CTRB_FEATURES, CTR_DENSITY,
+                           seed=7)
+    Xv = Xv.toarray()
+    synth_s = time.perf_counter() - t0
+    dataset_mod.reset_sparse_fallbacks()
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, y, group=g, params=params).construct()
+    train_s = time.perf_counter() - t0
+    vs = lt.Dataset(Xv, yv, group=gv, reference=ds,
+                    params=params).construct()
+    inner = ds._inner
+    plan = inner.bundle_plan
+    if plan is None or inner.sparse is None or vs._inner.sparse is None:
+        fail("the bundled ctr datasets did not build a csr store over a "
+             "bundle plan")
+    st = dict(rows=len(y), features=CTRB_FEATURES,
+              used_features=inner.num_features,
+              store_columns=inner.num_store_columns,
+              bundles=plan.num_bundles, conflict_rows=inner.
+              bundle_conflict_rows, nnz=inner.sparse.nnz,
+              ell_width=inner.sparse.nnz_capacity, synth_s=synth_s,
+              setup_binning_s=inner.setup_seconds["binning"],
+              setup_store_s=inner.setup_seconds["store"],
+              setup_train_total_s=train_s)
+    print(f"[phase 18a] bundled ctr set-up: {json.dumps(st)}", flush=True)
+    conflicts = conflict_rows(inner, Xv)
+    before = profiling.counters("tree/")
+    _, run = drive_ctr(torch, lt, kernels, dataset_mod, params, ds, vs, Xv,
+                       *CTRB_ITERS, rows_ok=~conflicts)
+    run["tree_counters"] = tree_counters(profiling, before)
+    run["valid_conflict_rows"] = int(conflicts.sum())
+    run["valid_bundle_conflicts"] = vs._inner.bundle_conflict_rows
+    print(f"[phase 18a] bundled ctr, rounds learner: {json.dumps(run)}",
+          flush=True)
+    for k in ("hist_sparse_f32", "table_lookup"):
+        if run["launches"][k] <= 0:
+            fail(f"the bundled ctr run never launched {k}")
+    if run["tree_counters"][profiling.SPARSE_FALLBACKS]:
+        fail("tree/sparse_fallbacks grew on the bundled ctr run")
+    row = bundled_k8_row(torch, H, SS, ds, run["launches"]["hist_sparse_f32"])
+    del ds, vs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- a 50,000-row cut: csr against dense bundled, rounds and fused,
+    # dyadic gradients; card against CPU --------------------------------
+    Xc, yc = X[:CTRB_CUT], y[:CTRB_CUT]
+    gc_ = g[:CTRB_CUT // 20]
+    del X
+    cut = {}
+    for store in ("csr", "dense"):
+        cfg = config_from_params(dict(params, sparse_store=store))
+        cut[store] = (lt.Dataset(Xc, yc, group=gc_, params=dict(
+            params, sparse_store=store)).construct()._inner, cfg)
+    if cut["csr"][0].sparse is None or cut["dense"][0].sparse is not None:
+        fail("the 50,000-row cut did not build csr and dense stores")
+    gd, hd = dyadic_gh(torch, yc, dev)
+    dataset_mod.reset_sparse_fallbacks()
+    kernels.reset_launches()
+    out = {}
+    for store in ("csr", "dense"):
+        ds_, cfg = cut[store]
+        out[store] = RoundsTreeLearner(ds_, cfg).train(gd, hd)
+    same_tree("18a rounds learner, bundled csr vs bundled dense (dyadic)",
+              out["csr"][0], out["csr"][1], out["dense"][0], out["dense"][1])
+    k8_rounds = kernels.LAUNCHES["hist_sparse_f32"]
+    for store in ("csr", "dense"):
+        ds_, cfg = cut[store]
+        cfg = config_from_params(dict(params, sparse_store=store,
+                                      tree_growth="exact"))
+        learner = FusedTreeLearner(ds_, cfg)
+        out[store] = learner.train(gd, hd)
+    same_tree("18d fused builder, sparse feed vs dense feed (dyadic)",
+              out["csr"][0], out["csr"][1], out["dense"][0], out["dense"][1])
+    fused_k8 = kernels.LAUNCHES["hist_sparse_f32"] - k8_rounds
+    fb = dataset_mod.sparse_fallbacks()
+    print(f"[phase 18d] fused sparse feed: K8 launches {fused_k8} in one "
+          f"tree of {out['csr'][0].num_leaves} leaves, sparse fallbacks "
+          f"{fb}", flush=True)
+    if fb:
+        fail(f"a bundled csr store was densified {fb} times")
+    if fused_k8 != int(params["num_leaves"]):
+        fail(f"the fused sparse feed launched K8 {fused_k8} times")
+    firsts = {}
+    for d in ("cpu", GPU):
+        p = dict(params, device_type=d)
+        ds_ = lt.Dataset(Xc, yc, group=gc_, params=p)
+        firsts[d] = lt.train(p, ds_, 1, verbose_eval=False)._gbdt.models[0]
+    compare_first_trees("bundled ctr cut, rounds learner", firsts["cpu"],
+                        firsts[GPU], 0.0, 0.0, "-")
+    del cut, out, firsts, Xc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the wide sparse probe, stock parameters ------------------------
+    t0 = time.perf_counter()
+    Xp = spm.random(*PROBE_SHAPE, density=0.01, format="csc",
+                    random_state=np.random.RandomState(0))
+    yp = np.asarray(Xp[:, :10].sum(1) > 0).ravel().astype(np.float64)
+    dataset_mod.reset_sparse_fallbacks()
+    # the stock parameters (device_type names the card, its default)
+    stock = {"verbose": -1, "device_type": GPU}
+    dp = lt.Dataset(Xp, label=yp, params=stock).construct()
+    bp = lt.train(stock, dp, 2, verbose_eval=False)
+    pst = dict(store_columns=dp._inner.num_store_columns,
+               bundles=(dp._inner.bundle_plan.num_bundles
+                        if dp._inner.bundle_plan is not None else 0),
+               csr=dp._inner.sparse is not None,
+               learner=type(bp._gbdt.learner).__name__,
+               leaves=[t.num_leaves for t in bp._gbdt.models],
+               sparse_fallbacks=dataset_mod.sparse_fallbacks(),
+               seconds=time.perf_counter() - t0)
+    print(f"[phase 18a] default-parameter probe {PROBE_SHAPE}: "
+          f"{json.dumps(pst)}", flush=True)
+    if (not pst["csr"] or not pst["bundles"] or pst["sparse_fallbacks"]
+            or len(pst["leaves"]) != 3 or max(pst["leaves"]) < 2):
+        fail("the default-parameter probe did not train over a bundled "
+             "csr store")
+    run["phase_s"] = time.perf_counter() - t_phase
+    print(f"[phase 18a/18d] {run['phase_s']:.1f} s", flush=True)
+    return run, row
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3705,17 +4241,24 @@ def main() -> None:
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     phase_card_vs_cpu(lt)
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    from lightgbm_tpu_torch import profiling
+    ctrb, k8row = phase_ctr_bundled(torch, lt, kernels, dataset_mod,
+                                    profiling, H, SS)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     params, ds, vs, Xv = phase_onehot_setup(lt)
     gathered_rows = phase_gathered_kernels(torch, H, ds)
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
-    ex, _ = phase_onehot_main(torch, lt, kernels, params, ds, vs, Xv)
+    ex, _, serial_first = phase_onehot_main(torch, lt, kernels, params, ds,
+                                            vs, Xv)
     for r in gathered_rows:
         # K6 has no caller on any training path (as in the JAX package)
         r["launches"] = ex["launches"][r["name"]]
     rows += gathered_rows
     phase_k5_tree(torch, lt, H, params, ds)
     phase_rounds_tree(torch, lt, H, params, ds, "onehot, rounds learner")
+    fo, k2row = phase_fused_onehot(torch, lt, kernels, params, ds, vs, Xv,
+                                   serial_first)
     del ds, vs, Xv
     gc.collect()
     torch.cuda.empty_cache()
@@ -3736,6 +4279,15 @@ def main() -> None:
                            ns_Xv)
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     phase_serving(torch, lt, ns_bst, ns_Xv, card)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    # after serving, so phase 15 reads the process as earlier versions of
+    # this script left it
+    fn = phase_fused_northstar(torch, lt, kernels, ns_params, ns_ds, ns_vs,
+                               ns_Xv)
+    print(f"[phase 18] {ctrb['phase_s'] + fo['phase_s'] + fn['phase_s']:.1f}"
+          f" s (18a/18d {ctrb['phase_s']:.1f}, 18b {fo['phase_s']:.1f}, "
+          f"18c {fn['phase_s']:.1f})", flush=True)
+    rows += [k2row, k8row]
     del ns_ds, ns_vs, ns_Xv, ns_bst
     gc.collect()
     torch.cuda.empty_cache()

@@ -19,11 +19,13 @@ An iteration takes one of the JAX package's two paths (`_can_pipeline`):
   rows, and leaf values are shrunk in f32 on the device (the JAX
   package's pipelined path, here with the tree fetched in the same
   iteration);
-- the synchronous path otherwise (the exact learner, K > 1, a custom
-  objective's gradients, GOSS, DART): each class tree comes to the host,
-  is shrunk there in f64, and adds to score row k of the training rows
-  by leaf id (by walking the training store when the exact learner's bag
-  left rows out) and of each valid set by walking the tree.
+- the synchronous path otherwise (the exact learners — serial on the
+  CPU, fused on CUDA — K > 1, a custom objective's gradients, GOSS,
+  DART): each class tree comes to the host, is shrunk there in f64, and
+  adds to score row k of the training rows by leaf id (by walking the
+  training store when the serial learner's bag left rows out; the
+  rounds and fused learners' leaf ids cover every row) and of each
+  valid set by walking the tree.
 Either walk reads an EFB-bundled store through its feature table.  The
 JAX package's checkpoint telemetry span and fault-injection hooks belong
 to observability (ROADMAP.md §A item 15) and are not here.
@@ -394,14 +396,14 @@ class GBDT:
         of every valid set by walking it.  A tree that did not split is
         returned as it is and adds nothing."""
         if hasattr(self.learner, "train_device"):
-            # the rounds learner's leaf ids cover out-of-bag rows too
             tree, leaf_id = self.learner.train(gradient, hessian, bag)
-            full_leaf_id = True
         else:
             tree, leaf_id = self.learner.train(
                 gradient, hessian, bag,
                 self.bag_cnt if bag is not None else None)
-            full_leaf_id = bag is None
+        # the rounds and fused learners' leaf ids cover out-of-bag rows too
+        full_leaf_id = bag is None or getattr(self.learner, "full_leaf_id",
+                                              False)
         self.host_syncs_per_tree.append(self.learner.last_host_syncs)
         if tree.num_leaves <= 1:
             return tree

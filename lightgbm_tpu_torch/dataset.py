@@ -26,8 +26,9 @@ has fewer columns than there are used features; `num_bins` and
 and trees speak, `store_num_bins` describes the stored columns, and the
 learners translate between the two with `bundle_feat_table` and
 `unbundle_tables`.  Valid sets inherit their reference's plan.  A sparse
-store over bundled columns is not ported: where one would form,
-construction raises NotImplementedError.
+store over bundled columns keeps the bundle columns' entries (a packed
+column's zero bin is 0), built by the same two routes; `sparse_entries`
+and `unbundled_sparse_entries` are its COO views.
 
 A streaming dataset (`streaming_from`, `from_stream`) bins appended
 chunks against frozen mappers into a store that grows along a
@@ -50,7 +51,7 @@ from . import log
 from .binning import (BinMapper, BundlePlan, CATEGORICAL, find_bin_mappers,
                       plan_bundles)
 from .config import Config
-from .quantize import bin_column_into, bin_rows_into
+from .quantize import bin_column_into, bin_feature_column, bin_rows_into
 
 # rows used to estimate pairwise feature conflicts when planning bundles
 BUNDLE_PLAN_SAMPLE_CNT = 50_000
@@ -70,8 +71,9 @@ def row_capacity_tier(n: int, base: int = STREAM_CAPACITY_BASE) -> int:
         cap <<= 1
     return cap
 
-# densifications of a sparse store, by consumer site (the JAX package's
-# tree/sparse_fallbacks counter); a csr run reads 0 here
+# densifications of a sparse store, by consumer site; each one also
+# counts in the profiling registry's tree/sparse_fallbacks (and its
+# site-labeled series), as in the JAX package.  A csr run reads 0 here
 SPARSE_FALLBACKS: Dict[str, int] = {}
 
 
@@ -142,12 +144,18 @@ def _pack_ell(rows: np.ndarray, cols: np.ndarray, binvals: np.ndarray,
                        nnz=int(rows.size))
 
 
-def store_zero_bins(mappers: List[BinMapper],
-                    used: Sequence[int]) -> np.ndarray:
+def store_zero_bins(mappers: List[BinMapper], used: Sequence[int],
+                    plan: Optional[BundlePlan] = None) -> np.ndarray:
     """[C] int32 bin an implicit raw zero maps to, per store column: the
-    feature's default bin (the no-bundle form: a sparse store over
-    bundle columns is not ported)."""
-    return np.asarray([mappers[i].default_bin for i in used], np.int32)
+    member feature's default bin for a singleton column, 0 ("every
+    member at its default") for an EFB-packed column."""
+    if plan is None:
+        return np.asarray([mappers[i].default_bin for i in used], np.int32)
+    zb = np.zeros(plan.num_columns, np.int32)
+    for k, i in enumerate(used):
+        if not plan.feat_packed[k]:
+            zb[int(plan.feat_col[k])] = int(mappers[i].default_bin)
+    return zb
 
 
 # ----------------------------------------------------------------------------
@@ -407,14 +415,6 @@ def resolve_sparse_store(cfg: Config, mappers: List[BinMapper],
     return float(np.mean(rates)) >= float(cfg.sparse_threshold)
 
 
-def _refuse_sparse_bundles(plan: Optional[BundlePlan]) -> None:
-    if plan is not None:
-        raise NotImplementedError(
-            "a sparse store over EFB-bundled columns is not ported yet "
-            "(ROADMAP.md §A item 11) — pass sparse_store=dense or "
-            "enable_bundle=false")
-
-
 def _csc_row_sample(indptr: np.ndarray, indices: np.ndarray,
                     data: np.ndarray, rows: np.ndarray,
                     num_raw: int) -> np.ndarray:
@@ -483,7 +483,6 @@ class Dataset:
         # reference's layout (a csr valid set is scored from its ELL rows)
         if ((reference is None or reference.sparse is not None)
                 and resolve_sparse_store(cfg, mappers, used, plan)):
-            _refuse_sparse_bundles(plan)
             self._sparsify_store()
         # host seconds of the mappers and bundle plan, and of the store
         self.setup_seconds = {"binning": t1 - t0,
@@ -597,8 +596,6 @@ class Dataset:
         ds = cls.__new__(cls)
         sparse = reference is None and resolve_sparse_store(cfg, mappers,
                                                             used, plan)
-        if sparse:
-            _refuse_sparse_bundles(plan)
         # the sparse build never allocates the dense store
         ds._init_store(cfg, mappers, used, 0 if sparse else n, num_raw,
                        feature_names, plan)
@@ -624,33 +621,59 @@ class Dataset:
     def _build_sparse_from_csc(self, indptr, indices, data,
                                canonical: bool) -> None:
         """The CSR/ELL store straight from scipy CSC arrays, entry for
-        entry the store the JAX package builds (`_build_sparse_from_csc`,
-        no-bundle form), without its dense [N] scratch per column:
+        entry the store the JAX package builds (`_build_sparse_from_csc`),
+        column by store column, without the dense [C, N] matrix.  A
+        column holding one unpacked feature bins only its stored values:
         value_to_bin is elementwise and a raw 0.0 maps to the column's
-        zero bin (its default bin), so a row without a stored value is
-        never an entry and only the stored values need binning.  A
-        non-canonical matrix keeps each duplicated (row, column)'s last
-        value, as the dense scratch write does.  Entries land in each
-        row front-packed in column order — the row-stable order of the
-        JAX package's sort."""
+        zero bin (the feature's default bin), so a row without a stored
+        value is never an entry; a non-canonical matrix keeps each
+        duplicated (row, column)'s last value, as the dense scratch write
+        does.  An EFB bundle column is binned as the JAX package bins it:
+        one dense [N] scratch, its members packed in used order with the
+        dense route's last-writer-wins rule (conflicts counted in
+        `bundle_conflict_rows`), and the cells off the zero bin kept.
+        Entries land in each row front-packed in column order — the
+        row-stable order of the JAX package's sort."""
         n = self.num_data
+        plan = self.bundle_plan
         used = self.used_features
-        zb = store_zero_bins(self.mappers, used)
-        C = len(used)
+        zb = store_zero_bins(self.mappers, used, plan)
+        C = self.num_store_columns
+        members: List[List[int]] = [[] for _ in range(C)]
+        for k in range(len(used)):
+            members[k if plan is None else int(plan.feat_col[k])].append(k)
+        col = scratch = None
         per_col = []
         cnt = np.zeros(n, np.int64)
-        for k, i in enumerate(used):
-            s, e = int(indptr[i]), int(indptr[i + 1])
-            r = np.asarray(indices[s:e], np.int64)
-            v = np.asarray(data[s:e], np.float64)
-            if not canonical and r.size:
-                o = np.argsort(r, kind="stable")
-                r, v = r[o], v[o]
-                last = np.concatenate([r[1:] != r[:-1], [True]])
-                r, v = r[last], v[last]
-            b = self.mappers[i].value_to_bin(v)
-            keep = b != zb[k]
-            r, b = r[keep], b[keep].astype(self._store_dtype)
+        for c in range(C):
+            ks = members[c]
+            if len(ks) == 1 and (plan is None or not plan.feat_packed[ks[0]]):
+                i = used[ks[0]]
+                s, e = int(indptr[i]), int(indptr[i + 1])
+                r = np.asarray(indices[s:e], np.int64)
+                v = np.asarray(data[s:e], np.float64)
+                if not canonical and r.size:
+                    o = np.argsort(r, kind="stable")
+                    r, v = r[o], v[o]
+                    last = np.concatenate([r[1:] != r[:-1], [True]])
+                    r, v = r[last], v[last]
+                b = self.mappers[i].value_to_bin(v)
+                keep = b != zb[c]
+                r, b = r[keep], b[keep].astype(self._store_dtype)
+            else:
+                if scratch is None:
+                    col = np.empty(n, np.float64)
+                    scratch = np.zeros(n, self._store_dtype)
+                scratch[:] = 0
+                for k in ks:
+                    i = used[k]
+                    col[:] = 0.0
+                    s, e = int(indptr[i]), int(indptr[i + 1])
+                    col[indices[s:e]] = data[s:e]
+                    self.bundle_conflict_rows += bin_feature_column(
+                        k, col, self.mappers, used, plan, scratch)
+                r = np.flatnonzero(scratch != zb[c]).astype(np.int64)
+                b = scratch[r].copy()
             per_col.append((r, b))
             cnt[r] += 1
         nnz = int(cnt.sum())
@@ -658,10 +681,10 @@ class Dataset:
         ell_c = np.full((n, R), C, np.int32)
         ell_b = np.zeros((n, R), self._store_dtype)
         fill = np.zeros(n, np.int64)
-        for k, (r, b) in enumerate(per_col):
+        for c, (r, b) in enumerate(per_col):
             if r.size:
                 pos = fill[r]
-                ell_c[r, pos] = k
+                ell_c[r, pos] = c
                 ell_b[r, pos] = b
                 fill[r] += 1
         self.sparse = SparseStore(cols=ell_c, bins=ell_b, zero_bin=zb,
@@ -669,15 +692,74 @@ class Dataset:
         self._bins = None
 
     def _sparsify_store(self) -> None:
-        """Convert the freshly binned dense store to the CSR/ELL layout
-        and drop the dense matrix; densify() reproduces it bitwise."""
-        zb = store_zero_bins(self.mappers, self.used_features)
+        """Convert the freshly binned dense store (bundle columns under a
+        plan) to the CSR/ELL layout and drop the dense matrix; densify()
+        reproduces it bitwise."""
+        zb = store_zero_bins(self.mappers, self.used_features,
+                             self.bundle_plan)
         dense = self._bins
         nz = dense != zb[:, None].astype(dense.dtype)
         nzr, nzc = np.nonzero(nz.T)          # row-major entry order
         self.sparse = _pack_ell(nzr, nzc, dense[nzc, nzr], dense.shape[1],
                                 dense.shape[0], zb, self._store_dtype)
         self._bins = None
+
+    def sparse_entries(self):
+        """Host COO view of the sparse store: (rows int64, store columns
+        int32, bins int32, zero_bin int32) over exactly the stored cells
+        in row-major entry order; None for a dense dataset.  Rows past
+        num_data are not read."""
+        if self.sparse is None:
+            return None
+        sp = self.sparse
+        n = self.num_data
+        ri, sj = np.nonzero(sp.cols[:n] < sp.num_columns)
+        return (ri.astype(np.int64), sp.cols[ri, sj].astype(np.int32),
+                sp.bins[ri, sj].astype(np.int32),
+                sp.zero_bin.astype(np.int32))
+
+    def unbundled_sparse_entries(self):
+        """COO entries of `unbundled_bins()` without densifying: (rows
+        int64, original features int32, bins int32, per-feature default
+        bins int32), rows in row-major order.  A stored bundle entry
+        decodes to at most one nonzero of an original feature (the slot
+        windows are disjoint, and an in-window slot never decodes to its
+        member's default bin); entries outside every member's window (a
+        conflict's remainder) decode to all-defaults and drop.  Singleton
+        columns copy through."""
+        ent = self.sparse_entries()
+        if ent is None:
+            raise ValueError("unbundled_sparse_entries needs a sparse store")
+        ri, ci, bi, _ = ent
+        zb_f = store_zero_bins(self.mappers, self.used_features)
+        plan = self.bundle_plan
+        if plan is None:
+            return ri, ci, bi, zb_f
+        order = np.argsort(ci, kind="stable")
+        ri, ci, bi = ri[order], ci[order], bi[order]
+        out_r, out_f, out_b = [], [], []
+        for k in range(len(self.used_features)):
+            c = int(plan.feat_col[k])
+            lo = np.searchsorted(ci, c, side="left")
+            hi = np.searchsorted(ci, c, side="right")
+            if lo == hi:
+                continue
+            rk, bk = ri[lo:hi], bi[lo:hi]
+            if plan.feat_packed[k]:
+                s = bk - int(plan.feat_offset[k])
+                m = (s >= 0) & (s < int(plan.feat_nslots[k]))
+                rk, s = rk[m], s[m]
+                bk = s + (s >= int(plan.feat_default[k]))
+            out_r.append(rk)
+            out_f.append(np.full(rk.size, k, np.int32))
+            out_b.append(bk.astype(np.int32))
+        if not out_r:
+            z = np.zeros(0, np.int64)
+            return z, z.astype(np.int32), z.astype(np.int32), zb_f
+        rows = np.concatenate(out_r)
+        order = np.argsort(rows, kind="stable")
+        return (rows[order], np.concatenate(out_f)[order],
+                np.concatenate(out_b)[order], zb_f)
 
     # -- store access --------------------------------------------------------
 
@@ -690,7 +772,11 @@ class Dataset:
     def dense_bins(self, site: str = "unlabeled") -> np.ndarray:
         """`bins` with the densifying consumer named in the count."""
         if self._bins is None and self.sparse is not None:
+            from . import profiling
             SPARSE_FALLBACKS[site] = SPARSE_FALLBACKS.get(site, 0) + 1
+            profiling.count(profiling.SPARSE_FALLBACKS)
+            profiling.count(profiling.labeled(profiling.SPARSE_FALLBACKS,
+                                              site=site))
             log.warning(
                 f"sparse store materialized dense ({self.num_store_columns} x "
                 f"{self.num_data} cells) for a consumer without a sparse "
@@ -1079,7 +1165,6 @@ class Dataset:
         # fresh construction would (0-row refbin shells stay dense)
         if ds.num_data and resolve_sparse_store(cfg, ds.mappers,
                                                 ds.used_features, plan):
-            _refuse_sparse_bundles(plan)
             ds._sparsify_store()
         return ds
 

@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -65,6 +65,11 @@ LAUNCHES: Dict[str, int] = {"hist_masked_int8": 0, "hist_masked_f32": 0,
                             "hist_gathered": 0, "hist_multirow": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# ("build" | "load", source) per nvcc build and per library load, in
+# order: the port's compile events, which diagnostics/sanitize.py's
+# HotPathSanitizer counts (a build or load after warm-up is a retrace)
+BUILD_EVENTS: List[Tuple[str, str]] = []
 
 
 def reset_launches() -> None:
@@ -122,6 +127,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             continue
         os.replace(tmp, out)
         (BUILD_DIR / f"{out.stem}.log").write_text(log_text)
+        BUILD_EVENTS.append(("build", n))
     if errors:
         raise RuntimeError("\n".join(errors))
     return took
@@ -140,6 +146,7 @@ def library(source: str) -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
         _libs[source] = lib
+        BUILD_EVENTS.append(("load", source))
     return lib
 
 

@@ -47,6 +47,26 @@ def sentinel_bins_feed(dataset) -> np.ndarray:
     return out
 
 
+def dense_store_feed(dataset, device: torch.device, site: str):
+    """The learners' dense store on `device`: (bins [C, N] — int8 bytes
+    holding value - 128 up to 256 bins, int32 past that — and, up to 256
+    bins, its row-major byte copy (`ops.histogram.RowBins`, which kernels
+    K1 and K2 read), else None).  The partition and the tree walk read
+    the [C, N] store.  `site` names the consumer when a sparse store has
+    to densify (counted in SPARSE_FALLBACKS)."""
+    from ..ops.histogram import row_major_bins
+    store = dataset.dense_bins(site=site)
+    if dataset.max_num_bin <= 256:
+        # a byte a bin: the feature-major bytes touch the fewest sectors
+        bins_np = (store.astype(np.int16) - 128).astype(np.int8)
+    else:
+        bins_np = store.astype(np.int32)
+    bins = torch.as_tensor(bins_np, device=device)
+    rows = (row_major_bins(bins, dataset.max_num_bin)
+            if dataset.max_num_bin <= 256 else None)
+    return bins, rows
+
+
 def device_memory_bytes(device: torch.device) -> float:
     """Total memory of a CUDA device; the fallback size elsewhere."""
     if device.type == "cuda":

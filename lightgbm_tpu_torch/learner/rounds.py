@@ -49,17 +49,18 @@ import numpy as np
 import torch
 
 from ..config import Config
-from .. import log
+from .. import log, profiling
 from ..dataset import Dataset
 from ..ops.histogram import (RowBins, hist_multileaf_gathered,
                              hist_multileaf_masked, hist_sparse_gathered,
-                             hist_sparse_multileaf, row_major_bins)
+                             hist_sparse_multileaf)
 from ..ops.partition import partition_rows, partition_rows_sparse
 from ..ops.sparse_streams import build_sparse_streams
 from ..ops.split import best_split, bundle_predicate_params, maybe_unbundle
 from ..tree import Tree
-from .common import (gather_capacity_tiers, gather_scratch_capacity,
-                     make_split_kw, padded_bin_count, resolve_hist_rows,
+from .common import (dense_store_feed, gather_capacity_tiers,
+                     gather_scratch_capacity, make_split_kw,
+                     padded_bin_count, resolve_hist_rows,
                      use_parent_hist_cache)
 from .fused import TreeArrays, tree_arrays_to_host
 
@@ -78,7 +79,7 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
                       hist_rows: str = "masked", sparse: bool = False,
                       ftbl: Optional[torch.Tensor] = None,
                       unb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                      rows: Optional[RowBins] = None
+                      rows: Optional[RowBins] = None, nnz: int = 0
                       ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree in batched rounds.
 
@@ -94,7 +95,10 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
     bins) is its row-major byte copy, which the histogram kernels K1 and
     K2 read.
     Returns (TreeArrays on that device, leaf_id [N] int32, host reads
-    made).  hist_rows="gathered" keeps the device-resident row
+    made).  The rows and (over the sparse store of `nnz` stored entries)
+    the entries its histogram passes read go to the profiling registry's
+    tree/hist_rows_touched and tree/sparse_nnz_touched.
+    hist_rows="gathered" keeps the device-resident row
     permutation grouped by leaf with per-leaf (offset, count), stably
     compacted after every round's partition, and histograms only the
     segments a pass needs; "masked" streams all rows every pass."""
@@ -117,6 +121,8 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
     R = L - 1
     skw = dict(split_kw)
     syncs = 0
+    # rows and stored entries the histogram passes read (host counts)
+    touched = [0, 0]
     i64 = dict(dtype=torch.int64, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
 
@@ -136,6 +142,8 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
     def hist_masked(lid_, sl_):
         """One masked multi-leaf pass over the whole store, dense or
         nonzero-iterating; both return [K, F, 3, B]."""
+        touched[0] += N
+        touched[1] += nnz if sparse else 0
         if sparse:
             return hist_sparse_multileaf(
                 bins, lid_, gh8, sl_, num_columns_padded=F,
@@ -198,6 +206,7 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
         current row partition (leaf_id, or perm/leaf_off/leaf_cnt)."""
         if gathered:
             cap = next((t for t in tiers if total <= t), tiers[-1])
+            touched[0] += int(total)
             if sparse:
                 return hist_sparse_gathered(
                     bins, gh8, perm, leaf_off[slots], leaf_cnt[slots],
@@ -384,11 +393,16 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
         leaf_value=lval, leaf_count=lcnt,
         leaf_depth=leaf_depth.to(torch.int32),
         num_leaves=torch.tensor(n_leaves, dtype=torch.int32, device=dev))
+    profiling.count(profiling.HIST_ROWS_TOUCHED, touched[0])
+    if sparse:
+        profiling.count(profiling.SPARSE_NNZ_TOUCHED, touched[1])
     return arrs, leaf_id, syncs
 
 
 class RoundsTreeLearner:
     """Single-device learner using batched-rounds growth."""
+
+    full_leaf_id = True   # leaf_id valid for out-of-bag rows too
 
     def __init__(self, dataset: Dataset, config: Config):
         self.dataset = dataset
@@ -408,24 +422,15 @@ class RoundsTreeLearner:
             if self.device.type == "cuda":
                 self.bins_dev += (build_sparse_streams(
                     self.bins_dev[0], self.bins_dev[1], self.C),)
+            self.rows = None
             bins_itemsize = 4
         else:
-            store = dataset.dense_bins(site="rounds_feed")     # [F, N]
-            if dataset.max_num_bin <= 256:
-                # a byte a bin (int8 layout, value - 128): the partition
-                # kernel K4 reads one bin of a row's split column, and the
-                # feature-major bytes touch the fewest 32-byte sectors
-                bins_np = (store.astype(np.int16) - 128).astype(np.int8)
-            else:
-                bins_np = store.astype(np.int32)
-            self.bins_dev = torch.as_tensor(bins_np, device=self.device)
-            bins_itemsize = int(bins_np.dtype.itemsize)
-        # kernels K1 and K2 read a row's bins from a row-major byte copy of
-        # the store ([N, F4] uint8); the [F, N] store stays for the
-        # partition
-        self.rows = (row_major_bins(self.bins_dev, dataset.max_num_bin)
-                     if not self.sparse and dataset.max_num_bin <= 256
-                     else None)
+            # the partition kernel K4 reads one bin of a row's split
+            # column from the [F, N] store; kernels K1 and K2 read a
+            # row's bins from its row-major byte copy
+            self.bins_dev, self.rows = dense_store_feed(
+                dataset, self.device, "rounds_feed")
+            bins_itemsize = self.bins_dev.element_size()
         self.num_bins_dev = torch.as_tensor(
             dataset.num_bins.astype(np.int64), device=self.device)
         self.is_cat_dev = torch.as_tensor(dataset.is_categorical,
@@ -476,6 +481,7 @@ class RoundsTreeLearner:
                         cache_parent_hist=self.cache_parent_hist,
                         hist_rows=self.hist_rows, sparse=self.sparse,
                         ftbl=self.ftbl, unb=self.unb, rows=self.rows,
+                        nnz=dataset.sparse.nnz if self.sparse else 0,
                         input_dtype=getattr(cfg, "histogram_dtype",
                                             "float32"))
 

@@ -45,6 +45,12 @@ histogram in shared memory and writes it once, with the column's zero
 bin and the int8 dequantize applied.  On the CPU it takes
 `hist_sparse_xla`, the JAX function's formulation over the ELL arrays
 (stored-entry sums, then the zero bins from each slot's totals).
+
+The fused single-split builder's feeds, `histogram_full_masked` (dense)
+and `histogram_full_sparse`, are one-leaf passes over every row with a
+row mask: no TPU kernel of their own (in JAX they are `hist_xla` and
+`hist_sparse_xla`); on CUDA they launch K2 with one slot and K8 with
+K=1, on the CPU they take those plain versions.
 """
 from __future__ import annotations
 
@@ -1089,3 +1095,74 @@ def hist_sparse_gathered(sp, gh8: torch.Tensor, perm: torch.Tensor,
     return hist_sparse_xla(cg, bg, zero_bin, slot, ghg, sl,
                            num_columns_padded=Cp,
                            num_bins_padded=num_bins_padded)
+
+
+# ----------------------------------------------------------------------------
+# One-leaf full-scan histograms (the fused single-split builder's feeds)
+# ----------------------------------------------------------------------------
+
+def _mask_feed(grad: torch.Tensor, hess: torch.Tensor, mask: torch.Tensor):
+    """gh8 [3, N] (grad·mask, hess·mask, mask) and the one-slot masked
+    feed: leaf id 0 on rows inside the mask, -1 outside, slot list [0] —
+    device tensors, so the slot is chosen without a host read."""
+    gh8 = torch.stack([grad * mask, hess * mask, mask])
+    lid = (mask != 0).to(torch.int32) - 1
+    sl = torch.zeros(1, dtype=torch.int32, device=mask.device)
+    return gh8, lid, sl
+
+
+def histogram_full_masked(bins: torch.Tensor, grad: torch.Tensor,
+                          hess: torch.Tensor, mask: torch.Tensor, *,
+                          num_bins_padded: int,
+                          input_dtype: str = "float32",
+                          rows: Optional[RowBins] = None) -> torch.Tensor:
+    """Full-scan masked histogram of one leaf over all rows (no gather):
+    the fused leaf-wise builder's dense feed.
+
+    bins [F, N] int (int8 = value-128 storage), grad/hess [N] f32, mask
+    [N] f32 0/1 row weights.  Returns [F, 3, B] f32.  int8 coerces to
+    float32 (`_coerce_dtype`), as the JAX function's `hist_xla` does.  A
+    CUDA tensor launches kernel K2 through the masked feed of
+    `hist_multileaf_masked` with one slot (rows outside the mask carry
+    leaf id -1), reading the byte copy `rows` when given; a CPU tensor
+    takes `hist_xla`."""
+    input_dtype = _coerce_dtype(input_dtype)
+    if not bins.is_cuda:
+        gb = bins.t().to(torch.int32)
+        if bins.dtype == torch.int8:
+            gb = gb + 128
+        vals = torch.stack([grad * mask, hess * mask, mask])
+        return hist_xla(gb, vals, num_bins_padded=num_bins_padded,
+                        input_dtype=input_dtype)
+    gh8, lid, sl = _mask_feed(grad, hess, mask)
+    return hist_multileaf_masked(bins, lid, gh8, sl,
+                                 num_bins_padded=num_bins_padded,
+                                 input_dtype=input_dtype, rows=rows)[0]
+
+
+def histogram_full_sparse(cols: torch.Tensor, binsv: torch.Tensor,
+                          zero_bin: torch.Tensor, grad: torch.Tensor,
+                          hess: torch.Tensor, mask: torch.Tensor, *,
+                          num_columns_padded: int, num_bins_padded: int,
+                          input_dtype: str = "float32",
+                          streams=None) -> torch.Tensor:
+    """histogram_full_masked's contract over the sparse store: cols/binsv
+    [N, R] ELL entries (a column >= num_columns_padded an empty slot),
+    zero_bin [Cp] int32 (-1 = padded column), and on CUDA optionally the
+    store's column-sorted `streams` (built here when not given, as
+    `hist_sparse_multileaf` does).  The K=1 specialisation of
+    `hist_sparse_multileaf`, every row in slot 0 and the mask in the
+    value rows, so masked rows add to neither the stored entries nor
+    the totals and the zero-bin residual is exact for any mask.  Returns
+    [Cp, 3, B] f32.  int8 coerces to float32, as in the JAX function.
+    A CUDA tensor launches kernel K8 over the column-sorted streams; a
+    CPU tensor takes `hist_sparse_xla`."""
+    gh8 = torch.stack([grad * mask, hess * mask, mask])
+    N = grad.shape[0]
+    lid = torch.zeros(N, dtype=torch.int32, device=grad.device)
+    sl = torch.zeros(1, dtype=torch.int32, device=grad.device)
+    sp = (cols, binsv, zero_bin) + (() if streams is None else (streams,))
+    return hist_sparse_multileaf(sp, lid, gh8, sl,
+                                 num_columns_padded=num_columns_padded,
+                                 num_bins_padded=num_bins_padded,
+                                 input_dtype=_coerce_dtype(input_dtype))[0]

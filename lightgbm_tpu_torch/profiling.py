@@ -146,11 +146,27 @@ ROUTER_BACKEND_READMITTED = "router/backend_readmitted"
 ROUTER_BACKEND_PROBES = "router/backend_probes"
 ROUTER_REHASHES = "router/rehashes"
 
+# The learners' tree/* counters (the JAX package's names):
+#  - HIST_ROWS_TOUCHED: rows the rounds learner's histogram passes
+#    read, summed over passes (N for a masked pass, the live rows of a
+#    gathered one).
+#  - SPARSE_NNZ_TOUCHED: stored (column, bin) entries its masked passes
+#    over the sparse store read, summed over passes; the dense
+#    equivalent is rows touched x store columns.
+#  - SPARSE_FALLBACKS: times a sparse store materialized its dense
+#    [C, N] matrix for a consumer without a sparse path (the labeled
+#    series names the consumer); a csr run keeps it at 0.
+# The exchange-byte counters of the JAX package come with the
+# multi-device learners.
+HIST_ROWS_TOUCHED = "tree/hist_rows_touched"
+SPARSE_NNZ_TOUCHED = "tree/sparse_nnz_touched"
+SPARSE_FALLBACKS = "tree/sparse_fallbacks"
+
 # Every canonical counter constant of this module, in one tuple: the
 # Prometheus exposition (telemetry.prometheus_text) seeds each of these
-# at 0 so a scrape always covers the full canonical set.  The JAX
-# package's learner counters come with the multi-device learners.
+# at 0 so a scrape always covers the full canonical set.
 CANONICAL_COUNTERS = (
+    HIST_ROWS_TOUCHED, SPARSE_NNZ_TOUCHED, SPARSE_FALLBACKS,
     REGISTRY_SWAP_FAILURES, SERVE_CHUNK_RETRIES, SERVE_REPLICA_FAILURES,
     SERVE_REPLICA_BROKEN, SERVE_REPLICA_READMITTED, SERVE_REPLICA_PROBES,
     SERVE_QUANTIZE_BYTES_IN, SERVE_BINNED_REQUESTS,

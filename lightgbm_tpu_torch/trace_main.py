@@ -12,8 +12,9 @@ of N/10 rows scored with AUC each iteration),
 with `--workload ctr` the CTR one (lambdarank on `synth_ctr(N)` x 50,000
 over the sparse store, CTR_PARAMS, a 4,080-row valid set scored with
 NDCG), or with `--workload onehot` the EFB one (`synth_onehot(N)`, 240
-one-hot features bundled into 40 store columns, ONEHOT_PARAMS, the exact
-leaf-wise learner, a valid set of N/10 rows scored with AUC), or with
+one-hot features bundled into 40 store columns, ONEHOT_PARAMS,
+tree_growth=exact — on the card the fused single-split builder
+(learner/fused.py) — a valid set of N/10 rows scored with AUC), or with
 `--workload regression|multiclass` chip_smoke.py's phase-13 ones (the
 north-star rows with synth_higgs's labeling function left unthresholded
 as an L2 target, or cut at its 20/40/60/80% quantiles into 5 classes,

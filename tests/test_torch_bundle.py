@@ -378,7 +378,15 @@ def test_learners_match_jax_on_bundled_data(growth):
 
 
 def test_sparse_store_over_bundles_is_refused():
+    """Once refused (NotImplementedError), a csr store over bundle
+    columns now forms (ROADMAP.md §C fault 9): its entries densify to the
+    dense bundled store bitwise (tests/test_torch_bundle_sparse.py holds
+    it against the JAX package)."""
     X, y = synth_onehot(500)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TDataset(X, y, t_config({"device_type": "cpu",
-                                 "sparse_store": "csr"}))
+    ds = TDataset(X, y, t_config({"device_type": "cpu",
+                                  "sparse_store": "csr"}))
+    dd = TDataset(X, y, t_config({"device_type": "cpu",
+                                  "sparse_store": "dense"}))
+    assert ds.bundle_plan is not None and ds.sparse is not None
+    np.testing.assert_array_equal(ds.sparse.densify(ds._store_dtype),
+                                  dd.dense_bins())

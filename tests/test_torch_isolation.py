@@ -30,6 +30,8 @@ for want in ("lightgbm_tpu_torch.application",
              "lightgbm_tpu_torch.serving",
              "lightgbm_tpu_torch.serving.server",
              "lightgbm_tpu_torch.diagnostics.faults",
+             "lightgbm_tpu_torch.diagnostics.sanitize",
+             "lightgbm_tpu_torch.learner.fused",
              "lightgbm_tpu_torch.online",
              "lightgbm_tpu_torch.online.refit",
              "lightgbm_tpu_torch.online.stream",

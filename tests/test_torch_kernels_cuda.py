@@ -652,3 +652,67 @@ def test_exact_learner_on_the_card_matches_the_cpu(dev):
                                   tc.threshold_in_bin[:n - 1])
     np.testing.assert_array_equal(tg.leaf_value[:n], tc.leaf_value[:n])
     np.testing.assert_array_equal(lg, lc)
+
+
+def test_sanitizer_catches_a_sync_inside_a_step(dev):
+    """An `.item()` inside a post-warm-up step raises under the armed
+    sync guard and counts as an implicit transfer; an explicit transfer
+    does not count; the guard is disarmed after the step."""
+    from lightgbm_tpu_torch.diagnostics.sanitize import (HotPathSanitizer,
+                                                         explicit_transfer)
+    x = torch.ones(8, device=dev)
+    with HotPathSanitizer(warmup=1) as san:
+        with san.step():
+            x.sum().item()                    # warm-up: unguarded
+        with san.step():
+            x.sum().item()
+        with san.step():
+            y = x * 2
+            with explicit_transfer():
+                y.cpu()
+    assert san.implicit_transfers == 1
+    assert torch.cuda.get_sync_debug_mode() == 0
+    with pytest.raises(AssertionError, match="1 implicit"):
+        san.check()
+
+
+def test_fused_tree_on_card_matches_cpu_and_makes_no_sync(dev):
+    """One fused-builder tree over the bundled onehot store, card and CPU,
+    with dyadic gradients (every histogram exact): the trees, leaf ids
+    and leaf values agree bitwise, kernel K2 launches on each split, and
+    under the armed sync guard the tree makes no implicit transfer."""
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.dataset import Dataset
+    from lightgbm_tpu_torch.diagnostics.sanitize import HotPathSanitizer
+    from lightgbm_tpu_torch.learner.fused import FusedTreeLearner
+    from lightgbm_tpu_torch.synth import synth_onehot
+    X, y = synth_onehot(20_000)
+    rng = np.random.RandomState(3)
+    g = (np.round(rng.randn(20_000) * 16) / 16).astype(np.float32)
+    h = (np.round(rng.rand(20_000) * 64) / 256).astype(np.float32)
+    out = {}
+    for d in ("cpu", "cuda"):
+        cfg = config_from_params({"device_type": d, "num_leaves": 63,
+                                  "min_sum_hessian_in_leaf": 1.0,
+                                  "enable_bundle": True,
+                                  "tree_growth": "exact"})
+        ds = Dataset(X, y, cfg)
+        learner = FusedTreeLearner(ds, cfg)
+        gd, hd = torch.as_tensor(g, device=d), torch.as_tensor(h, device=d)
+        kernels.reset_launches()
+        with HotPathSanitizer(warmup=1, strict=True) as san:
+            for _ in range(2):
+                with san.step():
+                    tree, lid = learner.train(gd, hd)
+        san.check()
+        out[d] = (tree, lid.cpu().numpy(), kernels.LAUNCHES["hist_masked_f32"])
+    (tc, lc, _), (tg, lg, k2) = out["cpu"], out["cuda"]
+    n = tc.num_leaves
+    assert tg.num_leaves == n == 63
+    np.testing.assert_array_equal(tg.split_feature[:n - 1],
+                                  tc.split_feature[:n - 1])
+    np.testing.assert_array_equal(tg.threshold_in_bin[:n - 1],
+                                  tc.threshold_in_bin[:n - 1])
+    np.testing.assert_array_equal(tg.leaf_value[:n], tc.leaf_value[:n])
+    np.testing.assert_array_equal(lg, lc)
+    assert k2 == 2 * 63                       # root + one a split, 2 trees
