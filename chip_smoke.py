@@ -341,6 +341,38 @@ call is the host f64 walk of every tree (LIGHTGBM_TPU_DEVICE_PREDICT=0,
              serial learner's on the card; s/iter of the fused and the
              serial learner alternating, F S F S (4 iterations each
              after the first, 3 timed).
+19. multi-rank training (~60 s, after phase 17) — the one-rank models
+             of five workloads trained here first on synth_higgs(500,000)
+             x 28 with the north-star parameters (3 iterations), then W
+             rank processes of this script (`--multigpu-rank`, started
+             by lightgbm_tpu_torch.diagnostics.worlds.run_world: a file
+             store in a temporary directory, a 120 s collective timeout
+             and a 400 s limit on the world; a rank that fails or hangs
+             kills the others and fails the phase): W = 2 on one card,
+             both on cuda:0 over gloo (collectives staged through host
+             memory), or one rank a card over NCCL (W = the card count,
+             at most 4).  Each rank builds the same dataset and trains,
+             under BENCH_SANITIZE=1, the rounds learner data-parallel in
+             int8 with hist_exchange=psum and =psum_scatter (K1, K3, K4),
+             in float32 with psum (K2, K3, K4), and the fused builder
+             feature-parallel and voting (top_k 28, every feature; K2)
+             under HotPathSanitizer(warmup=1, strict); and PV-Tree
+             voting with top_k 5 (10 of 28 features' histograms
+             reduce-scattered a search; K2) on synth_higgs(20,000), which
+             a CPU world of 2 gloo ranks then trains too.  Fails unless
+             every rank's model string is rank 0's, each launched its
+             workload's kernels, DivergenceSanitizer counted checks and
+             no divergence, no implicit transfer was made, and the model
+             is its reference's — the one-rank model, or for top_k 5
+             (which a single rank cannot grow) the CPU world's: bitwise
+             in int8, else every tree's structure equal and its float
+             lines within rtol 1e-4, atol 1e-6 (a structure that parts
+             must part first at an f32 gain tie, as phase 7); and top_k
+             5 must exchange at most half the histogram bytes a tree of
+             top_k 28.  Prints one {"multigpu": {...}} line a workload
+             (backend, world, devices, rows, reference, trees_equal,
+             each rank's s/iter over iterations 2-3, collective,
+             histogram and record bytes a tree).
 
 Every kernel's ms is timed by CUDA events around each call, the method
 of earlier versions of this script; it includes the wrapper's host
@@ -2100,18 +2132,6 @@ def phase_objectives_card_vs_cpu(lt):
         compare_class_trees(obj, out["cpu"], out[GPU], base["metric"])
 
 
-def _first_split_difference(tc, tg):
-    """The first node whose split or children differ, else None."""
-    n = min(tc.num_leaves, tg.num_leaves) - 1
-    for i in range(n):
-        if ((tc.split_feature[i], tc.threshold_in_bin[i], tc.left_child[i],
-             tc.right_child[i])
-                != (tg.split_feature[i], tg.threshold_in_bin[i],
-                    tg.left_child[i], tg.right_child[i])):
-            return i
-    return None if tc.num_leaves == tg.num_leaves else n
-
-
 def compare_class_trees(label, cpu, card, metric, tie_until: int = 1):
     """The class trees of the CPU and card runs, iteration by iteration.
     Every class tree of the first iteration (each grown from the same
@@ -2124,6 +2144,7 @@ def compare_class_trees(label, cpu, card, metric, tie_until: int = 1):
     iteration, and of every iteration before the first difference,
     agrees within 1e-4; the rest is printed.  A first difference in one
     of the first `tie_until` iterations must be an f32 gain tie."""
+    from lightgbm_tpu_torch.diagnostics.worlds import first_split_difference
     (gc_, mc), (gg, mg) = cpu, card
     K, first = gc_.K, 1 if gc_.boost_from_average_used else 0
     n_iter = len(mc)
@@ -2132,7 +2153,7 @@ def compare_class_trees(label, cpu, card, metric, tie_until: int = 1):
         parted = False
         for k in range(K):
             tc, tg = (m.models[first + it * K + k] for m in (gc_, gg))
-            i = _first_split_difference(tc, tg)
+            i = first_split_difference(tc, tg)
             if i is None:
                 continue
             parted = True
@@ -3753,22 +3774,6 @@ def serial_exact():
         gbdt.create_tree_learner = real
 
 
-@contextlib.contextmanager
-def sanitized_trees(san):
-    """Every FusedTreeLearner.train (one tree) inside one `san.step()`."""
-    from lightgbm_tpu_torch.learner.fused import FusedTreeLearner
-    real = FusedTreeLearner.train
-
-    def train(self, *a, **k):
-        with san.step():
-            return real(self, *a, **k)
-    FusedTreeLearner.train = train
-    try:
-        yield
-    finally:
-        FusedTreeLearner.train = real
-
-
 def tree_counters(profiling, before):
     """The tree/* counters' growth since `before` (a counters() dict)."""
     now = profiling.counters("tree/")
@@ -3785,9 +3790,10 @@ def drive_fused(torch, lt, kernels, params, ds, vs, Xv, warmup, timed,
     explicit packed read a tree) and build no kernel.  Fails unless the
     learner is the fused one, K2 launched once at the root and once a
     split of every tree, K5 never, and the host read each tree once."""
-    from lightgbm_tpu_torch.diagnostics.sanitize import HotPathSanitizer
+    from lightgbm_tpu_torch.diagnostics.sanitize import (HotPathSanitizer,
+                                                         fused_tree_steps)
     with HotPathSanitizer(warmup=1, strict=True, label=label) as san:
-        with sanitized_trees(san):
+        with fused_tree_steps(san):
             st, first = drive_onehot(torch, lt, kernels, params, ds, vs, Xv,
                                      warmup, timed)
     san.check()
@@ -4188,6 +4194,250 @@ def phase_ctr_bundled(torch, lt, kernels, dataset_mod, profiling, H, SS):
     return run, row
 
 
+# ---- phase 19: multi-rank training on the card -----------------------------
+
+MG_ROWS = 500_000
+# the PV-Tree workload that votes a subset of the features: its rows, and
+# the CPU world that trains it too (the CPU tests hold that path against
+# the JAX package's voting learner; here the card is held against it)
+MG_SUBSET_ROWS = 20_000
+MG_ITERS = (1, 3)           # (warm-up, total) iterations a workload
+MG_TIMEOUT_S = 400
+_MG_INT8 = ("hist_masked_int8", "partition_rows", "table_lookup")
+# name, learner parameters, kernels each rank must launch
+MG_WORKLOADS = (
+    ("rounds_int8_psum", dict(tree_learner="data", hist_exchange="psum"),
+     _MG_INT8),
+    ("rounds_int8_psum_scatter",
+     dict(tree_learner="data", hist_exchange="psum_scatter"), _MG_INT8),
+    ("rounds_float32", dict(tree_learner="data", histogram_dtype="float32",
+                            hist_exchange="psum"),
+     ("hist_masked_f32", "partition_rows", "table_lookup")),
+    ("fused_feature", dict(tree_learner="feature"), ("hist_masked_f32",)),
+    ("fused_voting", dict(tree_learner="voting", top_k=28),
+     ("hist_masked_f32",)),
+    # top_k 5 of 28 features: each split exchanges the 10 voted features'
+    # histograms only, reduce-scattered over the ranks
+    ("fused_voting_subset", dict(tree_learner="voting", top_k=5,
+                                 hist_exchange="psum_scatter"),
+     ("hist_masked_f32",)),
+)
+MG_SUBSET = "fused_voting_subset"
+
+
+def _mg_fused(over: dict) -> bool:
+    return over.get("tree_learner") in ("feature", "voting")
+
+
+def multigpu_rank(rank: int, world: int, store: str, out: str,
+                  backend: str, device_type: str, names: str) -> None:
+    """One rank of phase 19 (`chip_smoke.py --multigpu-rank ...`): joins
+    the world, trains each workload of MG_WORKLOADS named in `names` (a
+    comma list) on the mesh (the fused ones under HotPathSanitizer,
+    strict) over the north-star dataset (MG_SUBSET_ROWS rows for
+    MG_SUBSET, MG_ROWS for the others) and writes its model strings,
+    s/iter, collective bytes, launches and divergence checks to
+    out/rank<r>.json.  device_type "cpu" runs the plain versions (the
+    CPU world of MG_SUBSET)."""
+    import torch
+    if device_type == "cpu":
+        torch.cuda.synchronize = lambda *a, **k: None
+    from lightgbm_tpu_torch.distributed import init_process_group
+    device = init_process_group(backend, rank, world, "file://" + store,
+                                local_rank=rank, timeout_s=120)
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import kernels, profiling
+    from lightgbm_tpu_torch.diagnostics.sanitize import (
+        DIVERGENCE_CHECKS, DIVERGENCES, HotPathSanitizer, fused_tree_steps)
+    from lightgbm_tpu_torch.synth import NORTH_STAR_PARAMS, synth_higgs
+    base = dict(NORTH_STAR_PARAMS, device_type=device_type)
+    datasets = {}
+    res = {}
+    for name, over, _ in MG_WORKLOADS:
+        if name not in names.split(","):
+            continue
+        rows = MG_SUBSET_ROWS if name == MG_SUBSET else MG_ROWS
+        if rows not in datasets:
+            X, y = synth_higgs(rows)
+            datasets[rows] = lt.Dataset(X, y, params=base).construct()
+        kernels.reset_launches()
+        c0 = profiling.counters()
+        marks = []
+        fused = _mg_fused(over)
+        san = HotPathSanitizer(warmup=1, strict=True, label=name)
+        with san, (fused_tree_steps(san) if fused
+                   else contextlib.nullcontext()):
+            bst = lt.train(dict(base, **over), datasets[rows], MG_ITERS[1],
+                           callbacks=[steady_window(torch, *MG_ITERS,
+                                                    marks)],
+                           verbose_eval=False)
+        if fused:
+            san.check()
+        learner = bst._gbdt.learner
+        c1 = profiling.counters()
+
+        def grew(key):
+            return c1.get(key, 0.0) - c0.get(key, 0.0)
+        mesh = learner.mesh
+        res[name] = dict(
+            device=device, learner=type(learner).__name__,
+            mesh=list(mesh.shape), backend=mesh.backend, rows=rows,
+            model=bst.model_to_string(),
+            s_iter=(marks[1] - marks[0]) / (MG_ITERS[1] - MG_ITERS[0]),
+            collective_bytes_per_tree=mesh.collective_bytes / MG_ITERS[1],
+            collective_calls_per_tree=mesh.collective_calls / MG_ITERS[1],
+            hist_bytes_per_tree=grew(profiling.HIST_EXCHANGE_BYTES)
+            / MG_ITERS[1],
+            record_bytes_per_tree=grew(profiling.SPLIT_RECORDS_BYTES)
+            / MG_ITERS[1],
+            launches=dict(kernels.LAUNCHES),
+            divergence_checks=grew(DIVERGENCE_CHECKS),
+            divergences=grew(DIVERGENCES),
+            implicit_transfers=san.implicit_transfers if fused else None)
+        del bst, learner, mesh
+        gc.collect()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def mg_trees(label: str, ref: str, got: str, exact: bool) -> str:
+    """compare_models (lightgbm_tpu_torch/diagnostics/worlds.py) of a
+    mesh model against its reference: bitwise where `exact` (int8),
+    else structure equal and float lines within rtol 1e-4, atol 1e-6,
+    or parted first at an f32 gain tie, as phase 7 holds card against
+    CPU.  Fails the phase otherwise."""
+    from lightgbm_tpu_torch.diagnostics.worlds import compare_models
+    try:
+        verdict = compare_models(ref, got, exact)
+    except ValueError as e:
+        fail(f"phase 19 {label}: {e}")
+    print(f"[phase 19] {label}: {verdict}", flush=True)
+    return verdict
+
+
+def phase_multigpu(torch, lt, kernels, card: str):
+    """Phase 19: W rank processes of this script train on the card(s)
+    through lightgbm_tpu_torch.train with a distributed tree_learner;
+    each model against the one-rank model trained here first, and the
+    voting-subset model against a CPU world's."""
+    from lightgbm_tpu_torch.diagnostics.worlds import WorldFailed, run_world
+    from lightgbm_tpu_torch.synth import NORTH_STAR_PARAMS, synth_higgs
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    world, backend = ((min(4, n_cards), "nccl") if n_cards >= 2
+                      else (2, "gloo"))
+    print(f"[phase 19] {world} ranks over {backend} on {n_cards} card(s), "
+          f"synth_higgs({MG_ROWS}) x 28 ({MG_SUBSET}: {MG_SUBSET_ROWS} rows, "
+          f"also in a CPU world of 2), {MG_ITERS[1]} iterations a workload",
+          flush=True)
+    X, y = synth_higgs(MG_ROWS)
+    base = dict(NORTH_STAR_PARAMS, device_type=GPU)
+    ds = lt.Dataset(X, y, params=base).construct()
+    refs = {}
+    for name, over, _ in MG_WORKLOADS:
+        if name == MG_SUBSET:
+            continue
+        p = dict(base, **over)
+        p["tree_learner"] = "serial"
+        if _mg_fused(over):
+            p["tree_growth"] = "exact"     # the one-device fused builder
+        refs[name] = lt.train(p, ds, MG_ITERS[1],
+                              verbose_eval=False).model_to_string()
+    del ds, X, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_phase
+    env = dict(os.environ, BENCH_SANITIZE="1")
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        env.pop(k, None)
+    me = os.path.abspath(__file__)
+    all_names = ",".join(n for n, _, _ in MG_WORKLOADS)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the card world, then the CPU world of the voting subset
+        for key, w, bk, dev, names in (
+                ("card", world, backend, GPU, all_names),
+                ("cpu", 2, "gloo", "cpu", MG_SUBSET)):
+            t0 = time.perf_counter()
+            d = os.path.join(tmp, key)
+            os.mkdir(d)
+            argvs = [[sys.executable, me, "--multigpu-rank", str(r), str(w),
+                      os.path.join(d, "store"), d, bk, dev, names]
+                     for r in range(w)]
+            try:
+                run_world(argvs, timeout=MG_TIMEOUT_S, env=env, log_dir=d,
+                          name=f"phase19_{key}", tail=4000)
+            except WorldFailed as e:
+                fail(f"phase 19: {e}")
+            res[key] = []
+            for r in range(w):
+                with open(os.path.join(d, f"rank{r}.json")) as f:
+                    res[key].append(json.load(f))
+            print(f"[phase 19] {key} world: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    out = {}
+    for name, over, need in MG_WORKLOADS:
+        # int8 histograms are integer sums: bitwise (the fused builder
+        # runs float32)
+        exact = (dict(NORTH_STAR_PARAMS, **over)["histogram_dtype"]
+                 == "int8" and not _mg_fused(over))
+        per = [st[name] for st in res["card"]]
+        for r, st in enumerate(per):
+            if st["model"] != per[0]["model"]:
+                fail(f"phase 19 {name}: rank {r}'s model string is not "
+                     "rank 0's")
+            for k in need:
+                if st["launches"].get(k, 0) <= 0:
+                    fail(f"phase 19 {name}: rank {r} never launched {k}")
+            if st["divergence_checks"] <= 0 or st["divergences"]:
+                fail(f"phase 19 {name}: rank {r} divergence checks "
+                     f"{st['divergence_checks']}, divergences "
+                     f"{st['divergences']}")
+            if st["implicit_transfers"]:
+                fail(f"phase 19 {name}: rank {r} made "
+                     f"{st['implicit_transfers']} implicit transfers")
+        if name == MG_SUBSET:
+            cpu = [st[name] for st in res["cpu"]]
+            if cpu[1]["model"] != cpu[0]["model"]:
+                fail(f"phase 19 {name}: the CPU world's ranks differ")
+            reference = "CPU world"
+            trees = mg_trees(f"{name} (card vs CPU world)",
+                             cpu[0]["model"], per[0]["model"], False)
+            # the voted subset, not every feature: 10 of 28 features'
+            # histograms a search against top_k 28's 28
+            full = res["card"][0]["fused_voting"]["hist_bytes_per_tree"]
+            if not 0 < per[0]["hist_bytes_per_tree"] <= 0.5 * full:
+                fail(f"phase 19 {name}: {per[0]['hist_bytes_per_tree']} "
+                     f"histogram bytes a tree against {full} with every "
+                     "feature voted")
+        else:
+            reference = "one rank"
+            trees = mg_trees(name, refs[name],
+                             per[0]["model"], exact)
+        line = {"backend": backend, "world": world,
+                "devices": [st["device"] for st in per], "workload": name,
+                "rows": per[0]["rows"], "reference": reference,
+                "trees_equal": trees,
+                "s_iter": [st["s_iter"] for st in per],
+                "collective_bytes_per_tree":
+                    per[0]["collective_bytes_per_tree"],
+                "hist_bytes_per_tree": per[0]["hist_bytes_per_tree"],
+                "record_bytes_per_tree": per[0]["record_bytes_per_tree"]}
+        print(json.dumps({"multigpu": line}), flush=True)
+        print(f"[phase 19] {name}: learner {per[0]['learner']}, mesh "
+              f"{per[0]['mesh']}, collectives a tree "
+              f"{per[0]['collective_calls_per_tree']:.0f}, divergence "
+              f"checks {[st['divergence_checks'] for st in per]}, launches "
+              f"{json.dumps(per[0]['launches'])}", flush=True)
+        out[name] = line
+    phase_s = time.perf_counter() - t_phase
+    print(f"[phase 19] {phase_s:.1f} s (one-rank references "
+          f"{ref_s:.1f} s) on {card}", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4296,6 +4546,8 @@ def main() -> None:
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     phase_files(torch, lt, kernels, card)
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    phase_multigpu(torch, lt, kernels, card)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
@@ -4309,4 +4561,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multigpu-rank"]:
+        multigpu_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                      sys.argv[5], sys.argv[6], sys.argv[7], sys.argv[8])
+    else:
+        main()

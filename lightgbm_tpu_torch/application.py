@@ -97,10 +97,14 @@ class Application:
         cfg = self.config
         if not cfg.data:
             raise LightGBMError("no training data: set data=<file>")
-        if cfg.num_machines > 1:
-            raise NotImplementedError(
-                "num_machines > 1: multi-process training is not ported "
-                "(ROADMAP.md §A item 12)")
+        # the world comes up before any device use (the reference's
+        # Network::Init at InitTrain, application.cpp:185-197): from a
+        # torchrun environment, or num_machines and the machine list
+        from .distributed import maybe_init_from_config
+        if maybe_init_from_config(cfg):
+            import torch.distributed as dist
+            log.info(f"initialized a {dist.get_world_size()}-rank world, "
+                     f"backend {dist.get_backend()}")
         t0 = time.time()
         train_raw = RawDataset.from_file(cfg.data, cfg)
         if cfg.is_save_binary_file and train_raw.source == cfg.data \

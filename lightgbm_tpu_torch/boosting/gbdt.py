@@ -26,7 +26,11 @@ An iteration takes one of the JAX package's two paths (`_can_pipeline`):
   training store when the serial learner's bag left rows out; the
   rounds and fused learners' leaf ids cover every row) and of each
   valid set by walking the tree.
-Either walk reads an EFB-bundled store through its feature table.  The
+Either walk reads an EFB-bundled store through its feature table.  On
+a mesh (a distributed tree_learner in a `torch.distributed` world) the
+loop runs replicated on every rank over all N rows, from the same
+seeds, and only the tree learner shards the store (sharded/mesh.py), so
+every rank's model string is the same.  The
 JAX package's checkpoint telemetry span and fault-injection hooks belong
 to observability (ROADMAP.md §A item 15) and are not here.
 """
@@ -369,7 +373,9 @@ class GBDT:
         the device tree arrays."""
         arrs, leaf_id = self.learner.train_device(gradient, hessian, bag)
         tree = tree_arrays_to_host(arrs, self.train_set,
-                                   self.config.num_leaves)
+                                   self.config.num_leaves,
+                                   mesh=getattr(self.learner, "mesh", None),
+                                   name=self.learner.tree_name)
         self.host_syncs_per_tree.append(self.learner.last_host_syncs + 1)
         if tree.num_leaves <= 1:
             warnings.warn("Stopped training because there are no more "
@@ -689,8 +695,13 @@ class GBDT:
 
     def save_model_to_file(self, filename: str,
                            num_iteration: int = -1) -> None:
-        with open(filename, "w") as f:
+        """Write the model string, through a temporary file renamed over
+        `filename`, so that the ranks of one host writing the same model
+        never interleave."""
+        tmp = f"{filename}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
             f.write(self.save_model_to_string(num_iteration))
+        os.replace(tmp, filename)
 
     def load_model_from_string(self, model_str: str) -> None:
         """gbdt.cpp:752-848."""

@@ -1190,10 +1190,12 @@ class Dataset:
         `ignore_column`, `categorical_column`) apply as in the JAX
         package.  `source` names the file the rows came from."""
         cfg = config or Config()
-        if cfg.num_machines > 1:
+        if cfg.num_machines > 1 and cfg.is_pre_partition:
             raise NotImplementedError(
-                "num_machines > 1: loading a data file across processes "
-                "is not ported (ROADMAP.md §A item 12)")
+                "num_machines > 1 with is_pre_partition: loading each "
+                "rank's own rows is not ported (ROADMAP.md §A item 12); "
+                "with is_pre_partition=false every rank reads the whole "
+                "file and trains data-parallel")
         if cfg.enable_load_from_binary_file:
             bin_path = None
             if Dataset._is_binary_file(path):

@@ -22,9 +22,15 @@ with jax's compile log.  In PyTorch the same two hazards are:
   `sanitize/retraces`; every nvcc build in the window counts in
   `sanitize/compiles_total`.
 
-`DivergenceSanitizer` (the cross-shard fingerprint audit) belongs to the
-multi-device learners (ROADMAP.md §A item 12) and is not ported; its
-counter names are kept so reports carry the JAX keys.
+`DivergenceSanitizer` is the cross-rank fingerprint audit of the mesh
+learners.  The JAX class compared the per-device copies of each
+replicated array inside one process; here the copies live in the ranks'
+processes, so each rank digests (sha1) the bytes of the replicated tree
+state it already read to the host — the packed tree vector of the
+tree's one read and the leaf counts — the digests are all_gathered over
+the world, and equal digests count `sanitize/divergence_checks`, unequal
+ones `sanitize/divergences` and (strict, the default) raise.
+`maybe_check_divergence` runs it under the same BENCH_SANITIZE switch.
 
 Lock-sanitizer counters (diagnostics/locksan.py):
 - LOCK_ACQUIRES: outermost acquisitions seen by the instrumented shim;
@@ -86,6 +92,104 @@ def explicit_transfer() -> Iterator[None]:
         yield
     finally:
         torch.cuda.set_sync_debug_mode(prev)
+
+
+def _digest_words(x) -> "np.ndarray":
+    """sha1 of an array's bytes as 3 int64 words (zero-padded)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    if isinstance(x, torch.Tensor):
+        with explicit_transfer():
+            x = x.detach().cpu().numpy()
+    buf = np.ascontiguousarray(np.asarray(x)).tobytes()
+    d = hashlib.sha1(buf).digest() + bytes(4)
+    return np.frombuffer(d, np.int64).copy()
+
+
+def _replica_digests(mesh, value: dict) -> list:
+    """[(name, [digest hex of each rank])] of every entry of `value`:
+    this rank's digests all_gathered over the mesh's world."""
+    import numpy as np
+    import torch
+    names = list(value)
+    words = np.stack([_digest_words(value[k]) for k in names])  # [n, 3]
+    t = torch.as_tensor(words, device=mesh.collective_device())
+    with explicit_transfer():
+        allw = mesh.all_gather(t).cpu().numpy()             # [W, n, 3]
+    return [(k, [allw[r, i].tobytes().hex()[:40]
+                 for r in range(allw.shape[0])])
+            for i, k in enumerate(names)]
+
+
+class DivergenceSanitizer:
+    """Cross-rank replication checker of the mesh learners.
+
+    The mesh learners keep the growth loop's control flow and the tree
+    replicated: the split records after the exchange, the leaf counts,
+    the packed tree.  A rank-local value leaking into that state gives
+    ranks trees that silently disagree, and collectives that no longer
+    pair up (a deadlock).  ``check(mesh, name, value)`` digests every
+    entry of `value` (a dict of host arrays or tensors) on every rank
+    and compares the all_gathered digests: identical -> one
+    ``sanitize/divergence_checks`` tick an entry; any mismatch ->
+    ``sanitize/divergences`` and (strict, the default) an AssertionError
+    naming the entry and the ranks' digests."""
+
+    def __init__(self, label: str = "growth-loop", strict: bool = True):
+        self.label = label
+        self.strict = strict
+        self.checks = 0
+        self.divergences = 0
+        self.evidence = []
+
+    def check(self, mesh, name: str, value: dict) -> int:
+        """Compare the ranks' digests of `value`.  Returns the number of
+        NEW divergences found."""
+        before = self.divergences
+        for key, digs in _replica_digests(mesh, value):
+            self.checks += 1
+            profiling.count(DIVERGENCE_CHECKS)
+            if len(set(digs)) > 1:
+                self.divergences += 1
+                profiling.count(DIVERGENCES)
+                ev = (name, key, [(r, d[:12]) for r, d in enumerate(digs)])
+                if len(self.evidence) < 16:
+                    self.evidence.append(ev)
+                if self.strict:
+                    raise AssertionError(
+                        f"cross-rank divergence [{self.label}] in "
+                        f"'{name}/{key}': a replicated growth-loop value "
+                        f"differs across ranks {ev[2]} — a rank-local "
+                        "value leaked into replicated state")
+        return self.divergences - before
+
+    def report(self) -> dict:
+        return {"label": self.label,
+                "divergence_checks": self.checks,
+                "divergences": self.divergences,
+                "evidence": self.evidence[:4]}
+
+
+_divergence = None
+
+
+def divergence_sanitizer() -> DivergenceSanitizer:
+    """The process-wide strict instance the learner hooks feed."""
+    global _divergence
+    if _divergence is None:
+        _divergence = DivergenceSanitizer(label="hot-path")
+    return _divergence
+
+
+def maybe_check_divergence(mesh, name: str, value: dict) -> None:
+    """Hot-loop hook (every mesh learner calls it after each tree's
+    read): no-op unless BENCH_SANITIZE is on, else a strict cross-rank
+    replication check of `value`."""
+    if not sanitize_enabled():
+        return
+    divergence_sanitizer().check(mesh, name, value)
 
 
 def _build_events():
@@ -235,3 +339,21 @@ class HotPathSanitizer:
                 f"{self.warmup} warmup step(s) over {self.steps} steps; "
                 f"recent builds: {self.compile_names[-8:]}; "
                 f"lock cycles: {locksan.cycles()[:4]}")
+
+
+@contextmanager
+def fused_tree_steps(san: HotPathSanitizer) -> Iterator[None]:
+    """Run every FusedTreeLearner.train (one tree) inside one
+    `san.step()`, so the fused builder's trees are the steps the
+    sanitizer checks."""
+    from ..learner.fused import FusedTreeLearner
+    real = FusedTreeLearner.train
+
+    def train(self, *a, **k):
+        with san.step():
+            return real(self, *a, **k)
+    FusedTreeLearner.train = train
+    try:
+        yield
+    finally:
+        FusedTreeLearner.train = real

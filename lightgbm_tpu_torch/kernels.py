@@ -101,11 +101,27 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Compile every missing library among `names`, one nvcc each, all
     in parallel.  Returns {name: seconds} for the libraries built now
     (empty when all were built already); raises with the compiler's
-    output when one fails."""
-    todo = [n for n in names if not _lib_path(n).exists()]
-    if not todo:
+    output when one fails.  The build holds an exclusive lock on
+    build/kernels/.lock, so the ranks of a cold multi-process run that
+    reach their first kernel together build each library once: the
+    others wait, then find it built."""
+    names = list(names)
+    if all(_lib_path(n).exists() for n in names):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    import fcntl
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_locked(
+                [n for n in names if not _lib_path(n).exists()])
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_locked(todo: List[str]) -> Dict[str, float]:
+    if not todo:
+        return {}
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()

@@ -54,17 +54,37 @@ def dense_store_feed(dataset, device: torch.device, site: str):
     K1 and K2 read), else None).  The partition and the tree walk read
     the [C, N] store.  `site` names the consumer when a sparse store has
     to densify (counted in SPARSE_FALLBACKS)."""
+    return store_feed(dataset.dense_bins(site=site), dataset.max_num_bin,
+                      device)
+
+
+def store_feed(store: np.ndarray, max_num_bin: int, device: torch.device):
+    """dense_store_feed of a [C, n] block of the store (a mesh rank's
+    rows and columns, padding included)."""
     from ..ops.histogram import row_major_bins
-    store = dataset.dense_bins(site=site)
-    if dataset.max_num_bin <= 256:
+    if max_num_bin <= 256:
         # a byte a bin: the feature-major bytes touch the fewest sectors
         bins_np = (store.astype(np.int16) - 128).astype(np.int8)
     else:
         bins_np = store.astype(np.int32)
     bins = torch.as_tensor(bins_np, device=device)
-    rows = (row_major_bins(bins, dataset.max_num_bin)
-            if dataset.max_num_bin <= 256 else None)
+    rows = (row_major_bins(bins, max_num_bin) if max_num_bin <= 256
+            else None)
     return bins, rows
+
+
+def rank_block(store: np.ndarray, cols: int, col_block: int, nrow: int,
+               row_block_: int, n: int) -> np.ndarray:
+    """Block (col_block, row_block_) of a [C, n] store padded with bin 0
+    to `cols` columns a block and `nrow` rows a block: columns
+    [col_block * cols, +cols) and rows [row_block_ * nrow, +nrow)."""
+    C = store.shape[0]
+    out = np.zeros((cols, nrow), store.dtype)
+    c0, r0 = col_block * cols, row_block_ * nrow
+    c1, r1 = min(c0 + cols, C), min(r0 + nrow, n)
+    if c1 > c0 and r1 > r0:
+        out[:c1 - c0, :r1 - r0] = store[c0:c1, r0:r1]
+    return out
 
 
 def device_memory_bytes(device: torch.device) -> float:

@@ -1,8 +1,11 @@
-"""Batched-rounds tree learner, single device.
+"""Batched-rounds tree learner, on one device or data-parallel.
 
 Port of lightgbm_tpu/learner/rounds.py (`build_tree_rounds`,
-`RoundsTreeLearner`) for one device, over the dense store or the sparse
-CSR/ELL store, with both row feeds (`hist_rows` masked and gathered).
+`RoundsTreeLearner`), over the dense store or the sparse CSR/ELL
+store, with both row feeds (`hist_rows` masked and
+gathered), and over a mesh of ranks (sharded/mesh.py: the data axis,
+or both axes for data2d) with the psum and psum_scatter histogram
+exchanges.
 Every round splits all splittable leaves at once (the top-gain leaves
 when the num_leaves cap binds), histograms the smaller children of all
 splits in multi-leaf passes of up to LEAVES_PER_BATCH slots, and takes
@@ -56,12 +59,17 @@ from ..ops.histogram import (RowBins, hist_multileaf_gathered,
                              hist_sparse_multileaf)
 from ..ops.partition import partition_rows, partition_rows_sparse
 from ..ops.sparse_streams import build_sparse_streams
-from ..ops.split import best_split, bundle_predicate_params, maybe_unbundle
+from ..ops.split import (best_split, bundle_predicate_params,
+                         combine_sharded_records, maybe_unbundle,
+                         sharded_slice_search)
+from ..sharded.mesh import (HistExchange, Mesh, pad_cols_to_ndev,
+                            resolve_hist_exchange, row_block,
+                            row_shard_axes, take_rows)
 from ..tree import Tree
 from .common import (dense_store_feed, gather_capacity_tiers,
                      gather_scratch_capacity, make_split_kw,
-                     padded_bin_count, resolve_hist_rows,
-                     use_parent_hist_cache)
+                     padded_bin_count, rank_block, resolve_hist_rows,
+                     store_feed, use_parent_hist_cache)
 from .fused import TreeArrays, tree_arrays_to_host
 
 NEG_INF = -math.inf
@@ -79,7 +87,8 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
                       hist_rows: str = "masked", sparse: bool = False,
                       ftbl: Optional[torch.Tensor] = None,
                       unb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                      rows: Optional[RowBins] = None, nnz: int = 0
+                      rows: Optional[RowBins] = None, nnz: int = 0,
+                      exchange: Optional[HistExchange] = None
                       ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree in batched rounds.
 
@@ -97,11 +106,32 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
     Returns (TreeArrays on that device, leaf_id [N] int32, host reads
     made).  The rows and (over the sparse store of `nnz` stored entries)
     the entries its histogram passes read go to the profiling registry's
-    tree/hist_rows_touched and tree/sparse_nnz_touched.
+    tree/hist_rows_touched and tree/sparse_nnz_touched; with a mesh
+    `exchange`, the bytes of its histogram collectives and gathered
+    split records to tree/hist_exchange_bytes and
+    tree/split_records_bytes.
     hist_rows="gathered" keeps the device-resident row
     permutation grouped by leaf with per-leaf (offset, count), stably
     compacted after every round's partition, and histograms only the
-    segments a pass needs; "masked" streams all rows every pass."""
+    segments a pass needs; "masked" streams all rows every pass.
+
+    Data-parallel (`exchange`, a sharded/mesh.py HistExchange): bins,
+    grad, hess and row_mask are this rank's row block, and every
+    histogram pass is reduced across the ranks of the row axes by the
+    exchange (the dense store's int8 sums exactly, in int32 with shared
+    scales; the sparse store's finished float32 sums).  Under
+    psum the reduced [k, C, 3, B] histograms are the same on every rank;
+    under psum_scatter each rank keeps its [k, C/nd, 3, B] store-column
+    slice (nd = the exchange's slices), split-searches it
+    (ops/split.sharded_slice_search) and the per-leaf records are
+    all_gathered and combined (ops/split.combine_sharded_records): max
+    gain, ties to the smallest feature id, the full search's order.  The
+    root pass is psummed whole under either exchange, so the root's
+    totals are the one-device ones.  Leaf totals, the records and so the
+    round's host read and the tree are replicated on every rank; the
+    row partition (leaf_id, perm, the per-leaf segments and the gathered
+    capacity tiers) is the rank's own.  The returned leaf_id covers the
+    rank's rows; the learner all_gathers it."""
     if sparse:
         sp_cols, sp_bins, sp_zb = bins[:3]
         F, N = sp_zb.shape[0], sp_cols.shape[0]
@@ -117,48 +147,83 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
     if gathered:
         tiers_all = gather_capacity_tiers(N)
         tiers_small = gather_capacity_tiers(gather_scratch_capacity(N))
+        if exchange is not None:
+            # smaller/larger is decided on GLOBAL counts, so a rank's
+            # share of the globally smaller children can reach all of
+            # its rows: keep the N/2 tier and make the full one reachable
+            tiers_small = tuple(sorted(set(tiers_small + tiers_all)))
     # any round splits >= 1 leaf, so L-1 rounds bound even a chain
     R = L - 1
     skw = dict(split_kw)
     syncs = 0
     # rows and stored entries the histogram passes read (host counts)
     touched = [0, 0]
+    xbytes0 = (dict(exchange.mesh.kind_bytes) if exchange is not None
+               else None)
     i64 = dict(dtype=torch.int64, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
 
+    # psum_scatter: this rank's store-column slice [off, off + Fs)
+    hx = exchange is not None and exchange.scatter_axis is not None
+    if hx:
+        Fs = F // exchange.slices
+        off = exchange.slice_index * Fs
+        if unb is None:
+            nb_s, ic_s = num_bins[off:off + Fs], is_cat[off:off + Fs]
+            fm_s = fmask[off:off + Fs]
+        else:
+            nb_s = ic_s = fm_s = None
+
     def find_best_batch(hists, sums):
-        """hists [k, F, 3, B], sums [k, 3] -> packed records [k, 11] with
-        the can-split gate applied (depth gates at selection time)."""
-        rec = best_split(maybe_unbundle(hists, unb, sums), num_bins,
-                         is_cat, fmask, sums[:, 0], sums[:, 1], sums[:, 2],
-                         **skw)
+        """hists [k, F, 3, B] (this rank's [k, Fs, 3, B] slice under
+        psum_scatter), sums [k, 3] -> packed records [k, 11] with the
+        can-split gate applied (depth gates at selection time)."""
+        if hx:
+            rec = sharded_slice_search(
+                hists, sums, off=off, nb_s=nb_s, ic_s=ic_s, fm_s=fm_s,
+                num_bins=num_bins, is_cat=is_cat, fmask=fmask, unb=unb,
+                skw=skw)
+        else:
+            rec = best_split(maybe_unbundle(hists, unb, sums), num_bins,
+                             is_cat, fmask, sums[:, 0], sums[:, 1],
+                             sums[:, 2], **skw)
+        # the gate before the combine, as the JAX learner orders them
         can = ((sums[:, 2] >= 2 * min_data_in_leaf)
                & (sums[:, 1] >= 2 * min_sum_hessian_in_leaf))
         g = rec[:, 0]
         rec[:, 0] = torch.where(can & torch.isfinite(g) & (g > 0), g,
                                 torch.full_like(g, NEG_INF))
+        if hx:
+            rec = combine_sharded_records(rec, exchange.mesh,
+                                          exchange.scatter_axis)
         return rec
 
-    def hist_masked(lid_, sl_):
+    def hist_masked(lid_, sl_, xch=exchange):
         """One masked multi-leaf pass over the whole store, dense or
-        nonzero-iterating; both return [K, F, 3, B]."""
+        nonzero-iterating; both return [K, F, 3, B] (reduced by `xch`)."""
         touched[0] += N
         touched[1] += nnz if sparse else 0
         if sparse:
             return hist_sparse_multileaf(
                 bins, lid_, gh8, sl_, num_columns_padded=F,
-                num_bins_padded=B, input_dtype=input_dtype)
+                num_bins_padded=B, input_dtype=input_dtype, exchange=xch)
         return hist_multileaf_masked(bins, lid_, gh8, sl_,
                                      num_bins_padded=B,
-                                     input_dtype=input_dtype, rows=rows)
+                                     input_dtype=input_dtype, rows=rows,
+                                     exchange=xch)
 
     # ---- root --------------------------------------------------------------
     gh8 = torch.stack([grad * row_mask, hess * row_mask, row_mask])
     lid0 = torch.zeros(N, dtype=torch.int32, device=dev)
-    hist0 = hist_masked(
-        lid0, torch.zeros(1, dtype=torch.int32, device=dev))[0]  # [F, 3, B]
+    root_x = exchange
+    if hx:
+        root_x = HistExchange(exchange.mesh, scatter=False)
+    hist0 = hist_masked(lid0, torch.zeros(1, dtype=torch.int32, device=dev),
+                        root_x)[0]                            # [F, 3, B]
     # summed in f64, so the card's root totals are the CPU's
     root_sums = hist0[0].to(torch.float64).sum(dim=-1).to(torch.float32)
+    if hx:
+        hist0 = hist0[off:off + Fs].contiguous()              # [Fs, 3, B]
 
     leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
     if gathered:
@@ -211,11 +276,11 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
                 return hist_sparse_gathered(
                     bins, gh8, perm, leaf_off[slots], leaf_cnt[slots],
                     capacity=cap, num_columns_padded=F, num_bins_padded=B,
-                    input_dtype=input_dtype)
+                    input_dtype=input_dtype, exchange=exchange)
             return hist_multileaf_gathered(
                 bins, gh8, perm, leaf_off[slots], leaf_cnt[slots],
                 capacity=cap, num_bins_padded=B, input_dtype=input_dtype,
-                rows=rows)
+                rows=rows, exchange=exchange)
         return hist_masked(leaf_id, slots.to(torch.int32))
 
     rnd = 0
@@ -394,68 +459,126 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
         leaf_depth=leaf_depth.to(torch.int32),
         num_leaves=torch.tensor(n_leaves, dtype=torch.int32, device=dev))
     profiling.count(profiling.HIST_ROWS_TOUCHED, touched[0])
+    if exchange is not None:
+        exchange.mesh.record_tree_exchange(xbytes0)
     if sparse:
         profiling.count(profiling.SPARSE_NNZ_TOUCHED, touched[1])
     return arrs, leaf_id, syncs
 
 
 class RoundsTreeLearner:
-    """Single-device learner using batched-rounds growth."""
+    """Batched-rounds learner on one device, or data-parallel over a
+    mesh (sharded/mesh.py): rows shard over every mesh axis of size > 1
+    (`tree_learner=data`: (W, 1); `data2d`: both axes), each rank holding
+    its row block of the store, and every histogram pass is exchanged by
+    psum or psum_scatter (`hist_exchange`)."""
 
     full_leaf_id = True   # leaf_id valid for out-of-bag rows too
 
-    def __init__(self, dataset: Dataset, config: Config):
+    def __init__(self, dataset: Dataset, config: Config,
+                 mesh: Optional[Mesh] = None):
         self.dataset = dataset
         self.config = config
+        self.mesh = mesh
+        self.tree_name = "rounds/tree"   # the divergence check's label
         self.device = torch.device(config.device_type)
         self.N = dataset.num_data
         self.F = dataset.num_features                  # original features
         self.C = dataset.num_store_columns             # store columns
         self.B = padded_bin_count(dataset.max_num_bin)
         self.sparse = dataset.sparse is not None
+        cfg = config
+        dd, df = mesh.shape if mesh is not None else (1, 1)
+        nsh = dd * df
+        # the row block this rank holds: rows [r0, r1) of the N, padded
+        # to Nloc = ceil(N / nsh) (the JAX learner's Np = nsh * Nloc)
+        self._block = row_block(self.N, nsh, mesh.rank if mesh else 0)
+        self.hist_exchange = "psum"
+        self.exchange = None
+        Fpad = self.C
+        if mesh is not None:
+            K_pass = min(LEAVES_PER_BATCH, int(cfg.num_leaves))
+            self.hist_exchange = resolve_hist_exchange(
+                cfg, ndev=nsh, payload_bytes=4.0 * K_pass * self.C * 3
+                * self.B)
+            hx = self.hist_exchange == "psum_scatter"
+            if hx:
+                # the histogram's column axis tiles the scatter axis (the
+                # feature axis on a 2-D mesh); the dense int8 store keeps
+                # its 32-column group
+                Fpad = pad_cols_to_ndev(
+                    self.C, df if df > 1 else dd,
+                    align=32 if (not self.sparse
+                                 and dataset.max_num_bin <= 256) else 1)
+            self.exchange = HistExchange(mesh, scatter=hx)
+        self.Fpad = Fpad
+        self._nnz = dataset.sparse.nnz if self.sparse else 0
         if self.sparse:
             # the ELL triple as built: on one device no column is padded,
             # so the empty-slot sentinel is the column count and no
-            # zero_bin is -1.  On CUDA the histogram kernels read the
-            # entries sorted by column, built here once per learner
-            self.bins_dev = dataset.sparse_triple(self.device)
+            # zero_bin is -1.  A mesh rank holds its row block, the
+            # sentinel moved past the padded columns (zero_bin -1 there)
+            # and the padding rows empty.  On CUDA the histogram kernels
+            # read the entries sorted by column, built here once per
+            # learner (per rank, over its block)
+            if mesh is None:
+                self.bins_dev = dataset.sparse_triple(self.device)
+            else:
+                self.bins_dev = self._rank_sparse_block(dataset, Fpad)
+                self._nnz = int((self.bins_dev[0] < Fpad).sum())
             if self.device.type == "cuda":
                 self.bins_dev += (build_sparse_streams(
-                    self.bins_dev[0], self.bins_dev[1], self.C),)
+                    self.bins_dev[0], self.bins_dev[1], Fpad),)
             self.rows = None
             bins_itemsize = 4
-        else:
+        elif mesh is None:
             # the partition kernel K4 reads one bin of a row's split
             # column from the [F, N] store; kernels K1 and K2 read a
             # row's bins from its row-major byte copy
             self.bins_dev, self.rows = dense_store_feed(
                 dataset, self.device, "rounds_feed")
             bins_itemsize = self.bins_dev.element_size()
-        self.num_bins_dev = torch.as_tensor(
-            dataset.num_bins.astype(np.int64), device=self.device)
-        self.is_cat_dev = torch.as_tensor(dataset.is_categorical,
-                                          device=self.device)
+        else:
+            # this rank's row block, the padded columns and rows at bin 0
+            # (padding rows carry a zero mask, padded columns one bin)
+            block = rank_block(dataset.dense_bins(site="rounds_feed"),
+                               Fpad, 0, self._block[2], mesh.rank, self.N)
+            self.bins_dev, self.rows = store_feed(
+                block, dataset.max_num_bin, self.device)
+            bins_itemsize = self.bins_dev.element_size()
+        self._walk = None
+        nbv = dataset.num_bins.astype(np.int64)
+        icv = np.asarray(dataset.is_categorical, bool)
+        self._base_fmask = np.ones(self.F, bool)
+        ft = dataset.bundle_feat_table()
+        if ft is None and Fpad > self.F:
+            # unbundled: the split metadata mirrors the padded columns
+            fp = Fpad - self.F
+            nbv = np.pad(nbv, (0, fp), constant_values=1)
+            icv = np.pad(icv, (0, fp))
+            self._base_fmask = np.pad(self._base_fmask, (0, fp))
+        self.num_bins_dev = torch.as_tensor(nbv, device=self.device)
+        self.is_cat_dev = torch.as_tensor(icv, device=self.device)
         # bundled: histograms unbundle to the original features before
         # split search.  The gather tables' zero sentinel sits past the
-        # store's C columns, the columns of every histogram here (the
-        # port pads no store column)
-        ft = dataset.bundle_feat_table()
+        # (padded) store columns, the columns of every histogram here
         self.ftbl = (None if ft is None
                      else torch.as_tensor(ft, device=self.device))
-        unb = dataset.unbundle_tables(self.B, self.C)
+        unb = dataset.unbundle_tables(self.B, Fpad)
         self.unb = (None if unb is None else
                     (torch.as_tensor(unb[0], device=self.device),
                      torch.as_tensor(unb[1], device=self.device)))
-        self._base_fmask = np.ones(self.F, bool)
         self._fmask_dev = torch.as_tensor(self._base_fmask,
                                           device=self.device)
         self._row_mask_dev = torch.ones(self.N, dtype=torch.float32,
                                         device=self.device)
-        cfg = config
         self.split_kw = make_split_kw(cfg)
         self._feat_rng = np.random.RandomState(cfg.feature_fraction_seed)
-        self.cache_parent_hist = use_parent_hist_cache(cfg, self.C, self.B,
-                                                       self.device)
+        # under psum_scatter each rank caches only its column slices
+        cache_cols = (Fpad // self.exchange.slices
+                      if self.exchange is not None else Fpad)
+        self.cache_parent_hist = use_parent_hist_cache(cfg, cache_cols,
+                                                       self.B, self.device)
         if self.sparse:
             # masked by default; a pinned gathered feed runs on the CPU
             # (plain torch ops) and falls back to masked on CUDA, as the
@@ -468,9 +591,10 @@ class RoundsTreeLearner:
                 hr = "masked"
             self.hist_rows = "masked" if hr == "auto" else hr
         else:
+            # the gathered scratch is per rank, sized from its block
             self.hist_rows = resolve_hist_rows(
-                cfg, device=self.device, num_columns=self.C,
-                np_rows=max(1, self.N), bins_itemsize=bins_itemsize)
+                cfg, device=self.device, num_columns=Fpad,
+                np_rows=max(1, self._block[2]), bins_itemsize=bins_itemsize)
         self.last_host_syncs = 0
         self._kw = dict(num_leaves=int(cfg.num_leaves),
                         num_bins_padded=self.B, split_kw=self.split_kw,
@@ -481,17 +605,47 @@ class RoundsTreeLearner:
                         cache_parent_hist=self.cache_parent_hist,
                         hist_rows=self.hist_rows, sparse=self.sparse,
                         ftbl=self.ftbl, unb=self.unb, rows=self.rows,
-                        nnz=dataset.sparse.nnz if self.sparse else 0,
+                        nnz=self._nnz,
                         input_dtype=getattr(cfg, "histogram_dtype",
-                                            "float32"))
+                                            "float32"),
+                        exchange=self.exchange)
+
+    def _rank_sparse_block(self, dataset: Dataset, Fpad: int):
+        """(cols, bins, zero_bin) tensors of this rank's row block of the
+        ELL store: the empty-slot sentinel at Fpad (past any padded
+        column), zero_bin -1 on the padded columns, the padding rows
+        empty."""
+        sp = dataset.sparse
+        r0, r1, nloc = self._block
+        cols = np.full((nloc, sp.cols.shape[1]), Fpad, np.int32)
+        ell = np.zeros((nloc, sp.cols.shape[1]), np.int32)
+        c = sp.cols[r0:r1]
+        cols[:r1 - r0] = np.where(c >= self.C, Fpad, c)
+        ell[:r1 - r0] = sp.bins[r0:r1]
+        zb = np.full(Fpad, -1, np.int32)
+        zb[:self.C] = sp.zero_bin
+        dev = self.device
+        return (torch.as_tensor(cols, device=dev),
+                torch.as_tensor(ell, device=dev),
+                torch.as_tensor(zb, device=dev))
 
     @property
     def walk_bins(self):
         """The store a tree walks over the training rows (DART's drops,
         rollback, the replay of a resumed or continued model): the [F, N]
         store the partition reads (int8 bytes holding value - 128 up to
-        256 bins, int32 past that), or the sparse ELL triple; no copy."""
-        return self.bins_dev[:3] if self.sparse else self.bins_dev
+        256 bins, int32 past that), or the sparse ELL triple; no copy.
+        A mesh rank holds only its row block, so its walk store (every
+        row, as the replicated boosting loop walks them) is made on the
+        first walk."""
+        if self.mesh is None:
+            return self.bins_dev[:3] if self.sparse else self.bins_dev
+        if self._walk is None:
+            self._walk = (self.dataset.sparse_triple(self.device)
+                          if self.sparse else
+                          dense_store_feed(self.dataset, self.device,
+                                           "rounds_feed")[0])
+        return self._walk
 
     def _feature_mask(self) -> torch.Tensor:
         frac = self.config.feature_fraction
@@ -499,7 +653,7 @@ class RoundsTreeLearner:
             return self._fmask_dev
         k = max(1, int(round(self.F * frac)))
         sel = self._feat_rng.choice(self.F, size=k, replace=False)
-        m = np.zeros(self.F, bool)
+        m = np.zeros(len(self._base_fmask), bool)
         m[sel] = True
         return torch.as_tensor(self._base_fmask & m, device=self.device)
 
@@ -514,12 +668,23 @@ class RoundsTreeLearner:
     def train_device(self, grad: torch.Tensor, hess: torch.Tensor,
                      bag_idx: Optional[torch.Tensor] = None
                      ) -> Tuple[TreeArrays, torch.Tensor]:
-        """Grow one tree: (device TreeArrays, leaf_id [N] int32)."""
+        """Grow one tree: (device TreeArrays, leaf_id [N] int32).  On a
+        mesh grad/hess are every row's (the boosting loop is replicated);
+        the rank grows the tree over its row block and all_gathers the
+        blocks' leaf ids."""
         mask = self._row_mask(bag_idx)
         fmask = self._feature_mask()
+        if self.mesh is not None:
+            r0, r1, nloc = self._block
+            grad, hess, mask = (take_rows(x, r0, r1, nloc)
+                                for x in (grad, hess, mask))
         arrs, leaf_id, syncs = build_tree_rounds(
             self.bins_dev, grad, hess, mask, self.num_bins_dev,
             self.is_cat_dev, fmask, **self._kw)
+        if self.mesh is not None:
+            leaf_id = self.mesh.all_gather(
+                leaf_id, row_shard_axes(*self.mesh.shape)).reshape(-1)
+            leaf_id = leaf_id[:self.N]
         self.last_host_syncs = syncs
         return arrs, leaf_id
 
@@ -527,6 +692,7 @@ class RoundsTreeLearner:
               bag_idx: Optional[torch.Tensor] = None
               ) -> Tuple[Tree, torch.Tensor]:
         arrs, leaf_id = self.train_device(grad, hess, bag_idx)
-        tree = tree_arrays_to_host(arrs, self.dataset, self.config.num_leaves)
+        tree = tree_arrays_to_host(arrs, self.dataset, self.config.num_leaves,
+                                   mesh=self.mesh, name=self.tree_name)
         self.last_host_syncs += 1
         return tree, leaf_id

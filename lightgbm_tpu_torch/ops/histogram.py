@@ -448,17 +448,27 @@ def hist_multileaf(gb_t: torch.Tensor, vals: torch.Tensor, *,
                                  input_dtype=input_dtype)
 
 
-def _quantize_gh(gh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                             torch.Tensor]:
+def _quantize_gh(gh: torch.Tensor, exchange=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-pass symmetric int8 quantization of the (grad, hess) rows of
     gh [>=3, C] f32.  Returns (ghq [3, C] int32 holding int8-ranged
     values, scale_g, scale_h); the mask row is carried through exactly.
     The f32 operations are the ones JAX runs: max|x| floored at 1e-30,
     then "/ 127", which XLA compiles to a multiply by the f32 reciprocal
     of the constant 127 (so the port multiplies too, and its scales are
-    bitwise JAX's), then round half to even of x / scale."""
-    sg = torch.clamp(gh[0].abs().max(), min=1e-30) * _INV127
-    sh = torch.clamp(gh[1].abs().max(), min=1e-30) * _INV127
+    bitwise JAX's), then round half to even of x / scale.
+
+    With a mesh `exchange` (sharded/mesh.py HistExchange) the two
+    max|x| are the maxima over every rank's rows, so every rank
+    quantizes with the scales one device would use over all the rows.
+    (The JAX mesh learners quantize each shard with its own local
+    scales; a shared scale keeps the exchanged int32 sums exact, so a
+    W-rank int8 histogram is bitwise the one-device one.)"""
+    amax = torch.stack([gh[0].abs().max(), gh[1].abs().max()])
+    if exchange is not None:
+        amax = exchange.amax(amax)
+    sg = torch.clamp(amax[0], min=1e-30) * _INV127
+    sh = torch.clamp(amax[1], min=1e-30) * _INV127
     ghq = torch.stack([torch.round(gh[0] / sg), torch.round(gh[1] / sh),
                        gh[2]]).to(torch.int32)
     return ghq, sg, sh
@@ -854,7 +864,8 @@ def hist_multileaf_masked(gb_t: torch.Tensor, lid: torch.Tensor,
                           num_bins_padded: int,
                           input_dtype: str = "float32",
                           row_idx: Optional[torch.Tensor] = None,
-                          rows: Optional[RowBins] = None) -> torch.Tensor:
+                          rows: Optional[RowBins] = None,
+                          exchange=None) -> torch.Tensor:
     """Histogram K leaves in one pass, masks built on the fly.
 
     gb_t [F, N] int bins (int8 = value-128 storage); lid [C] int32 leaf
@@ -867,17 +878,29 @@ def hist_multileaf_masked(gb_t: torch.Tensor, lid: torch.Tensor,
     input_dtype "int8" quantizes grad/hess per pass (`_quantize_gh`),
     accumulates exactly in int32 (K1) and dequantizes once; "float32" /
     "bfloat16" accumulate in float32 (K2), bfloat16 rounding the
-    operands first."""
+    operands first.
+
+    `exchange` (a mesh learner's sharded/mesh.py HistExchange) reduces
+    this rank's pass across the ranks of the row axes: the int32 sums
+    before the dequantize (with scales shared by every rank), the float
+    ones as they are; the result is the exchange's (a column slice
+    under psum_scatter)."""
     B = num_bins_padded
+    rows_total = lid.shape[0] * (exchange.shards if exchange else 1)
     if input_dtype == "int8":
-        if _int8_ok(lid.shape[0]):
-            ghq, sg, sh = _quantize_gh(gh8)
-            return _dequantize(hist_counts(gb_t, row_idx, lid, ghq, sl, B,
-                                           rows=rows), sg, sh)
+        if _int8_ok(rows_total):
+            ghq, sg, sh = _quantize_gh(gh8, exchange)
+            h = hist_counts(gb_t, row_idx, lid, ghq, sl, B, rows=rows)
+            return _dequantize(_exchanged(h, exchange), sg, sh)
         input_dtype = "bfloat16"
     vals = gh8[:3].to(torch.float32)
-    return hist_counts(gb_t, row_idx, lid, vals, sl, B,
-                       round_bf16=input_dtype == "bfloat16", rows=rows)
+    return _exchanged(hist_counts(gb_t, row_idx, lid, vals, sl, B,
+                                  round_bf16=input_dtype == "bfloat16",
+                                  rows=rows), exchange)
+
+
+def _exchanged(h: torch.Tensor, exchange) -> torch.Tensor:
+    return h if exchange is None else exchange(h)
 
 
 def _gather_rows(perm: torch.Tensor, seg_off: torch.Tensor,
@@ -925,7 +948,8 @@ def hist_multileaf_gathered(bins_fn: torch.Tensor, gh8: torch.Tensor,
                             seg_cnt: torch.Tensor, *, capacity: int,
                             num_bins_padded: int,
                             input_dtype: str = "float32",
-                            rows: Optional[RowBins] = None) -> torch.Tensor:
+                            rows: Optional[RowBins] = None,
+                            exchange=None) -> torch.Tensor:
     """Histogram K leaf-contiguous row segments in one pass over a
     [capacity] scratch: slot k holds segment k's histogram, exactly
     hist_multileaf_masked's output for that leaf.  The kernel (K1 on the
@@ -935,18 +959,24 @@ def hist_multileaf_gathered(bins_fn: torch.Tensor, gh8: torch.Tensor,
     gradient rows are gathered here.  The kernels read the slot bounds,
     not per-position slot ids (the gather still finds each position's
     slot to find its row).  On the int8 path the quantization scales derive from the
-    gathered rows only, as in JAX."""
+    gathered rows only, as in JAX.  `exchange` as in
+    `hist_multileaf_masked`; under it the int8 bound is judged on the
+    whole padded row axis, a count every rank shares (each rank picks
+    its own capacity tier)."""
     B = num_bins_padded
     idx, _, valid, _, base = _gather_rows(perm, seg_off, seg_cnt, capacity)
     ghg = gh8[:3][:, idx.long()] * valid.to(torch.float32)[None, :]
     if input_dtype == "int8":
-        if _int8_ok(capacity):
-            ghq, sg, sh = _quantize_gh(ghg)
-            return _dequantize(segment_counts(bins_fn, rows, idx, ghq, base,
-                                              B), sg, sh)
+        if _int8_ok(capacity if exchange is None
+                    else perm.shape[0] * exchange.shards):
+            ghq, sg, sh = _quantize_gh(ghg, exchange)
+            h = segment_counts(bins_fn, rows, idx, ghq, base, B)
+            return _dequantize(_exchanged(h, exchange), sg, sh)
         input_dtype = "bfloat16"
-    return segment_counts(bins_fn, rows, idx, ghg.to(torch.float32), base, B,
-                          round_bf16=input_dtype == "bfloat16")
+    return _exchanged(segment_counts(bins_fn, rows, idx,
+                                     ghg.to(torch.float32), base, B,
+                                     round_bf16=input_dtype == "bfloat16"),
+                      exchange)
 
 
 # ----------------------------------------------------------------------------
@@ -1008,14 +1038,16 @@ def _sparse_hist_plain(cols: torch.Tensor, binsv: torch.Tensor,
 
 
 def _sparse_pass(lid: torch.Tensor, gh8: torch.Tensor, sl: torch.Tensor,
-                 input_dtype: str):
+                 input_dtype: str, exchange=None):
     """The per-pass set-up of a sparse histogram, in the order of the JAX
-    function: quantize (int8), slot of every row, slot totals.  Returns
+    function: quantize (int8; with the scales shared by a mesh
+    `exchange`'s ranks), slot of every row, slot totals.  Returns
     (srow [N] int32, vals [3, N] int32 or float32, tot [K, 3] of vals'
     type, scale [3] f32 (sg, sh, 1) for int8 or None)."""
     K = sl.shape[0]
-    if _sparse_quant_ok(input_dtype, lid.shape[0]):
-        vals, sg, sh = _quantize_gh(gh8)                   # [3, N] int32
+    rows = lid.shape[0] * (exchange.shards if exchange is not None else 1)
+    if _sparse_quant_ok(input_dtype, rows):
+        vals, sg, sh = _quantize_gh(gh8, exchange)         # [3, N] int32
         scale = torch.stack([sg, sh, torch.ones_like(sg)])
     else:
         vals, scale = gh8[:3].to(torch.float32), None
@@ -1027,7 +1059,8 @@ def hist_sparse_xla(cols: torch.Tensor, binsv: torch.Tensor,
                     zero_bin: torch.Tensor, lid: torch.Tensor,
                     gh8: torch.Tensor, sl: torch.Tensor, *,
                     num_columns_padded: int, num_bins_padded: int,
-                    input_dtype: str = "float32") -> torch.Tensor:
+                    input_dtype: str = "float32",
+                    exchange=None) -> torch.Tensor:
     """Nonzero-iterating multi-leaf histogram in plain torch ops over the
     ELL arrays, on any device — the JAX function's formulation.
 
@@ -1038,40 +1071,48 @@ def hist_sparse_xla(cols: torch.Tensor, binsv: torch.Tensor,
     [K, Cp, 3, B] f32 — hist_multileaf_masked's contract over the sparse
     store.  input_dtype "int8" quantizes per pass (`_quantize_gh`) and
     keeps the stored sums, slot totals and zero-bin residual in int32,
-    with one dequantizing scale at the end."""
-    srow, vals, tot, scale = _sparse_pass(lid, gh8, sl, input_dtype)
+    with one dequantizing scale at the end.  A mesh `exchange` reduces
+    the finished float32 histogram across its ranks (as on CUDA, where
+    the kernel finishes it), the int8 scales shared by the ranks."""
+    srow, vals, tot, scale = _sparse_pass(lid, gh8, sl, input_dtype,
+                                          exchange)
     hist = _sparse_hist_plain(cols, binsv, srow, vals, sl.shape[0],
                               num_columns_padded, num_bins_padded)
-    return finish_sparse_hist(hist, tot, zero_bin, scale)
+    return _exchanged(finish_sparse_hist(hist, tot, zero_bin, scale),
+                      exchange)
 
 
 def hist_sparse_multileaf(sp, lid: torch.Tensor, gh8: torch.Tensor,
                           sl: torch.Tensor, *, num_columns_padded: int,
                           num_bins_padded: int,
-                          input_dtype: str = "float32") -> torch.Tensor:
+                          input_dtype: str = "float32",
+                          exchange=None) -> torch.Tensor:
     """hist_sparse_xla's contract over the sparse store
     sp = (cols, binsv, zero_bin[, streams]).  A CUDA tensor launches
     kernel K7 (int8) or K8 (float32) over the column-sorted entry
     streams (`sparse_streams`; built here when sp carries none), a CPU
-    tensor takes hist_sparse_xla."""
+    tensor takes hist_sparse_xla.  `exchange` as in hist_sparse_xla."""
     cols, binsv, zero_bin = sp[0], sp[1], sp[2]
     Cp = num_columns_padded
     if not cols.is_cuda:
         return hist_sparse_xla(cols, binsv, zero_bin, lid, gh8, sl,
                                num_columns_padded=Cp,
                                num_bins_padded=num_bins_padded,
-                               input_dtype=input_dtype)
+                               input_dtype=input_dtype, exchange=exchange)
     st = sp[3] if len(sp) > 3 else build_sparse_streams(cols, binsv, Cp)
-    srow, vals, tot, scale = _sparse_pass(lid, gh8, sl, input_dtype)
-    return hist_streams(st, zero_bin, srow, vals, tot, scale, sl.shape[0],
-                        Cp, num_bins_padded)
+    srow, vals, tot, scale = _sparse_pass(lid, gh8, sl, input_dtype,
+                                          exchange)
+    return _exchanged(hist_streams(st, zero_bin, srow, vals, tot, scale,
+                                   sl.shape[0], Cp, num_bins_padded),
+                      exchange)
 
 
 def hist_sparse_gathered(sp, gh8: torch.Tensor, perm: torch.Tensor,
                          seg_off: torch.Tensor, seg_cnt: torch.Tensor, *,
                          capacity: int, num_columns_padded: int,
                          num_bins_padded: int,
-                         input_dtype: str = "float32") -> torch.Tensor:
+                         input_dtype: str = "float32",
+                         exchange=None) -> torch.Tensor:
     """Gathered sparse histogram, plain torch ops: compact the K
     leaf-contiguous row segments of the row partition into a
     [capacity] scratch, gather their ELL rows and histogram only those
@@ -1094,7 +1135,8 @@ def hist_sparse_gathered(sp, gh8: torch.Tensor, perm: torch.Tensor,
     sl = torch.arange(K, dtype=torch.int32, device=cols.device)
     return hist_sparse_xla(cg, bg, zero_bin, slot, ghg, sl,
                            num_columns_padded=Cp,
-                           num_bins_padded=num_bins_padded)
+                           num_bins_padded=num_bins_padded,
+                           exchange=exchange)
 
 
 # ----------------------------------------------------------------------------

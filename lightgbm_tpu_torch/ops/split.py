@@ -1,16 +1,20 @@
 """Vectorized best-split search over histograms.
 
 Port of lightgbm_tpu/ops/split.py: `leaf_split_gain`, `leaf_output`,
-`split_gain_matrix`, `best_split`, and the Exclusive Feature Bundling
+`split_gain_matrix`, `best_split`, the Exclusive Feature Bundling
 helpers `identity_feat_table`, `bundle_predicate_params`,
 `store_go_left`, `unbundle_hist` and `maybe_unbundle`, which translate
 between original features (split search, trees) and bundled store
-columns (histograms, partition).
+columns (histograms, partition), and the psum_scatter exchange's split
+search over one rank's column slice (`unbundle_hist_local`,
+`sharded_slice_search`, `combine_sharded_records`).
 Plain torch on any device; the f32 operation order follows JAX.
 
 Every function takes leading batch dimensions on the histogram (the JAX
 learner vmaps one leaf at a time): hist [..., F, 3, B] with per-leaf
-sums [...].  Tie-break: the flat argmax over [F, B] picks the smallest
+sums [...]; the per-feature metadata (num_bins, is_cat, the feature
+mask) is [F], or carries the same leading dimensions where each leaf
+searches its own feature subset (the voting learner).  Tie-break: the flat argmax over [F, B] picks the smallest
 feature, then the smallest threshold (torch.argmax returns the first
 maximum); invalid cells hold -inf, never NaN.
 """
@@ -54,8 +58,8 @@ def split_gain_matrix(hist: torch.Tensor, num_bins: torch.Tensor,
     sh = sum_hess[..., None, None]
     nd = num_data[..., None, None]
     bin_idx = torch.arange(B, device=hist.device)[None, :]
-    nb = num_bins.to(torch.int64)[:, None]
-    cat = is_cat[:, None]
+    nb = num_bins.to(torch.int64)[..., None]
+    cat = is_cat[..., None]
 
     # gradient and hessian sums accumulated in f64 on every device:
     # torch's CPU cumsum of f32 already adds in f64, its CUDA one in f32
@@ -71,7 +75,7 @@ def split_gain_matrix(hist: torch.Tensor, num_bins: torch.Tensor,
     CR = nd - CL
 
     t_valid = torch.where(cat, bin_idx < nb, bin_idx < nb - 1)
-    valid = (t_valid & feature_mask[:, None]
+    valid = (t_valid & feature_mask[..., None]
              & (CL >= min_data_in_leaf) & (CR >= min_data_in_leaf)
              & (HL >= min_sum_hessian_in_leaf)
              & (HR >= min_sum_hessian_in_leaf))
@@ -221,3 +225,74 @@ def maybe_unbundle(hist: torch.Tensor, unb, totals) -> torch.Tensor:
     if unb is None:
         return hist
     return unbundle_hist(hist, unb[0], unb[1], totals)
+
+
+def unbundle_hist_local(hist: torch.Tensor, src: torch.Tensor,
+                        dmask: torch.Tensor, totals: torch.Tensor,
+                        col_start: int):
+    """Per-rank unbundle for the psum_scatter exchange: `hist`
+    [..., Cs, 3, B] is a store-column SLICE holding global columns
+    [col_start, col_start + Cs) of a reduce-scattered histogram;
+    src/dmask are the GLOBAL tables of Dataset.unbundle_tables (flat
+    indices into [C*B], sentinel C*B with C the padded column count, so
+    the sentinel lies outside every slice's range).
+
+    Returns ([..., F, 3, B'] histograms, owned [F] bool).  An original
+    feature lives entirely in ONE store column, so it is exact on the
+    rank owning that column and garbage elsewhere (its default-bin fill
+    rebuilds from zero sums); the split search ANDs `owned` into its
+    feature mask so only the owning rank's record for each feature
+    survives the cross-rank combine."""
+    Cs, B = hist.shape[-3], hist.shape[-1]
+    src = src.long()
+    lo = int(col_start) * B
+    in_range = (src >= lo) & (src < lo + Cs * B)
+    owned = in_range.any(dim=1)
+    src_l = torch.where(in_range, src - lo, torch.full_like(src, Cs * B))
+    return unbundle_hist(hist, src_l, dmask, totals), owned
+
+
+def sharded_slice_search(h: torch.Tensor, sums: torch.Tensor, *, off: int,
+                         nb_s, ic_s, fm_s, num_bins, is_cat, fmask, unb,
+                         skw: dict) -> torch.Tensor:
+    """Per-rank best splits of k leaves from their reduce-scattered
+    store-column slices (the psum_scatter exchange of learner/rounds.py
+    and learner/fused.py, shared so the two learners cannot diverge).
+
+    h [k, Cs, 3, B] this rank's reduced column slices, sums [k, 3];
+    `off` the rank's first global column.  Identity store (unb None):
+    nb_s/ic_s/fm_s are the rank's metadata slices and each record's
+    feature id gets `off` folded back in.  Bundled store: the slice is
+    unbundled to the full original-feature layout with the features
+    this rank does not own masked out of the search.  Returns packed
+    [k, 11] records in ORIGINAL feature space; combine them across the
+    ranks with `combine_sharded_records`."""
+    if unb is None:
+        rec = best_split(h, nb_s, ic_s, fm_s, sums[..., 0], sums[..., 1],
+                         sums[..., 2], **skw)
+        rec[..., 1] += float(off)
+        return rec
+    hF, owned = unbundle_hist_local(h, unb[0], unb[1], sums, off)
+    return best_split(hF, num_bins, is_cat, fmask & owned, sums[..., 0],
+                      sums[..., 1], sums[..., 2], **skw)
+
+
+def combine_sharded_records(recs: torch.Tensor, mesh,
+                            axis: str) -> torch.Tensor:
+    """all_gather the ranks' packed records over `axis` and pick each
+    leaf's winner: maximum gain, ties broken by the SMALLEST feature id
+    (every feature is owned by exactly one rank, so this reproduces the
+    full search's flat-argmax tie-break even where feature-to-rank
+    ownership is not monotone in feature id, as under EFB).
+
+    recs [..., 11] -> the same shape, the same bits on every rank of the
+    axis (the gathered stack is replicated and the argmin over it
+    deterministic), so it may gate replicated control flow."""
+    allr = mesh.all_gather(recs, axis, kind="records")   # [nd, ..., 11]
+    gains = allr[..., 0]
+    mx = gains.max(dim=0, keepdim=True).values
+    cand = torch.where(gains == mx, allr[..., 1],
+                       torch.full_like(gains, math.inf))
+    best = torch.argmin(cand, dim=0)                 # first minimum
+    idx = best[None, ..., None].expand((1,) + tuple(recs.shape))
+    return allr.gather(0, idx)[0]

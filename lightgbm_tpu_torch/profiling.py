@@ -156,9 +156,20 @@ ROUTER_REHASHES = "router/rehashes"
 #  - SPARSE_FALLBACKS: times a sparse store materialized its dense
 #    [C, N] matrix for a consumer without a sparse path (the labeled
 #    series names the consumer); a csr run keeps it at 0.
-# The exchange-byte counters of the JAX package come with the
-# multi-device learners.
+#  - HIST_EXCHANGE_BYTES: the bytes of a mesh rank's histogram
+#    collectives, as sharded/mesh.py counts them: the reduced histogram
+#    it keeps a pass (the full [K, C, 3, B] tensor under psum, its
+#    column slice under psum_scatter, the voted features' under
+#    voting), the root's column 0 where it is reduced alone, and the
+#    int8 quantization scales' maxima.
+#  - SPLIT_RECORDS_BYTES: a mesh rank's bytes of the best-split
+#    records it all_gathers (the psum_scatter exchange's
+#    [nd, K, 11] f32 a search, the feature axis's [df, K, 11]; 0 under
+#    a data-axis psum).
+# On a mesh the row and entry counts are the rank's own passes.
 HIST_ROWS_TOUCHED = "tree/hist_rows_touched"
+HIST_EXCHANGE_BYTES = "tree/hist_exchange_bytes"
+SPLIT_RECORDS_BYTES = "tree/split_records_bytes"
 SPARSE_NNZ_TOUCHED = "tree/sparse_nnz_touched"
 SPARSE_FALLBACKS = "tree/sparse_fallbacks"
 
@@ -166,7 +177,8 @@ SPARSE_FALLBACKS = "tree/sparse_fallbacks"
 # Prometheus exposition (telemetry.prometheus_text) seeds each of these
 # at 0 so a scrape always covers the full canonical set.
 CANONICAL_COUNTERS = (
-    HIST_ROWS_TOUCHED, SPARSE_NNZ_TOUCHED, SPARSE_FALLBACKS,
+    HIST_ROWS_TOUCHED, HIST_EXCHANGE_BYTES, SPLIT_RECORDS_BYTES,
+    SPARSE_NNZ_TOUCHED, SPARSE_FALLBACKS,
     REGISTRY_SWAP_FAILURES, SERVE_CHUNK_RETRIES, SERVE_REPLICA_FAILURES,
     SERVE_REPLICA_BROKEN, SERVE_REPLICA_READMITTED, SERVE_REPLICA_PROBES,
     SERVE_QUANTIZE_BYTES_IN, SERVE_BINNED_REQUESTS,

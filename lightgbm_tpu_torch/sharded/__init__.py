@@ -1,4 +1,4 @@
-"""The data plane's host-side pieces, copied from lightgbm_tpu/sharded/:
+"""The data plane's pieces, ported from lightgbm_tpu/sharded/:
 
 - `sketch` — mergeable quantile sketches (per-chunk weighted summaries
   that merge associatively), the bin finder of `bin_find=sketch` and of
@@ -7,6 +7,7 @@
   `Dataset.from_stream` runs a sketch pass, then bins chunk by chunk
   into the capacity-tiered store.
 
-The mesh layer (`sharded/mesh.py` of the JAX package) comes with the
-multi-GPU learners (ROADMAP.md §A item 12).
+- `mesh` — the mesh layer of the multi-GPU learners: the
+  `torch.distributed` world as a (data, feature) mesh, one rank a card,
+  its collectives, and the histogram exchange's helpers.
 """

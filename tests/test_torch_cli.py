@@ -252,6 +252,7 @@ def test_error_paths_return_one(tmp_path):
     assert tapp.main(["task=online", "verbose=-1", "device_type=cpu"]) == 1
     with pytest.raises(NotImplementedError, match="§A item 12"):
         tapp.Application(["data=x.csv", "num_machines=2",
+                          "is_pre_partition=true",
                           "device_type=cpu"]).run()
 
 

@@ -205,8 +205,13 @@ def test_routing_sends_cuda_exact_to_the_fused_learner():
     for dev in ("cpu", "cuda"):
         for g in ("auto", "rounds"):
             assert resolve_tree_learner(dev, g) == "rounds"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        resolve_tree_learner("cuda", "exact", "voting")
+    # over a mesh, as the JAX factory routes (learner/fused.py:839-901)
+    for g in ("auto", "rounds", "exact"):
+        assert resolve_tree_learner("cuda", g, "voting", (2, 1)) == "fused"
+        assert resolve_tree_learner("cpu", g, "feature", (1, 2)) == "fused"
+    for lt_, shape in (("data", (2, 1)), ("data2d", (2, 2))):
+        assert resolve_tree_learner("cpu", "auto", lt_, shape) == "rounds"
+        assert resolve_tree_learner("cuda", "exact", lt_, shape) == "fused"
     X, y = _parallel_data()
     ds = TDataset(X, y, config=t_config(dict(BASE, device_type="cpu")))
     learner = create_tree_learner(ds, t_config(
@@ -215,16 +220,21 @@ def test_routing_sends_cuda_exact_to_the_fused_learner():
 
 
 def test_multi_device_branches_raise():
+    """The mesh learners take a sharded.mesh.Mesh (their worlds of ranks
+    are tests/test_torch_parallel.py's); without a world of more than
+    one rank, a distributed tree_learner warns and trains on one
+    device, as the JAX factory does with one visible device."""
     X, y = _parallel_data()
     ds = TDataset(X, y, config=t_config(dict(BASE, device_type="cpu")))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="Mesh"):
         FusedTreeLearner(ds, t_config(dict(BASE, device_type="cpu")),
                          mesh=object())
-    for kind in ("data", "feature", "voting"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            create_tree_learner(ds, t_config(dict(
+    for kind in ("data", "feature", "voting", "data2d"):
+        with pytest.warns(UserWarning, match="one rank"):
+            learner = create_tree_learner(ds, t_config(dict(
                 BASE, device_type="cpu", tree_growth="exact",
                 tree_learner=kind)))
+        assert type(learner).__name__ == "SerialTreeLearner"
 
 
 @pytest.mark.parametrize("store", ["dense", "bundled_sparse"])

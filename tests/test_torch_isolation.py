@@ -39,11 +39,16 @@ for want in ("lightgbm_tpu_torch.application",
              "lightgbm_tpu_torch.router",
              "lightgbm_tpu_torch.router.server",
              "lightgbm_tpu_torch.sharded.sketch",
-             "lightgbm_tpu_torch.sharded.ingest"):
+             "lightgbm_tpu_torch.sharded.ingest",
+             "lightgbm_tpu_torch.sharded.mesh",
+             "lightgbm_tpu_torch.distributed"):
     assert want in names, (want, names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+# importing the mesh layer and the bootstrap starts no process group
+import torch.distributed as dist
+assert not dist.is_initialized()
 from lightgbm_tpu_torch import native
 with open("/proc/self/maps") as f:
     assert "liblgbt_" not in f.read()
@@ -104,12 +109,22 @@ def test_unported_paths_raise_not_implemented():
     X = rng.randn(300, 4)
     y = (X[:, 0] > 0) * 1.0
     import lightgbm_tpu_torch as lt
-    # the multi-device learners are still unported (the exact learner,
+    # loading each rank's own rows (is_pre_partition across processes)
+    # is still unported (the multi-device learners, the exact learner,
     # EFB bundles, every objective, sketch bin finding and the leaf
-    # refit are ported)
+    # refit are ported); a distributed tree_learner with no world of
+    # ranks warns and trains on one device
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.dataset import Dataset as RawDataset
+    csv = os.path.join(ROOT, "tests", "__missing_rows__.csv")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.train({"tree_learner": "data", "device_type": "cpu",
-                  "verbose": -1}, lt.Dataset(X, y), 1)
+        RawDataset.from_file(csv, config_from_params(
+            {"num_machines": 2, "is_pre_partition": True,
+             "device_type": "cpu"}))
+    with pytest.warns(UserWarning, match="one rank"):
+        one = lt.train({"tree_learner": "data", "device_type": "cpu",
+                        "verbose": -1}, lt.Dataset(X, y), 1)
+    assert one._gbdt.learner.mesh is None
     sk = lt.train({"bin_find": "sketch", "device_type": "cpu",
                    "verbose": -1}, lt.Dataset(X, X[:, 1]), 1)
     assert sk.num_trees() == 2

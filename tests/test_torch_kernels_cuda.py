@@ -716,3 +716,55 @@ def test_fused_tree_on_card_matches_cpu_and_makes_no_sync(dev):
     np.testing.assert_array_equal(tg.leaf_value[:n], tc.leaf_value[:n])
     np.testing.assert_array_equal(lg, lc)
     assert k2 == 2 * 63                       # root + one a split, 2 trees
+
+
+_TWO_RANK_BODY = """
+import json
+import numpy as np
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch import kernels
+rng = np.random.RandomState(11)
+X = rng.randn(20_000, 8)
+y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] > 0).astype(np.float64)
+kernels.reset_launches()
+p = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+     "histogram_dtype": "int8", "tree_learner": "data",
+     "hist_exchange": "psum_scatter", "bagging_fraction": 0.8,
+     "bagging_freq": 1}
+bst = lt.train(p, lt.Dataset(X, y, params=p), 4)
+json.dump({"device": DEVICE, "model": bst.model_to_string(),
+           "mesh": list(bst._gbdt.learner.mesh.shape),
+           "launches": dict(kernels.LAUNCHES)},
+          open(f"{OUT}/r{RANK}.json", "w"))
+"""
+
+
+def test_two_ranks_on_one_card_train_the_one_rank_model(dev, tmp_path):
+    """Two ranks share the card over gloo (NCCL refuses two ranks on one
+    device): int8 data-parallel training with the psum_scatter exchange
+    launches K1, K3 and K4 on each rank, and every rank's model string
+    is bitwise the one-rank model's (integer histogram sums, scales
+    shared by the world)."""
+    import json
+    from torch_worlds import run_world
+    import lightgbm_tpu_torch as lt
+    kernels.build()
+    run_world(tmp_path, 2, _TWO_RANK_BODY, name="card", timeout=300)
+    res = [json.loads((tmp_path / "card_out" / f"r{r}.json").read_text())
+           for r in range(2)]
+    rng = np.random.RandomState(11)
+    X = rng.randn(20_000, 8)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] > 0).astype(np.float64)
+    p = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+         "histogram_dtype": "int8", "bagging_fraction": 0.8,
+         "bagging_freq": 1}
+    one = lt.train(p, lt.Dataset(X, y, params=p), 4).model_to_string()
+
+    def body(s):
+        return [ln for ln in s.splitlines() if not ln.startswith("[")]
+    for st in res:
+        assert st["device"].startswith("cuda") and st["mesh"] == [2, 1]
+        for k in ("hist_masked_int8", "partition_rows", "table_lookup"):
+            assert st["launches"][k] > 0, k
+        assert body(st["model"]) == body(one)
+    assert res[0]["model"] == res[1]["model"]
