@@ -4221,12 +4221,52 @@ MG_WORKLOADS = (
     ("fused_voting_subset", dict(tree_learner="voting", top_k=5,
                                  hist_exchange="psum_scatter"),
      ("hist_masked_f32",)),
+    # pre-partitioned: each rank loads only its rows of one TSV (the mappers
+    # from every rank's sample, MG_ROWS of them, so they are the one-rank
+    # mappers) and boosts over them; no leaf-id all_gather
+    ("prepart_rounds_int8", dict(tree_learner="data", hist_exchange="psum",
+                                 is_pre_partition=True), _MG_INT8),
+    ("prepart_fused_data", dict(tree_learner="data", tree_growth="exact",
+                                histogram_dtype="float32",
+                                is_pre_partition=True),
+     ("hist_masked_f32", "table_lookup")),
 )
 MG_SUBSET = "fused_voting_subset"
+# the valid file of the pre-partitioned workloads (each rank scores its
+# block of it)
+MG_VALID_ROWS = 100_000
 
 
 def _mg_fused(over: dict) -> bool:
-    return over.get("tree_learner") in ("feature", "voting")
+    return (over.get("tree_learner") in ("feature", "voting")
+            or over.get("tree_growth") == "exact")
+
+
+def _mg_prepart(over: dict) -> bool:
+    return bool(over.get("is_pre_partition"))
+
+
+def mg_prepart_params(base: dict, over: dict) -> dict:
+    """A pre-partitioned workload's parameters: the mapper sample covers
+    every row of the file."""
+    return dict(base, **over, bin_construct_sample_cnt=MG_ROWS)
+
+
+def mg_write_files(d: str) -> dict:
+    """The pre-partitioned workloads' TSVs (label first, %.9g):
+    synth_higgs(MG_ROWS) and a valid file of synth_higgs(MG_VALID_ROWS,
+    seed=7); returns their paths and the write seconds."""
+    from lightgbm_tpu_torch.synth import synth_higgs
+    t0 = time.perf_counter()
+    files = {}
+    for key, rows, seed in (("train", MG_ROWS, 42),
+                            ("valid", MG_VALID_ROWS, 7)):
+        X, y = synth_higgs(rows, seed=seed)
+        files[key] = os.path.join(d, f"prepart_{key}.tsv")
+        np.savetxt(files[key], np.column_stack([y, X]), delimiter="\t",
+                   fmt="%.9g")
+    files["write_s"] = time.perf_counter() - t0
+    return files
 
 
 def multigpu_rank(rank: int, world: int, store: str, out: str,
@@ -4257,9 +4297,26 @@ def multigpu_rank(rank: int, world: int, store: str, out: str,
         if name not in names.split(","):
             continue
         rows = MG_SUBSET_ROWS if name == MG_SUBSET else MG_ROWS
-        if rows not in datasets:
-            X, y = synth_higgs(rows)
-            datasets[rows] = lt.Dataset(X, y, params=base).construct()
+        valid_sets = []
+        if _mg_prepart(over):
+            # this rank's block of the files, loaded once
+            p = mg_prepart_params(base, over)
+            if "prepart" not in datasets:
+                with open(os.path.join(out, "files.json")) as f:
+                    files = json.load(f)
+                t0 = time.perf_counter()
+                tr = lt.Dataset(files["train"], params=p).construct()
+                va = lt.Dataset(files["valid"], params=p,
+                                reference=tr).construct()
+                datasets["prepart"] = (tr, va, time.perf_counter() - t0)
+            train_set, va, load_s = datasets["prepart"]
+            valid_sets = [va]
+        else:
+            p = dict(base, **over)
+            if rows not in datasets:
+                X, y = synth_higgs(rows)
+                datasets[rows] = lt.Dataset(X, y, params=base).construct()
+            train_set = datasets[rows]
         kernels.reset_launches()
         c0 = profiling.counters()
         marks = []
@@ -4267,7 +4324,7 @@ def multigpu_rank(rank: int, world: int, store: str, out: str,
         san = HotPathSanitizer(warmup=1, strict=True, label=name)
         with san, (fused_tree_steps(san) if fused
                    else contextlib.nullcontext()):
-            bst = lt.train(dict(base, **over), datasets[rows], MG_ITERS[1],
+            bst = lt.train(p, train_set, MG_ITERS[1], valid_sets=valid_sets,
                            callbacks=[steady_window(torch, *MG_ITERS,
                                                     marks)],
                            verbose_eval=False)
@@ -4293,7 +4350,16 @@ def multigpu_rank(rank: int, world: int, store: str, out: str,
             launches=dict(kernels.LAUNCHES),
             divergence_checks=grew(DIVERGENCE_CHECKS),
             divergences=grew(DIVERGENCES),
-            implicit_transfers=san.implicit_transfers if fused else None)
+            implicit_transfers=san.implicit_transfers if fused else None,
+            num_data=bst._gbdt.num_data)
+        if valid_sets:
+            rr = bst._gbdt.train_set.rank_rows
+            res[name].update(
+                rank_rows=[rr.start, rr.stop] if rr is not None else None,
+                load_s=load_s,
+                valid_auc=[v for _, m, v, _ in bst._gbdt.eval_valid()
+                           if m == "auc"][0],
+                valid_rows=va._inner.num_data)
         del bst, learner, mesh
         gc.collect()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
@@ -4317,11 +4383,31 @@ def mg_trees(label: str, ref: str, got: str, exact: bool) -> str:
     return verdict
 
 
+def mg_one_rank(lt, p: dict, train_set, fused: bool) -> str:
+    """The one-rank reference model of a phase 19 workload: tree_learner
+    serial (exact growth: the one-device fused builder), MG_ITERS[1]
+    iterations.  A pre-partitioned world takes the synchronous path
+    (host trees shrunk in f64), so its reference is pinned to it."""
+    p = dict(p, tree_learner="serial")
+    if fused:
+        p["tree_growth"] = "exact"
+    if not _mg_prepart(p):
+        return lt.train(p, train_set, MG_ITERS[1],
+                        verbose_eval=False).model_to_string()
+    bst = lt.Booster(p, train_set)
+    bst._gbdt._can_pipeline = lambda: False
+    for _ in range(MG_ITERS[1]):
+        bst.update()
+    return bst.model_to_string()
+
+
 def phase_multigpu(torch, lt, kernels, card: str):
     """Phase 19: W rank processes of this script train on the card(s)
     through lightgbm_tpu_torch.train with a distributed tree_learner;
     each model against the one-rank model trained here first, and the
-    voting-subset model against a CPU world's."""
+    voting-subset model against a CPU world's.  The pre-partitioned
+    workloads train from one TSV written here, each rank loading only
+    its rows; their one-rank models load the whole file."""
     from lightgbm_tpu_torch.diagnostics.worlds import WorldFailed, run_world
     from lightgbm_tpu_torch.synth import NORTH_STAR_PARAMS, synth_higgs
     t_phase = time.perf_counter()
@@ -4330,22 +4416,36 @@ def phase_multigpu(torch, lt, kernels, card: str):
                       else (2, "gloo"))
     print(f"[phase 19] {world} ranks over {backend} on {n_cards} card(s), "
           f"synth_higgs({MG_ROWS}) x 28 ({MG_SUBSET}: {MG_SUBSET_ROWS} rows, "
-          f"also in a CPU world of 2), {MG_ITERS[1]} iterations a workload",
+          f"also in a CPU world of 2; prepart_*: from a TSV, valid "
+          f"{MG_VALID_ROWS} rows), {MG_ITERS[1]} iterations a workload",
           flush=True)
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    card_dir = os.path.join(tmp, "card")
+    os.mkdir(card_dir)
+    files = mg_write_files(tmp)
+    with open(os.path.join(card_dir, "files.json"), "w") as f:
+        json.dump(files, f)
+    print(f"[phase 19] wrote the pre-partitioned TSVs in "
+          f"{files['write_s']:.1f} s", flush=True)
     X, y = synth_higgs(MG_ROWS)
     base = dict(NORTH_STAR_PARAMS, device_type=GPU)
     ds = lt.Dataset(X, y, params=base).construct()
     refs = {}
+    file_ds = None
     for name, over, _ in MG_WORKLOADS:
         if name == MG_SUBSET:
             continue
-        p = dict(base, **over)
-        p["tree_learner"] = "serial"
-        if _mg_fused(over):
-            p["tree_growth"] = "exact"     # the one-device fused builder
-        refs[name] = lt.train(p, ds, MG_ITERS[1],
-                              verbose_eval=False).model_to_string()
-    del ds, X, y
+        if _mg_prepart(over):
+            p = mg_prepart_params(base, over)
+            if file_ds is None:
+                # no world here: the whole file loads
+                file_ds = lt.Dataset(files["train"], params=p).construct()
+            refs[name] = mg_one_rank(lt, p, file_ds, _mg_fused(over))
+        else:
+            refs[name] = mg_one_rank(lt, dict(base, **over), ds,
+                                     _mg_fused(over))
+    del ds, X, y, file_ds
     gc.collect()
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t_phase
@@ -4355,14 +4455,14 @@ def phase_multigpu(torch, lt, kernels, card: str):
     me = os.path.abspath(__file__)
     all_names = ",".join(n for n, _, _ in MG_WORKLOADS)
     res = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tmp_dir:
         # the card world, then the CPU world of the voting subset
         for key, w, bk, dev, names in (
                 ("card", world, backend, GPU, all_names),
                 ("cpu", 2, "gloo", "cpu", MG_SUBSET)):
             t0 = time.perf_counter()
             d = os.path.join(tmp, key)
-            os.mkdir(d)
+            os.makedirs(d, exist_ok=True)
             argvs = [[sys.executable, me, "--multigpu-rank", str(r), str(w),
                       os.path.join(d, "store"), d, bk, dev, names]
                      for r in range(w)]
@@ -4398,6 +4498,18 @@ def phase_multigpu(torch, lt, kernels, card: str):
             if st["implicit_transfers"]:
                 fail(f"phase 19 {name}: rank {r} made "
                      f"{st['implicit_transfers']} implicit transfers")
+        if _mg_prepart(over):
+            # the ranks' blocks tile the file, each loaded alone
+            blocks = [st["rank_rows"] for st in per]
+            if (blocks[0][0] != 0 or blocks[-1][1] != MG_ROWS
+                    or any(a[1] != b[0] for a, b in zip(blocks, blocks[1:]))
+                    or [st["num_data"] for st in per]
+                    != [b - a for a, b in blocks]):
+                fail(f"phase 19 {name}: rank blocks {blocks} do not tile "
+                     f"{MG_ROWS} rows")
+            if not all(0.5 < st["valid_auc"] <= 1.0 for st in per):
+                fail(f"phase 19 {name}: local valid AUC "
+                     f"{[st['valid_auc'] for st in per]}")
         if name == MG_SUBSET:
             cpu = [st[name] for st in res["cpu"]]
             if cpu[1]["model"] != cpu[0]["model"]:
@@ -4413,7 +4525,8 @@ def phase_multigpu(torch, lt, kernels, card: str):
                      f"histogram bytes a tree against {full} with every "
                      "feature voted")
         else:
-            reference = "one rank"
+            reference = ("one rank, whole file" if _mg_prepart(over)
+                         else "one rank")
             trees = mg_trees(name, refs[name],
                              per[0]["model"], exact)
         line = {"backend": backend, "world": world,
@@ -4425,6 +4538,14 @@ def phase_multigpu(torch, lt, kernels, card: str):
                     per[0]["collective_bytes_per_tree"],
                 "hist_bytes_per_tree": per[0]["hist_bytes_per_tree"],
                 "record_bytes_per_tree": per[0]["record_bytes_per_tree"]}
+        if _mg_prepart(over):
+            line.update(num_data=[st["num_data"] for st in per],
+                        valid_auc=[st["valid_auc"] for st in per],
+                        valid_rows=[st["valid_rows"] for st in per],
+                        load_s=[st["load_s"] for st in per],
+                        collective_mb_per_tree=[
+                            st["collective_bytes_per_tree"] / 1e6
+                            for st in per])
         print(json.dumps({"multigpu": line}), flush=True)
         print(f"[phase 19] {name}: learner {per[0]['learner']}, mesh "
               f"{per[0]['mesh']}, collectives a tree "

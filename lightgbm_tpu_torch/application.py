@@ -107,7 +107,11 @@ class Application:
                      f"backend {dist.get_backend()}")
         t0 = time.time()
         train_raw = RawDataset.from_file(cfg.data, cfg)
-        if cfg.is_save_binary_file and train_raw.source == cfg.data \
+        if cfg.is_save_binary_file and train_raw.rank_rows is not None:
+            # a rank's block would pass for the whole file on a later load
+            log.warning("is_save_binary_file: a pre-partitioned rank holds "
+                        "only its rows; no binary cache is saved")
+        elif cfg.is_save_binary_file and train_raw.source == cfg.data \
                 and not RawDataset._is_binary_file(cfg.data):
             train_raw.save_binary(cfg.data + ".bin")
             log.info(f"saved binary dataset cache to {cfg.data}.bin")

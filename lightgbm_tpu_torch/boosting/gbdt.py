@@ -28,9 +28,17 @@ An iteration takes one of the JAX package's two paths (`_can_pipeline`):
   valid set by walking the tree.
 Either walk reads an EFB-bundled store through its feature table.  On
 a mesh (a distributed tree_learner in a `torch.distributed` world) the
-loop runs replicated on every rank over all N rows, from the same
-seeds, and only the tree learner shards the store (sharded/mesh.py), so
-every rank's model string is the same.  The
+loop runs in one of two modes (sharded/mesh.py).  Over a dataset of
+every row, it runs replicated on every rank over all N rows, from the
+same seeds, and only the tree learner shards the store.  Over a
+pre-partitioned dataset (`Dataset.rank_rows`: the loader kept the
+rank's rows) it runs over the local rows: local scores, gradients and
+metrics (no metric is reduced across the ranks, as in the JAX package),
+the bag drawn over the local rows from the shared seed, boost-from-
+average from the world's label sum and count (`allgather_f64`, exact),
+and the synchronous path, with host trees shrunk in f64, as the JAX
+package's multi-process worlds take it.  Either way every rank's model
+string is the same.  The
 JAX package's checkpoint telemetry span and fault-injection hooks belong
 to observability (ROADMAP.md §A item 15) and are not here.
 """
@@ -264,7 +272,15 @@ class GBDT:
                 or not self.objective.boost_from_average):
             return
         lab = np.asarray(self.train_set.metadata.label, np.float64)
-        init_score = float(lab.mean())
+        if self.train_set.rank_rows is not None:
+            # every rank seeds the same constant: the mean of the world's
+            # labels, from the ranks' sums and counts gathered bit for bit
+            from ..distributed import allgather_f64
+            sums = allgather_f64(np.asarray([lab.sum(), float(len(lab))]))
+            init_score = float(sums[:, 0].sum()
+                               / max(sums[:, 1].sum(), 1.0))
+        else:
+            init_score = float(lab.mean())
         t = Tree(2)
         t.split(0, 0, NUMERICAL_DECISION, 0, 0, 0.0, init_score, init_score,
                 0, self.num_data, 1.0)
@@ -297,9 +313,12 @@ class GBDT:
     def _can_pipeline(self) -> bool:
         """The device-tree path: class GBDT (GOSS passes its sampled
         gradients in, DART walks its drops), one tree an iteration, the
-        rounds learner."""
+        rounds learner, and a dataset of every row (a pre-partitioned
+        world takes the synchronous path, as the JAX package's
+        multi-process worlds do)."""
         return (type(self) is GBDT and self.K == 1
-                and hasattr(self.learner, "train_device"))
+                and hasattr(self.learner, "train_device")
+                and self.train_set.rank_rows is None)
 
     def train_one_iter(self, gradient: Optional[torch.Tensor] = None,
                        hessian: Optional[torch.Tensor] = None,

@@ -36,6 +36,11 @@ power-of-two row-capacity ladder (`row_capacity_tier`); `reset_rows`
 empties it and keeps the tier, `compacted` copies its rows out.  The
 online trainer's window is one.  `bin_find=sketch` derives the mappers
 from mergeable quantile summaries (sharded/sketch.py).
+
+In a pre-partitioned world (`is_pre_partition` and a `torch.distributed`
+world of more than one rank) `from_file` keeps only the rank's block of
+the file's rows, binned with mappers derived from every rank's sample
+(`_load_rank_rows`), and marks it in `rank_rows`.
 """
 from __future__ import annotations
 
@@ -448,9 +453,13 @@ class Dataset:
     mappers : list[BinMapper], one per RAW feature
     used_features : list[int] raw indices of non-trivial features
     source : str or None — the data file the rows were read from
+    rank_rows : slice or None — in a pre-partitioned world, the rows of
+        the file this rank holds (`Dataset.from_file`); None when the
+        dataset holds every row
     """
 
     source: Optional[str] = None
+    rank_rows: Optional[slice] = None
 
     def __init__(self, X: np.ndarray, label: Optional[np.ndarray] = None,
                  config: Optional[Config] = None,
@@ -1190,12 +1199,6 @@ class Dataset:
         `ignore_column`, `categorical_column`) apply as in the JAX
         package.  `source` names the file the rows came from."""
         cfg = config or Config()
-        if cfg.num_machines > 1 and cfg.is_pre_partition:
-            raise NotImplementedError(
-                "num_machines > 1 with is_pre_partition: loading each "
-                "rank's own rows is not ported (ROADMAP.md §A item 12); "
-                "with is_pre_partition=false every rank reads the whole "
-                "file and trains data-parallel")
         if cfg.enable_load_from_binary_file:
             bin_path = None
             if Dataset._is_binary_file(path):
@@ -1225,10 +1228,74 @@ class Dataset:
             ds.source = path
             return ds
         X, y, md, x_names, cats = read_text_file(path, cfg)
-        ds = Dataset(X, y, cfg, reference=reference, metadata=md,
-                     feature_names=x_names, categorical_feature=cats)
+        from .distributed import world
+        if cfg.is_pre_partition and world()[1] > 1:
+            ds = _load_rank_rows(X, y, md, x_names, cats, cfg, reference)
+        else:
+            ds = Dataset(X, y, cfg, reference=reference, metadata=md,
+                         feature_names=x_names, categorical_feature=cats)
         ds.source = path
         return ds
+
+
+def _load_rank_rows(X: np.ndarray, y: np.ndarray, md: Metadata,
+                    x_names: Optional[List[str]], cats: List[int],
+                    cfg: Config, reference: Optional[Dataset]) -> Dataset:
+    """This rank's rows of a parsed file in a pre-partitioned world (the
+    reference's dataset_loader.cpp:554-659 row assignment and :733-833
+    distributed bin finding, as the JAX loader does it): the rank keeps
+    its contiguous block (`local_row_slice`), binned with mappers and a
+    bundle plan every rank derives identically from every rank's sample
+    (`bin_construct_sample_cnt // world + 1` rows of its block, drawn and
+    sorted with RandomState(data_random_seed)).  A valid set
+    (`reference`) keeps its block too, binned with the training set's
+    mappers and plan.  Labels, weights and each class's init scores are
+    cut to the block; query data is refused (a query would straddle two
+    blocks)."""
+    from .distributed import (find_bin_mappers_distributed,
+                              local_row_slice, world)
+    if md.query_boundaries is not None:
+        raise NotImplementedError(
+            "pre_partition with query data is not supported yet (queries "
+            "would straddle row blocks)")
+    sl = local_row_slice(len(y))
+    n_local = sl.stop - sl.start
+    if reference is not None:
+        if X.shape[1] != reference.num_total_features:
+            raise ValueError("validation data has different #features")
+        mappers, plan = reference.mappers, reference.bundle_plan
+    else:
+        rng = np.random.RandomState(cfg.data_random_seed)
+        take = min(cfg.bin_construct_sample_cnt // world()[1] + 1,
+                   max(n_local, 1))
+        samp = (np.sort(rng.choice(n_local, take, replace=False))
+                if n_local > 0 else np.zeros(0, np.int64))
+        # the bundle plan from the gathered sample: the same on every
+        # rank, so the ranks' stores stay column-aligned
+        mappers, gsample = find_bin_mappers_distributed(
+            X[sl][samp], cfg, categorical=cats, return_sample=True)
+        used0 = [i for i, m in enumerate(mappers) if not m.is_trivial]
+        plan = _plan_bundles_from_sample(gsample, mappers, used0, cfg)
+        _log_bundle_state(plan, len(used0), cfg)
+    used = [i for i, m in enumerate(mappers) if not m.is_trivial]
+    ds = Dataset._empty_from_mappers(cfg, mappers, used, n_local,
+                                     X.shape[1], x_names, plan=plan)
+    ds._bin_rows_into(X[sl], 0)
+    ds._check_realized_conflicts()
+    init_local = None
+    if md.init_score is not None:
+        # [K * N] class-major: each class's scores cut to the block
+        n_all = len(y)
+        if md.init_score.size % n_all:
+            raise ValueError("init score size mismatch")
+        k = md.init_score.size // n_all
+        init_local = md.init_score.reshape(k, n_all)[:, sl].reshape(-1)
+    ds.metadata = Metadata(
+        label=np.asarray(y[sl], np.float32),
+        weights=None if md.weights is None else md.weights[sl],
+        init_score=init_local)
+    ds.rank_rows = sl
+    return ds
 
 
 def read_text_file(path: str, cfg: Config):

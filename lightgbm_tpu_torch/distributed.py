@@ -25,9 +25,16 @@ NCCL when the ranks run on CUDA cards (each its own), gloo for the CPU
 must when several ranks share one card.  Importing this module starts
 no process group.
 
-Pre-partitioned loading (`is_pre_partition`, each rank its own rows,
-with the bin mappers found over every rank's sample) is not ported yet:
-the loader refuses it.
+Two ways to feed a world from one file.  With `is_pre_partition=false`
+every rank reads the whole file, and the boosting loop runs replicated
+over all N rows (the tree learner uploads the rank's row block).  With
+`is_pre_partition=true` and a world of more than one rank, each rank
+keeps only its contiguous block of the file's rows (`local_row_slice`),
+binned with mappers every rank derives identically from the samples of
+all ranks (`find_bin_mappers_distributed`: the gathered sample, or the
+merged quantile sketches of `bin_find=sketch`), and the boosting loop
+runs over the local rows only (sharded/mesh.py `RankRows`).  A world of
+one rank, or none, loads the whole file either way.
 """
 from __future__ import annotations
 
@@ -256,3 +263,126 @@ def allgather_f64(arr) -> np.ndarray:
     out = _allgather_words(a.view(np.int64))
     return np.ascontiguousarray(out).reshape((-1,) + a.shape).view(
         np.float64)
+
+
+# ---------------------------------------------------------------------------
+# Pre-partitioned ingestion: each rank's row block and the global bin
+# mappers (the reference's dataset_loader.cpp:554-659 row assignment and
+# :733-833 distributed bin finding)
+# ---------------------------------------------------------------------------
+
+def local_row_slice(n: int) -> slice:
+    """This rank's contiguous row block of an n-row dataset: blocks of
+    ceil(n / W) rows in rank order (the last ones shorter, or empty when
+    n < W); the whole range without a world."""
+    rank, size = world()
+    per = (n + size - 1) // size
+    return slice(min(rank * per, n), min((rank + 1) * per, n))
+
+
+def resolve_bin_find(cfg, n_sample_global: int, world: int = 1) -> str:
+    """The path distributed bin finding runs for the `bin_find` knob:
+    "allgather" (every rank derives the mappers from the identical
+    gathered global sample, exact) or "sketch" (the ranks' mergeable
+    quantile summaries, sharded/sketch.py, so no rank holds the global
+    sample).  "auto" stays exact while the combined sample fits the
+    bin-construction budget; the loader takes `budget // world + 1`
+    rows a rank, so the `+ world` slack keeps its sample exact."""
+    mode = getattr(cfg, "bin_find", "auto")
+    if mode == "auto":
+        budget = int(cfg.bin_construct_sample_cnt) + max(int(world), 1)
+        return "sketch" if n_sample_global > budget else "allgather"
+    return mode
+
+
+def _gathered_sizes(n_local: int) -> np.ndarray:
+    """[world] int64: every rank's `n_local`, in rank order."""
+    return _allgather_words(np.array([n_local], np.int64)).reshape(-1)
+
+
+def _allgather_rows(local_rows, smax: int, sizes) -> np.ndarray:
+    """Every rank's [rows, F] float64 block concatenated in rank order:
+    each padded to `smax` rows for the collective and cut back to its
+    true size (`sizes`), so no sentinel value is needed."""
+    local_rows = np.asarray(local_rows, np.float64)
+    padded = np.zeros((smax, local_rows.shape[1]), np.float64)
+    padded[: len(local_rows)] = local_rows
+    gathered = allgather_f64(padded)                      # [W, smax, F]
+    return np.concatenate([gathered[w, : int(sizes[w])]
+                           for w in range(gathered.shape[0])])
+
+
+def find_bin_mappers_sketch(local_sample, cfg, categorical=(),
+                            return_sample=False):
+    """Global BinMappers by merging every rank's quantile sketches: each
+    rank summarizes its sample (sharded/sketch.py), one allgather_f64
+    carries the fixed-width packed summaries bit for bit, and every rank
+    merges the identical stack in rank order, so the mappers are the
+    same everywhere.  Exact while `sketch_eps` holds every distinct
+    value.
+
+    return_sample=True also returns the bundle planner's sample, the
+    same on every rank: at most BUNDLE_PLAN_SAMPLE_CNT / world rows of
+    each rank's sample, gathered; never the global sample."""
+    from .sharded.sketch import SketchSet, sketch_columns
+    _, size = world()
+    ss = sketch_columns(local_sample, cfg, categorical=categorical)
+    if size > 1:
+        stack = allgather_f64(ss.pack())        # [W, F + 1, 2 * cap + 4]
+        ss = SketchSet.merge_packed(stack, categorical=categorical)
+    mappers = ss.mappers_from_config(cfg)
+    if not return_sample:
+        return mappers
+    from .dataset import BUNDLE_PLAN_SAMPLE_CNT
+    cap = max(BUNDLE_PLAN_SAMPLE_CNT // max(size, 1), 1)
+    plan_local = np.ascontiguousarray(
+        np.asarray(local_sample, np.float64)[:cap])
+    if size > 1:
+        sizes = _gathered_sizes(len(plan_local))
+        plan_sample = _allgather_rows(plan_local, int(sizes.max()), sizes)
+    else:
+        plan_sample = plan_local
+    return mappers, plan_sample
+
+
+def find_bin_mappers_distributed(local_sample, cfg, categorical=(),
+                                 return_sample=False):
+    """Global BinMappers from every rank's local sample, the same on
+    every rank, by the path `resolve_bin_find` picks: "allgather" (the
+    samples gathered in rank order, resampled to
+    `bin_construct_sample_cnt` rows with RandomState(data_random_seed)
+    when longer, then find_bin_mappers) or "sketch"
+    (`find_bin_mappers_sketch`).
+
+    return_sample=True also returns a sample that is the same on every
+    rank, for the bundle planner: the global sample on the allgather
+    path, the bounded plan sample on the sketch path."""
+    from .binning import find_bin_mappers
+    _, size = world()
+    if size > 1:
+        sizes = _gathered_sizes(len(local_sample))
+        n_global = int(sizes.sum())
+    else:
+        sizes = np.array([len(local_sample)], np.int64)
+        n_global = len(local_sample)
+    if resolve_bin_find(cfg, n_global, size) == "sketch":
+        return find_bin_mappers_sketch(local_sample, cfg,
+                                       categorical=categorical,
+                                       return_sample=return_sample)
+    if size == 1:
+        m = find_bin_mappers(
+            local_sample, cfg.max_bin, cfg.min_data_in_bin,
+            cfg.min_data_in_leaf, categorical=categorical,
+            sample_cnt=len(local_sample), seed=cfg.data_random_seed)
+        return (m, local_sample) if return_sample else m
+    flat = _allgather_rows(local_sample, int(sizes.max()), sizes)
+    cap = int(cfg.bin_construct_sample_cnt)
+    if len(flat) > cap:
+        idx = np.random.RandomState(cfg.data_random_seed).choice(
+            len(flat), cap, replace=False)
+        flat = flat[np.sort(idx)]
+    m = find_bin_mappers(
+        flat, cfg.max_bin, cfg.min_data_in_bin, cfg.min_data_in_leaf,
+        categorical=categorical, sample_cnt=len(flat),
+        seed=cfg.data_random_seed)
+    return (m, flat) if return_sample else m

@@ -41,7 +41,9 @@ in one formulation:
   histograms are psummed (or reduce-scattered) and searched.
 
 Every rank's tree, leaf values and control flow are replicated; the leaf
-ids of each rank's rows are all_gathered by the learner.
+ids of each rank's rows are all_gathered by the learner under the
+replicated boosting loop, and stay the rank's own in a pre-partitioned
+world (`Dataset.rank_rows`, sharded/mesh.py `RankRows`).
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ from ..ops.split import (best_split, bundle_predicate_params,
 from ..sharded.mesh import (Mesh, check_scatter_divisible,
                             check_tree_divergence, make_mesh,
                             pad_cols_to_ndev, resolve_hist_exchange,
-                            row_block, take_rows)
+                            RankRows, row_block, take_rows)
 from ..tree import CATEGORICAL_DECISION, NUMERICAL_DECISION, Tree
 from .common import (dense_store_feed, make_split_kw, padded_bin_count,
                      rank_block, store_feed, use_parent_hist_cache)
@@ -561,15 +563,26 @@ class FusedTreeLearner:
                         and dd > 1)
         plan = dataset.bundle_plan
         self.use_bundle = plan is not None and df == 1 and not self._voting
-        self._sparse_feed = dataset.sparse is not None
+        # a pre-partitioned dataset holds only this rank's rows: they are
+        # its block, padded to the longest rank's count
+        self.rank_rows = (RankRows(mesh, self.N) if mesh is not None
+                          and dataset.rank_rows is not None else None)
+        # the rank's rows feed dense, as in the JAX learner's
+        # multi-process worlds (counted as a sparse fallback)
+        self._sparse_feed = (dataset.sparse is not None
+                             and self.rank_rows is None)
         self.Cstore = dataset.num_store_columns
         dev = self.device
         self.rows = None
         self._walk = None
         # this rank's row block of the data axis (rows [r0, r1) padded to
         # Nloc; the whole store on one device)
-        self._block = row_block(self.N, dd,
-                                mesh.index("data") if mesh else 0)
+        if self.rank_rows is not None:
+            self._block = (0, self.N, self.rank_rows.per_proc)
+            self._row_blk = 0
+        else:
+            self._row_blk = mesh.index("data") if mesh else 0
+            self._block = row_block(self.N, dd, self._row_blk)
         self.hist_exchange = "psum"
         self.Fp = self.F
         if mesh is not None:
@@ -672,7 +685,7 @@ class FusedTreeLearner:
                  if self.use_bundle or dataset.bundle_plan is None
                  else dataset.unbundled_bins())
         block = rank_block(store, cols, cblock, self._block[2],
-                           mesh.index("data"), self.N)
+                           self._row_blk, self.N)
         self.bins_dev, self.rows = store_feed(block, dataset.max_num_bin,
                                               self.device)
 
@@ -733,9 +746,10 @@ class FusedTreeLearner:
         store the builder reads, or the sparse ELL triple, so the store
         never densifies for scoring.  The JAX learner's transposed
         [N+1, F] view is the port's [C, N] walk layout.  A mesh rank
-        holds only its block, so its walk store (every row and column,
-        as the replicated boosting loop walks them) is made on the
-        first walk."""
+        holds only its block, so its walk store (every column of the
+        dataset's rows: every row under the replicated boosting loop,
+        the rank's own in a pre-partitioned world) is made on the first
+        walk."""
         if self.mesh is None:
             return self.bins_dev[:3] if self._sparse_feed else self.bins_dev
         if self._walk is None:
@@ -778,10 +792,11 @@ class FusedTreeLearner:
               bag_idx: Optional[torch.Tensor] = None,
               bag_count: Optional[int] = None) -> Tuple[Tree, torch.Tensor]:
         """Grow one tree: (host Tree, leaf_id [N] int32 on the device,
-        out-of-bag rows included), with one host read.  On a mesh
-        grad/hess are every row's (the boosting loop is replicated); the
-        rank grows the tree over its block, and the data axis's leaf ids
-        are all_gathered."""
+        out-of-bag rows included), with one host read.  On a mesh the
+        rank grows the tree over its block: under the replicated
+        boosting loop grad/hess are every row's and the data axis's leaf
+        ids are all_gathered; in a pre-partitioned world they are the
+        rank's rows, and so are the leaf ids."""
         mask = self._row_mask(bag_idx)
         if self.mesh is not None:
             kind0 = dict(self.mesh.kind_bytes)
@@ -793,7 +808,8 @@ class FusedTreeLearner:
             self.num_bins_dev, self.is_cat_dev, self._feature_mask(),
             self.ftbl, self.unb, **self._kw)
         if self.dd > 1:
-            leaf_id = self.mesh.all_gather(leaf_id, "data").reshape(-1)
+            if self.rank_rows is None:
+                leaf_id = self.mesh.all_gather(leaf_id, "data").reshape(-1)
             leaf_id = leaf_id[:self.N]
         if self.mesh is not None:
             self.mesh.record_tree_exchange(kind0)

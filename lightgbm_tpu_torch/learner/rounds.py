@@ -62,7 +62,7 @@ from ..ops.sparse_streams import build_sparse_streams
 from ..ops.split import (best_split, bundle_predicate_params,
                          combine_sharded_records, maybe_unbundle,
                          sharded_slice_search)
-from ..sharded.mesh import (HistExchange, Mesh, pad_cols_to_ndev,
+from ..sharded.mesh import (HistExchange, Mesh, RankRows, pad_cols_to_ndev,
                             resolve_hist_exchange, row_block,
                             row_shard_axes, take_rows)
 from ..tree import Tree
@@ -131,7 +131,8 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
     round's host read and the tree are replicated on every rank; the
     row partition (leaf_id, perm, the per-leaf segments and the gathered
     capacity tiers) is the rank's own.  The returned leaf_id covers the
-    rank's rows; the learner all_gathers it."""
+    rank's rows; the learner all_gathers it under the replicated
+    boosting loop, and keeps it in a pre-partitioned world."""
     if sparse:
         sp_cols, sp_bins, sp_zb = bins[:3]
         F, N = sp_zb.shape[0], sp_cols.shape[0]
@@ -471,7 +472,9 @@ class RoundsTreeLearner:
     mesh (sharded/mesh.py): rows shard over every mesh axis of size > 1
     (`tree_learner=data`: (W, 1); `data2d`: both axes), each rank holding
     its row block of the store, and every histogram pass is exchanged by
-    psum or psum_scatter (`hist_exchange`)."""
+    psum or psum_scatter (`hist_exchange`).  Over a pre-partitioned
+    dataset (`Dataset.rank_rows`) the rank's rows are its block
+    (`RankRows`; the data axis only) and the leaf ids stay local."""
 
     full_leaf_id = True   # leaf_id valid for out-of-bag rows too
 
@@ -486,13 +489,27 @@ class RoundsTreeLearner:
         self.F = dataset.num_features                  # original features
         self.C = dataset.num_store_columns             # store columns
         self.B = padded_bin_count(dataset.max_num_bin)
-        self.sparse = dataset.sparse is not None
         cfg = config
         dd, df = mesh.shape if mesh is not None else (1, 1)
         nsh = dd * df
-        # the row block this rank holds: rows [r0, r1) of the N, padded
-        # to Nloc = ceil(N / nsh) (the JAX learner's Np = nsh * Nloc)
-        self._block = row_block(self.N, nsh, mesh.rank if mesh else 0)
+        # a pre-partitioned dataset holds only this rank's rows: they are
+        # its block, padded to the longest rank's count
+        self.rank_rows = (RankRows(mesh, self.N) if mesh is not None
+                          and dataset.rank_rows is not None else None)
+        if self.rank_rows is not None:
+            self._block = (0, self.N, self.rank_rows.per_proc)
+            self._row_blk = 0
+        else:
+            # the row block this rank holds: rows [r0, r1) of the N,
+            # padded to Nloc = ceil(N / nsh) (the JAX learner's
+            # Np = nsh * Nloc)
+            self._block = row_block(self.N, nsh, mesh.rank if mesh else 0)
+            self._row_blk = mesh.rank if mesh else 0
+        if dataset.sparse is not None and self.rank_rows is not None:
+            # as the JAX learner does for its multi-process worlds
+            log.warning("sparse store is not wired for multi-host runs "
+                        "yet; materializing the dense store")
+        self.sparse = dataset.sparse is not None and self.rank_rows is None
         self.hist_exchange = "psum"
         self.exchange = None
         Fpad = self.C
@@ -542,7 +559,8 @@ class RoundsTreeLearner:
             # this rank's row block, the padded columns and rows at bin 0
             # (padding rows carry a zero mask, padded columns one bin)
             block = rank_block(dataset.dense_bins(site="rounds_feed"),
-                               Fpad, 0, self._block[2], mesh.rank, self.N)
+                               Fpad, 0, self._block[2], self._row_blk,
+                               self.N)
             self.bins_dev, self.rows = store_feed(
                 block, dataset.max_num_bin, self.device)
             bins_itemsize = self.bins_dev.element_size()
@@ -635,9 +653,10 @@ class RoundsTreeLearner:
         rollback, the replay of a resumed or continued model): the [F, N]
         store the partition reads (int8 bytes holding value - 128 up to
         256 bins, int32 past that), or the sparse ELL triple; no copy.
-        A mesh rank holds only its row block, so its walk store (every
-        row, as the replicated boosting loop walks them) is made on the
-        first walk."""
+        A mesh rank holds only its row block, so its walk store (the
+        dataset's rows: every row under the replicated boosting loop,
+        the rank's own in a pre-partitioned world) is made on the first
+        walk."""
         if self.mesh is None:
             return self.bins_dev[:3] if self.sparse else self.bins_dev
         if self._walk is None:
@@ -669,9 +688,10 @@ class RoundsTreeLearner:
                      bag_idx: Optional[torch.Tensor] = None
                      ) -> Tuple[TreeArrays, torch.Tensor]:
         """Grow one tree: (device TreeArrays, leaf_id [N] int32).  On a
-        mesh grad/hess are every row's (the boosting loop is replicated);
-        the rank grows the tree over its row block and all_gathers the
-        blocks' leaf ids."""
+        mesh the rank grows the tree over its row block: under the
+        replicated boosting loop grad/hess are every row's, and the
+        blocks' leaf ids are all_gathered; in a pre-partitioned world
+        they are the rank's rows, and so are the leaf ids."""
         mask = self._row_mask(bag_idx)
         fmask = self._feature_mask()
         if self.mesh is not None:
@@ -682,8 +702,9 @@ class RoundsTreeLearner:
             self.bins_dev, grad, hess, mask, self.num_bins_dev,
             self.is_cat_dev, fmask, **self._kw)
         if self.mesh is not None:
-            leaf_id = self.mesh.all_gather(
-                leaf_id, row_shard_axes(*self.mesh.shape)).reshape(-1)
+            if self.rank_rows is None:
+                leaf_id = self.mesh.all_gather(
+                    leaf_id, row_shard_axes(*self.mesh.shape)).reshape(-1)
             leaf_id = leaf_id[:self.N]
         self.last_host_syncs = syncs
         return arrs, leaf_id

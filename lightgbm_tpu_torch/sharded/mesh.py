@@ -23,14 +23,20 @@ process, a `shard_map` body per device, and `psum`, `psum_scatter` and
   CPU or several ranks share one card (NCCL refuses two ranks on one
   device).  Each rank makes `torch.cuda.set_device(local_rank)` its
   current device, so `device_type="cuda"` means the rank's own card.
-- Where the rows live: every rank builds the same Dataset and runs the
-  boosting loop replicated over all N rows on its card (scores,
-  gradients, bagging and metrics from the same seeds, so every rank
-  holds the same bits).  The tree learner uploads only the rank's row
-  block of the store (rows padded to Np = nsh * ceil(N / nsh), padding
-  rows masked out, as the JAX learners pad), grows the tree with the
-  collectives below, and returns every row's leaf id through one
-  `all_gather` at the end of the tree.
+- Where the rows live, in one of two modes.  Replicated (a Dataset of
+  all N rows on every rank): the boosting loop runs replicated over all
+  N rows on each card (scores, gradients, bagging and metrics from the
+  same seeds, so every rank holds the same bits); the tree learner
+  uploads only the rank's row block of the store (rows padded to
+  Np = nsh * ceil(N / nsh), padding rows masked out, as the JAX
+  learners pad), grows the tree with the collectives below, and returns
+  every row's leaf id through one `all_gather` at the end of the tree.
+  Pre-partitioned (the loader kept only the rank's rows,
+  `Dataset.rank_rows`; the JAX package's multi-process worlds): the
+  boosting loop runs over the local rows only (local scores, gradients,
+  bag and metrics; boost-from-average from the world's label sum), the
+  rank's rows are its block (`RankRows`: padded to the longest rank's
+  count), and the learner returns the local leaf ids, with no gather.
 
 Collectives (`Mesh.psum`, `pmax`, `psum_scatter`, `all_gather`) map
 `lax.psum` to `all_reduce`, `lax.psum_scatter` to
@@ -432,6 +438,42 @@ def make_mesh(tree_learner: str, num_machines: int = 0) -> Optional[Mesh]:
             if rank // df == d:
                 groups["feature"] = g
     return Mesh((dd, df), rank, dist.get_backend(), groups)
+
+
+class RankRows:
+    """The row layout of a pre-partitioned world (the JAX package's
+    `MultiHostRows`, one rank a card): each rank holds one contiguous
+    block of the rows (`distributed.local_row_slice`), and every block
+    is padded to the same length, `per_proc`, the longest rank's count,
+    so the padded rows carry zero masks and the histograms tile the
+    same way on every rank.  The JAX class assembles global arrays from
+    the processes' blocks; here a rank's tensors are its block, so that
+    is `pad_local` and a cut back to `n_local`.
+
+    The rows shard over the data axis only: a mesh with a feature axis
+    (tree_learner=feature, data2d on a 2-D mesh) is refused, as in the
+    JAX package, and so is a data axis the world does not divide."""
+
+    def __init__(self, mesh: Mesh, n_local: int):
+        from ..distributed import _gathered_sizes, world
+        dd, df = mesh.shape
+        if df > 1:
+            raise NotImplementedError(
+                "multi-host feature-parallel training is not supported; "
+                "use tree_learner=data")
+        self.world = world()[1]
+        if dd % self.world:
+            raise ValueError(
+                f"data axis ({dd}) must be divisible by the process count "
+                f"({self.world}) for multi-host training")
+        self.counts = _gathered_sizes(int(n_local))
+        self.n_local = int(n_local)
+        self.per_proc = max(int(self.counts.max()), 1)
+        self.n_global = int(self.counts.sum())
+
+    def pad_local(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """`x` ([..., n_local] along `dim`) zero-padded to per_proc."""
+        return take_rows(x, 0, self.n_local, self.per_proc, dim)
 
 
 def row_block(n: int, nsh: int, block: int) -> Tuple[int, int, int]:

@@ -250,10 +250,21 @@ def test_error_paths_return_one(tmp_path):
     assert tapp.main(["task=train"]) == 1
     assert tapp.main(["task=refit", "data=x"]) == 1
     assert tapp.main(["task=online", "verbose=-1", "device_type=cpu"]) == 1
-    with pytest.raises(NotImplementedError, match="§A item 12"):
-        tapp.Application(["data=x.csv", "num_machines=2",
-                          "is_pre_partition=true",
-                          "device_type=cpu"]).run()
+    # pre_partition with num_machines=2 but no machine list and no rank:
+    # no world comes up, and the whole file trains, as in the JAX CLI
+    rng = np.random.RandomState(0)
+    X = rng.randn(300, 3)
+    data = str(tmp_path / "d.csv")
+    np.savetxt(data, np.column_stack([(X[:, 0] > 0) * 1.0, X]),
+               delimiter=",", fmt="%.9g")
+    model = str(tmp_path / "m.txt")
+    with pytest.warns(UserWarning, match="single-host test mode"):
+        assert tapp.main([f"data={data}", "num_machines=2",
+                          "is_pre_partition=true", "num_iterations=1",
+                          "objective=binary", "verbose=-1",
+                          "device_type=cpu", f"output_model={model}"]) == 0
+    with open(model) as f:
+        assert "internal_count=300 " in f.read()
 
 
 def _free_port():

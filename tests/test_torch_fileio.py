@@ -300,11 +300,14 @@ def test_two_round_libsvm_error_type(tmp_path):
         TDS.Dataset.from_file(path, tc)
 
 
-def test_multi_machine_load_is_not_ported(tmp_path):
-    path = _write(tmp_path / "d.csv", *_rows(50))
-    _, tc = _cfgs(num_machines=2, is_pre_partition=True)
-    with pytest.raises(NotImplementedError, match="§A item 12"):
-        TDS.Dataset.from_file(path, tc)
+def test_pre_partition_without_a_world_loads_every_row(tmp_path):
+    """is_pre_partition with num_machines > 1 but no world of ranks
+    loads the whole file, as the JAX loader does in one process."""
+    path = _write(tmp_path / "d.csv", *_rows(500))
+    jc, tc = _cfgs(num_machines=2, is_pre_partition=True)
+    dt = TDS.Dataset.from_file(path, tc)
+    assert dt.num_data == 500 and dt.rank_rows is None
+    _assert_same_dataset(JDS.Dataset.from_file(path, jc), dt)
 
 
 def test_seventeen_digit_values_read_correctly_rounded(tmp_path):

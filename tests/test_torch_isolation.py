@@ -104,23 +104,22 @@ def test_device_type_validated():
         config_from_params({"device_type": "tpu"})
 
 
-def test_unported_paths_raise_not_implemented():
+def test_unported_paths_raise_not_implemented(tmp_path):
     rng = np.random.RandomState(0)
     X = rng.randn(300, 4)
     y = (X[:, 0] > 0) * 1.0
     import lightgbm_tpu_torch as lt
-    # loading each rank's own rows (is_pre_partition across processes)
-    # is still unported (the multi-device learners, the exact learner,
-    # EFB bundles, every objective, sketch bin finding and the leaf
-    # refit are ported); a distributed tree_learner with no world of
-    # ranks warns and trains on one device
+    # is_pre_partition with no world of ranks loads every row of the
+    # file, as the JAX loader does in one process; a distributed
+    # tree_learner with no world of ranks warns and trains on one device
     from lightgbm_tpu_torch.config import config_from_params
     from lightgbm_tpu_torch.dataset import Dataset as RawDataset
-    csv = os.path.join(ROOT, "tests", "__missing_rows__.csv")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RawDataset.from_file(csv, config_from_params(
-            {"num_machines": 2, "is_pre_partition": True,
-             "device_type": "cpu"}))
+    csv = str(tmp_path / "rows.csv")
+    np.savetxt(csv, np.column_stack([y, X]), delimiter=",", fmt="%.9g")
+    whole = RawDataset.from_file(csv, config_from_params(
+        {"num_machines": 2, "is_pre_partition": True,
+         "device_type": "cpu"}))
+    assert whole.num_data == 300 and whole.rank_rows is None
     with pytest.warns(UserWarning, match="one rank"):
         one = lt.train({"tree_learner": "data", "device_type": "cpu",
                         "verbose": -1}, lt.Dataset(X, y), 1)
