@@ -373,6 +373,37 @@ call is the host f64 walk of every tree (LIGHTGBM_TPU_DEVICE_PREDICT=0,
              (backend, world, devices, rows, reference, trees_equal,
              each rank's s/iter over iterations 2-3, collective,
              histogram and record bytes a tree).
+20. training observability and ingest (after phase 3, on its data):
+             20a — the phase-3 int8 configuration (K1, K3, K4) trained
+             three times for 12 iterations with the valid AUC: with no
+             telemetry; with telemetry_path in params and
+             checkpoint_path with checkpoint_interval=4; and with
+             telemetry on and every iteration after the second inside
+             HotPathSanitizer(warmup=2) (the learner's declared reads
+             are explicit transfers: any other synchronising call
+             counts).  Fails unless the three model strings are equal,
+             the file holds 12 train.iteration records (iterations 1-12,
+             with the tree and score phases), 12 train.eval and 4
+             train.checkpoint (iterations 4, 8, 12 and the final
+             snapshot), the host reads a tree are the same with
+             telemetry on and off, and the sanitizer counted 0 implicit
+             transfers and 0 kernel builds; prints s/iter over
+             iterations 3-12 of each run (a reading, no limit).  Then
+             train.after_checkpoint:2 armed on an 8-iteration run
+             checkpointed every 2 (learning rate 0.5, a dyadic rate: the
+             device path shrinks in f32, the model in f64): the injected
+             fault is caught, the resumed run's model string equals the
+             uninterrupted run's, and train.resume is recorded.
+             20b — the phase-3 rows (synth_higgs(2_000_000), seed 42)
+             through Dataset.from_stream in chunks of 65,536 and through
+             the monolithic constructor (bin_construct_sample_cnt
+             covering every row, where the streamed mappers are exact):
+             the two stores sha1-equal; a bin_find=sketch dataset of the
+             same rows; set-up seconds of each.  3 iterations on the
+             streamed and on the sketch dataset (K1, K3, K4 launched,
+             valid AUC > 0.70); on a 100,000-row cut of each (streamed),
+             card and CPU first trees as phase 7 and valid AUCs within
+             1e-4.
 
 Every kernel's ms is timed by CUDA events around each call, the method
 of earlier versions of this script; it includes the wrapper's host
@@ -4401,6 +4432,273 @@ def mg_one_rank(lt, p: dict, train_set, fused: bool) -> str:
     return bst.model_to_string()
 
 
+# phase 20: training observability and ingest
+TELEM_ITERS = (2, 12)        # (warm-up, total) iterations of 20a's runs
+TELEM_CKPT_INTERVAL = 4
+RESUME_ITERS = 8
+INGEST_CHUNK = 65_536
+INGEST_ITERS = 3
+INGEST_COMPARE = 100_000
+
+
+@contextlib.contextmanager
+def iteration_steps(san):
+    """Run every GBDT.train_one_iter (one boosting iteration) inside one
+    `san.step()`: the eval and the checkpoint between iterations stay
+    outside the guard."""
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    real = GBDT.train_one_iter
+
+    def wrapped(self, *a, **k):
+        with san.step():
+            return real(self, *a, **k)
+    GBDT.train_one_iter = wrapped
+    try:
+        yield
+    finally:
+        GBDT.train_one_iter = real
+
+
+def read_records(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def telemetry_train(torch, lt, kernels, params, ds, vs, extra, san=None):
+    """One 12-iteration train of 20a: (booster, s/iter over iterations
+    3-12, final valid AUC, launches)."""
+    warm, n = TELEM_ITERS
+    marks, res = [], {}
+    kernels.reset_launches()
+    steps = (iteration_steps(san) if san is not None
+             else contextlib.nullcontext())
+    torch.cuda.synchronize()
+    with steps:
+        bst = lt.train(dict(params, **extra), ds, n, valid_sets=[vs],
+                       evals_result=res,
+                       callbacks=[steady_window(torch, warm, n, marks)],
+                       verbose_eval=False)
+    if bst.current_iteration() != n:
+        fail(f"[phase 20a] training stopped at {bst.current_iteration()} "
+             f"of {n} iterations")
+    return (bst, (marks[1] - marks[0]) / (n - warm),
+            res["valid_0"]["auc"][-1], dict(kernels.LAUNCHES))
+
+
+def phase_telemetry(torch, lt, kernels, params, ds, vs, tmp):
+    """Phase 20a: telemetry and the training fault seams on the card."""
+    from lightgbm_tpu_torch import telemetry
+    from lightgbm_tpu_torch.diagnostics import faults
+    from lightgbm_tpu_torch.diagnostics.sanitize import HotPathSanitizer
+    warm, n = TELEM_ITERS
+    telemetry.reset()
+    off, s_off, auc_off, _ = telemetry_train(torch, lt, kernels, params, ds,
+                                             vs, {})
+    if telemetry.enabled():
+        fail("[phase 20a] telemetry is on with no sink configured")
+    sink = os.path.join(tmp, "train.jsonl")
+    on, s_on, auc_on, launches = telemetry_train(
+        torch, lt, kernels, params, ds, vs,
+        {"telemetry_path": sink,
+         "checkpoint_path": os.path.join(tmp, "ck.json"),
+         "checkpoint_interval": TELEM_CKPT_INTERVAL})
+    telemetry.reset()
+    sink_san = os.path.join(tmp, "train_sanitized.jsonl")
+    san = HotPathSanitizer(warmup=warm, label="telemetry/rounds")
+    with san:
+        guarded, s_san, _, _ = telemetry_train(
+            torch, lt, kernels, params, ds, vs,
+            {"telemetry_path": sink_san}, san=san)
+    telemetry.reset()
+    rep = san.report()
+    recs = read_records(sink)
+    count = {k: sum(1 for r in recs if r["name"] == k)
+             for k in ("train.iteration", "train.eval", "train.checkpoint")}
+    iters = [r["attrs"] for r in recs if r["name"] == "train.iteration"]
+    ckpts = [r["attrs"]["iteration"] for r in recs
+             if r["name"] == "train.checkpoint"]
+    models = [b.model_to_string() for b in (off, on, guarded)]
+    syncs = [b._gbdt.host_syncs_per_tree for b in (off, on, guarded)]
+    st = dict(s_per_iter_off=s_off, s_per_iter_on=s_on,
+              s_per_iter_sanitized=s_san, auc_off=auc_off, auc_on=auc_on,
+              records=count, checkpoint_iterations=ckpts,
+              host_syncs_per_tree_off=statistics.mean(syncs[0]),
+              host_syncs_per_tree_on=statistics.mean(syncs[1]),
+              phases=sorted(iters[-1]["phases"]) if iters else [],
+              counters=iters[-1]["counters"] if iters else {},
+              sanitize={k: rep[k] for k in (
+                  "steps", "retraces_after_warmup", "implicit_transfers",
+                  "compiles_total")},
+              launches={k: launches.get(k, 0) for k in TREE_KERNELS})
+    print(f"[phase 20a] {json.dumps(st)}", flush=True)
+    print(f"[phase 20a] s/iter over iterations {warm + 1}-{n}: telemetry "
+          f"off {s_off:.4f}, on {s_on:.4f}, on under the sanitizer "
+          f"{s_san:.4f}; host reads a tree {st['host_syncs_per_tree_off']}"
+          f" / {st['host_syncs_per_tree_on']}", flush=True)
+    if len(set(models)) != 1:
+        fail("[phase 20a] the model strings differ with telemetry on, off "
+             "and under the sanitizer")
+    if syncs[0] != syncs[1] or syncs[0] != syncs[2]:
+        fail(f"[phase 20a] host reads a tree differ with telemetry: {syncs}")
+    if count != {"train.iteration": n, "train.eval": n,
+                 "train.checkpoint": n // TELEM_CKPT_INTERVAL + 1}:
+        fail(f"[phase 20a] records {count}")
+    if [a["iteration"] for a in iters] != list(range(1, n + 1)) or any(
+            not {"tree", "score"} <= set(a["phases"]) for a in iters):
+        fail("[phase 20a] train.iteration records lack iterations or the "
+             "tree and score phases")
+    if ckpts != [4, 8, 12, 12]:
+        fail(f"[phase 20a] checkpoint records at iterations {ckpts}")
+    if rep["implicit_transfers"] or rep["retraces_after_warmup"] \
+            or rep["steps"] != n:
+        fail(f"[phase 20a] sanitizer: {rep}")
+    for k in TREE_KERNELS:
+        if launches.get(k, 0) <= 0:
+            fail(f"[phase 20a] the telemetry run never launched {k}")
+    if not auc_on > 0.75:
+        fail(f"[phase 20a] valid AUC {auc_on}")
+
+    # the after-checkpoint seam: a crash as iteration 4's checkpoint
+    # lands, then a resume from the file on disk
+    pr = dict(params, learning_rate=0.5)
+    full = lt.train(pr, ds, RESUME_ITERS, verbose_eval=False)
+    ck = os.path.join(tmp, "resume.json")
+    sink_r = os.path.join(tmp, "resume.jsonl")
+    pc = dict(pr, checkpoint_path=ck, checkpoint_interval=2,
+              telemetry_path=sink_r)
+    faults.reset()
+    faults.arm("train.after_checkpoint:2")
+    try:
+        lt.train(pc, ds, RESUME_ITERS, verbose_eval=False)
+        crashed = None
+    except faults.InjectedFault as e:
+        crashed = e
+    finally:
+        faults.reset()
+    if crashed is None:
+        fail("[phase 20a] the armed train.after_checkpoint seam never fired")
+    with open(ck) as f:
+        at = json.load(f)["iteration"]
+    resumed = lt.train(pc, ds, RESUME_ITERS, verbose_eval=False)
+    telemetry.reset()
+    res_recs = [r for r in read_records(sink_r)
+                if r["name"] == "train.resume"]
+    same = resumed.model_to_string() == full.model_to_string()
+    print(f"[phase 20a] after-checkpoint crash at iteration {at} "
+          f"({crashed}); resumed to {RESUME_ITERS}: model string equal to "
+          f"the uninterrupted run's: {same}; train.resume "
+          f"{[r['attrs'] for r in res_recs]}", flush=True)
+    if at != 4 or not same:
+        fail("[phase 20a] the resumed model is not the uninterrupted one")
+    trees = 4 + (1 if resumed._gbdt.boost_from_average_used else 0)
+    if [r["attrs"] for r in res_recs] != [
+            {"checkpoint_iteration": 4, "trees": trees}]:
+        fail(f"[phase 20a] train.resume records {res_recs}")
+    st["resume_equal"] = same
+    return st
+
+
+def ingest_train(torch, lt, kernels, params, inner, Xv, yv, iters, label):
+    """`iters` iterations on a constructed inner dataset through
+    lt.train with the valid AUC: (booster, AUC, launches)."""
+    from lightgbm_tpu_torch.capi import _wrap_inner
+    shell = _wrap_inner(inner, params)
+    res = {}
+    kernels.reset_launches()
+    bst = lt.train(params, shell, iters,
+                   valid_sets=[lt.Dataset(Xv, yv, reference=shell)],
+                   evals_result=res, verbose_eval=False)
+    if bst.current_iteration() != iters:
+        fail(f"[phase 20b] {label}: {bst.current_iteration()} of {iters} "
+             f"iterations")
+    return bst, res["valid_0"]["auc"][-1], dict(kernels.LAUNCHES)
+
+
+def phase_ingest(torch, lt, kernels, base_params):
+    """Phase 20b: streamed and sketch-binned datasets on the card."""
+    import hashlib
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.dataset import Dataset as RawDataset
+    from lightgbm_tpu_torch.sharded.ingest import array_stream
+    from lightgbm_tpu_torch.synth import synth_higgs
+    X, y = synth_higgs(MAIN_ROWS)
+    Xv, yv = synth_higgs(VALID_ROWS, seed=7)
+    p = dict(base_params, bin_construct_sample_cnt=MAIN_ROWS,
+             stream_chunk_rows=INGEST_CHUNK)
+    y32 = y.astype(np.float32)
+    t0 = time.perf_counter()
+    streamed = RawDataset.from_stream(
+        array_stream(X, y, chunk_rows=INGEST_CHUNK),
+        config_from_params(p)).compacted()
+    t1 = time.perf_counter()
+    mono = RawDataset(X, y32, config_from_params(p))
+    t2 = time.perf_counter()
+    ps = dict(p, bin_find="sketch")
+    sketch = RawDataset(X, y32, config_from_params(ps))
+    t3 = time.perf_counter()
+    sha = [hashlib.sha1(np.ascontiguousarray(d.bins).tobytes()).hexdigest()
+           for d in (streamed, mono, sketch)]
+    st = dict(rows=int(streamed.num_data), setup_s_stream=t1 - t0,
+              setup_s_monolithic=t2 - t1, setup_s_sketch=t3 - t2,
+              sha1_stream=sha[0][:16], sha1_monolithic=sha[1][:16],
+              sha1_sketch=sha[2][:16])
+    print(f"[phase 20b] set-up: {json.dumps(st)}", flush=True)
+    if sha[0] != sha[1] or streamed.num_data != MAIN_ROWS:
+        fail("[phase 20b] the streamed store differs from the monolithic "
+             "one")
+    del mono
+    for label, inner, prm in (("streamed", streamed, p),
+                              ("sketch", sketch, ps)):
+        _, auc, launches = ingest_train(torch, lt, kernels, prm, inner, Xv,
+                                        yv, INGEST_ITERS, label)
+        st[f"auc_{label}"] = auc
+        st[f"launches_{label}"] = {k: launches.get(k, 0)
+                                   for k in TREE_KERNELS}
+        print(f"[phase 20b] {label}: {INGEST_ITERS} iterations, valid AUC "
+              f"{auc:.6f}, launches {st[f'launches_{label}']}", flush=True)
+        if not auc > 0.70:
+            fail(f"[phase 20b] {label} valid AUC {auc}")
+        for k in TREE_KERNELS:
+            if launches.get(k, 0) <= 0:
+                fail(f"[phase 20b] the {label} run never launched {k}")
+    del streamed, sketch
+    # card against CPU on a cut, both sides on the gathered row feed
+    Xc, yc = X[:INGEST_COMPARE], y[:INGEST_COMPARE]
+    Xcv, ycv = Xv[:INGEST_COMPARE // 5], yv[:INGEST_COMPARE // 5]
+    for label, extra in (("streamed", {}), ("sketch",
+                                            {"bin_find": "sketch"})):
+        out = {}
+        for dev in ("cpu", GPU):
+            pd_ = dict(p, device_type=dev, hist_rows="gathered", **extra)
+            cfg = config_from_params(pd_)
+            inner = (RawDataset.from_stream(
+                array_stream(Xc, yc, chunk_rows=INGEST_CHUNK),
+                cfg).compacted() if not extra
+                else RawDataset(Xc, yc.astype(np.float32), cfg))
+            bst, auc, _ = ingest_train(torch, lt, kernels, pd_, inner, Xcv,
+                                       ycv, INGEST_ITERS,
+                                       f"{label} cut on {dev}")
+            out[dev] = (bst._gbdt.models[0], auc)
+        compare_first_trees(f"{label} store, {INGEST_COMPARE} rows",
+                            out["cpu"][0], out[GPU][0], out["cpu"][1],
+                            out[GPU][1], "auc")
+        st[f"card_vs_cpu_{label}"] = [out["cpu"][1], out[GPU][1]]
+    return st
+
+
+def phase_observability(torch, lt, kernels, params, ds, vs):
+    """Phase 20 (20a, 20b) with its seconds."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        a = phase_telemetry(torch, lt, kernels, params, ds, vs, tmp)
+    t1 = time.perf_counter()
+    b = phase_ingest(torch, lt, kernels, params)
+    t2 = time.perf_counter()
+    print(f"[phase 20] {t2 - t0:.1f} s (20a {t1 - t0:.1f}, 20b "
+          f"{t2 - t1:.1f})", flush=True)
+    return a, b
+
+
 def phase_multigpu(torch, lt, kernels, card: str):
     """Phase 19: W rank processes of this script train on the card(s)
     through lightgbm_tpu_torch.train with a distributed tree_learner;
@@ -4588,6 +4886,7 @@ def main() -> None:
     phase_partition_tree(torch, lt, P, ns_params, ns_ds, "north-star")
     phase_rounds_tree(torch, lt, H, dict(ns_params, histogram_dtype="float32"),
                       ns_ds, "north-star, float32")
+    phase_observability(torch, lt, kernels, ns_params, ns_ds, ns_vs)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -38,9 +38,17 @@ the bag drawn over the local rows from the shared seed, boost-from-
 average from the world's label sum and count (`allgather_f64`, exact),
 and the synchronous path, with host trees shrunk in f64, as the JAX
 package's multi-process worlds take it.  Either way every rank's model
-string is the same.  The
-JAX package's checkpoint telemetry span and fault-injection hooks belong
-to observability (ROADMAP.md §A item 15) and are not here.
+string is the same.
+
+Observability, as in the JAX package: the TIMETAG phases `boosting`,
+`bagging`, `tree`, `score` and `metric` (profiling.phase: host
+wall-clock around asynchronous launches, no device synchronisation),
+one `train.iteration` record a completed iteration and one `train.eval`
+record an evaluation, once telemetry is on (`telemetry_path` or
+LIGHTGBM_TPU_TELEMETRY), with no device read of their own; the
+`train.checkpoint` and `train.resume` spans, and the fault seams
+`train.checkpoint` (a torn checkpoint write) and `train.after_checkpoint`
+(a crash after the checkpoint landed).
 """
 from __future__ import annotations
 
@@ -49,15 +57,17 @@ import hashlib
 import io
 import json
 import os
+import time
 import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import log
+from .. import log, profiling, telemetry
 from ..config import Config, default_metric_for_objective
 from ..dataset import Dataset
+from ..diagnostics import faults
 from ..learner.fused import create_tree_learner, tree_arrays_to_host
 from ..log import LightGBMError
 from ..metrics import Metric, create_metric
@@ -272,6 +282,8 @@ class GBDT:
                 or not self.objective.boost_from_average):
             return
         lab = np.asarray(self.train_set.metadata.label, np.float64)
+        # rank_rows is set on every rank of a pre-partitioned world
+        # torchlint: allow(divergent-collective) — and on none otherwise
         if self.train_set.rank_rows is not None:
             # every rank seeds the same constant: the mean of the world's
             # labels, from the ranks' sums and counts gathered bit for bit
@@ -329,11 +341,14 @@ class GBDT:
         early stopping when `is_eval`)."""
         device_path = (gradient is None and hessian is None
                        and self._can_pipeline())
+        self._telemetry_iter_begin()
         self._models_changed()
         self._boost_from_average()
         if gradient is None or hessian is None:
-            gradient, hessian = self.boosting_gradients()
-        self._bagging(self.iter_)
+            with profiling.phase("boosting"):
+                gradient, hessian = self.boosting_gradients()
+        with profiling.phase("bagging"):
+            self._bagging(self.iter_)
         bag = (self.bag_idx
                if self.need_bagging and self.bag_cnt < self.num_data
                else None)
@@ -341,7 +356,9 @@ class GBDT:
             if self._train_device_tree(gradient.reshape(-1),
                                        hessian.reshape(-1), bag):
                 return True
-            return self.eval_and_check_early_stopping() if is_eval else False
+            stop = self.eval_and_check_early_stopping() if is_eval else False
+            self._telemetry_iter_end()
+            return stop
         should_continue = False
         for k in range(self.K):
             if self.class_need_train[k]:
@@ -365,7 +382,9 @@ class GBDT:
             del self.models[-self.K:]
             return True
         self.iter_ += 1
-        return self.eval_and_check_early_stopping() if is_eval else False
+        stop = self.eval_and_check_early_stopping() if is_eval else False
+        self._telemetry_iter_end()
+        return stop
 
     def rollback_one_iter(self) -> None:
         """Take the last iteration's trees back off the training and
@@ -390,22 +409,24 @@ class GBDT:
         pipelined path): leaf values shrunk and clamped in f32 on the
         device, training rows added by leaf id, valid sets walked over
         the device tree arrays."""
-        arrs, leaf_id = self.learner.train_device(gradient, hessian, bag)
-        tree = tree_arrays_to_host(arrs, self.train_set,
-                                   self.config.num_leaves,
-                                   mesh=getattr(self.learner, "mesh", None),
-                                   name=self.learner.tree_name)
+        with profiling.phase("tree"):
+            arrs, leaf_id = self.learner.train_device(gradient, hessian, bag)
+            tree = tree_arrays_to_host(
+                arrs, self.train_set, self.config.num_leaves,
+                mesh=getattr(self.learner, "mesh", None),
+                name=self.learner.tree_name)
         self.host_syncs_per_tree.append(self.learner.last_host_syncs + 1)
         if tree.num_leaves <= 1:
             warnings.warn("Stopped training because there are no more "
                           "leaves that meet the split requirements.")
             return True
-        lv = shrink_clip_leaves(arrs.leaf_value, tree.num_leaves,
-                                self.shrinkage_rate)
-        self.train_score.add_tree_by_leaf_id_dev(leaf_id, lv, 0)
-        depth = tree.max_depth_grown
-        for _, _, su, _ in self.valid_sets:
-            su.add_tree_arrays_dev(arrs, lv, 0, tree.num_leaves, depth)
+        with profiling.phase("score"):
+            lv = shrink_clip_leaves(arrs.leaf_value, tree.num_leaves,
+                                    self.shrinkage_rate)
+            self.train_score.add_tree_by_leaf_id_dev(leaf_id, lv, 0)
+            depth = tree.max_depth_grown
+            for _, _, su, _ in self.valid_sets:
+                su.add_tree_arrays_dev(arrs, lv, 0, tree.num_leaves, depth)
         tree.apply_shrinkage(self.shrinkage_rate)
         self.models.append(tree)
         self.iter_ += 1
@@ -420,12 +441,13 @@ class GBDT:
         training store when the exact learner's bag left rows out) and
         of every valid set by walking it.  A tree that did not split is
         returned as it is and adds nothing."""
-        if hasattr(self.learner, "train_device"):
-            tree, leaf_id = self.learner.train(gradient, hessian, bag)
-        else:
-            tree, leaf_id = self.learner.train(
-                gradient, hessian, bag,
-                self.bag_cnt if bag is not None else None)
+        with profiling.phase("tree"):
+            if hasattr(self.learner, "train_device"):
+                tree, leaf_id = self.learner.train(gradient, hessian, bag)
+            else:
+                tree, leaf_id = self.learner.train(
+                    gradient, hessian, bag,
+                    self.bag_cnt if bag is not None else None)
         # the rounds and fused learners' leaf ids cover out-of-bag rows too
         full_leaf_id = bag is None or getattr(self.learner, "full_leaf_id",
                                               False)
@@ -433,13 +455,58 @@ class GBDT:
         if tree.num_leaves <= 1:
             return tree
         tree.apply_shrinkage(self.shrinkage_rate)
-        if full_leaf_id:
-            self.train_score.add_tree_by_leaf_id(tree, leaf_id, k)
-        else:
-            self.train_score.add_tree(tree, k)
+        with profiling.phase("score"):
+            if full_leaf_id:
+                self.train_score.add_tree_by_leaf_id(tree, leaf_id, k)
+            else:
+                self.train_score.add_tree(tree, k)
         for _, _, su, _ in self.valid_sets:
             su.add_tree(tree, k)
         return tree
+
+    # -- per-iteration telemetry ----------------------------------------
+
+    def _telemetry_iter_begin(self) -> None:
+        """Snapshot the host-side phase totals and `tree/*` counters, so
+        that the iteration's record reports deltas.  One cached check
+        when telemetry is off; never touches the device either way.  An
+        iteration that aborts (no splittable leaf: its trees are taken
+        back) emits no record, so the stream holds only the iterations
+        of the model it describes."""
+        if not telemetry.enabled():
+            self._telem_t0 = None
+            return
+        self._telem_t0 = time.perf_counter()
+        self._telem_phases = profiling.timings()
+        self._telem_ctrs = profiling.counters_nosync("tree/")
+
+    def _telemetry_iter_end(self) -> None:
+        t0 = getattr(self, "_telem_t0", None)
+        if t0 is None:
+            return
+        dt = time.perf_counter() - t0
+        ph = {}
+        for k, v in profiling.timings().items():
+            d = v - self._telem_phases.get(k, 0.0)
+            if d > 1e-9:
+                ph[k] = round(d, 6)
+        # host-visible deltas only: `count_deferred` device totals fold
+        # in at the next drain (a /metrics scrape or a counters() read),
+        # so here they lag rather than force a device read
+        deltas = {k.rsplit("/", 1)[-1]:
+                  round(v - self._telem_ctrs.get(k, 0.0), 1)
+                  for k, v in profiling.counters_nosync("tree/").items()}
+        telemetry.event("train.iteration", iteration=self.iter_,
+                        trees=len(self.models), rows=self.num_data,
+                        seconds=round(dt, 6), phases=ph, counters=deltas)
+
+    def _telemetry_eval(self, out: List) -> None:
+        """Eval results as a `train.eval` record, emitted only where the
+        caller already holds them on the host (`_materialize`'s one
+        batched read), so the record adds no read of its own."""
+        if out and telemetry.enabled():
+            telemetry.event("train.eval", iteration=self.iter_,
+                            results=[[s, n, v] for s, n, v, _ in out])
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -459,15 +526,21 @@ class GBDT:
 
     def eval_train(self) -> List[Tuple[str, str, float, bool]]:
         out: List = []
-        self._eval_one_set("training", self.train_score, self.train_metrics,
-                           out)
-        return self._materialize(out)
+        with profiling.phase("metric"):
+            self._eval_one_set("training", self.train_score,
+                               self.train_metrics, out)
+            out = self._materialize(out)
+        self._telemetry_eval(out)
+        return out
 
     def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
         out: List = []
-        for name, _, su, ms in self.valid_sets:
-            self._eval_one_set(name, su, ms, out)
-        return self._materialize(out)
+        with profiling.phase("metric"):
+            for name, _, su, ms in self.valid_sets:
+                self._eval_one_set(name, su, ms, out)
+            out = self._materialize(out)
+        self._telemetry_eval(out)
+        return out
 
     def eval_and_check_early_stopping(self, results=None) -> bool:
         """Early stopping over the valid metrics (gbdt.cpp:472-578): stop
@@ -825,18 +898,24 @@ class GBDT:
         os.replace), so that a crash while writing leaves the previous
         checkpoint whole.  `extra` rides along in the state (the engine
         records a `finished` marker, so a rerun of a finished call trains
-        nothing).  The JAX package's telemetry span and fault-injection
-        seams are observability's (ROADMAP.md §A item 15)."""
+        nothing).  The write is the `train.checkpoint` span; the fault
+        seams `train.checkpoint` (half the payload lands at `path`, then
+        a crash) and `train.after_checkpoint` (a crash once the file is
+        in place) test the restart's recovery."""
         state = self.training_state()
         if extra:
             state.update(extra)
-        payload = json.dumps(state)
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
-            f.write(payload)
-        os.replace(tmp, path)
+        with telemetry.span("train.checkpoint", path=path,
+                            iteration=self.iter_, trees=len(self.models)):
+            payload = json.dumps(state)
+            faults.torn_write("train.checkpoint", path, payload)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(payload)
+            os.replace(tmp, path)
         log.debug(f"checkpoint saved to {path} (iteration {self.iter_}, "
                   f"{len(self.models)} trees)")
+        faults.check("train.after_checkpoint")
 
     def restore_training_state(self, state: Dict) -> None:
         """Apply a checkpoint's counters and RNG state, after
@@ -867,11 +946,16 @@ class GBDT:
         """Load the checkpoint's model, replay it onto fresh training
         scores one tree at a time, and restore the counters and RNG
         state.  Returns the iteration to go on from.  Valid sets added
-        after this call replay the restored model (add_valid does)."""
-        self.load_model_from_string(state["model"])
-        self._replay_kernel = "walk"
-        self.reset_training_data(train_set, objective)
-        self.restore_training_state(state)
+        after this call replay the restored model (add_valid does).  The
+        resume is the `train.resume` span."""
+        with telemetry.span(
+                "train.resume",
+                checkpoint_iteration=int(state.get("iteration", 0))) as sp:
+            self.load_model_from_string(state["model"])
+            self._replay_kernel = "walk"
+            self.reset_training_data(train_set, objective)
+            self.restore_training_state(state)
+            sp.set(trees=len(self.models))
         return self.iter_
 
 

@@ -105,8 +105,10 @@ def shrink_clip_leaves(leaf_value: torch.Tensor, num_leaves: int,
                        shrink: float) -> torch.Tensor:
     """Shrinkage + kMaxTreeOutput clamp (tree.h: ±100) + stump zeroing,
     in f32 as on the JAX device path."""
-    lv = torch.clamp(leaf_value * torch.tensor(np.float32(shrink),
-                                               device=leaf_value.device),
+    # torch.full, not torch.tensor: no blocking host-to-device copy
+    lv = torch.clamp(leaf_value * torch.full((), np.float32(shrink),
+                                             dtype=torch.float32,
+                                             device=leaf_value.device),
                      -100.0, 100.0)
     return lv * float(num_leaves >= 2)
 

@@ -901,6 +901,12 @@ def config_from_params(params: Dict[str, Any], **overrides) -> Config:
     # (reference: Log verbosity set once from config, log.h:38)
     from . import log
     log.configure(cfg.verbose)
+    # span tracing enables at the first config that names a sink, and
+    # only enables: a later config without the key must not turn a
+    # running daemon's telemetry off
+    if cfg.telemetry_path:
+        from . import telemetry
+        telemetry.configure(cfg.telemetry_path)
     return cfg
 
 

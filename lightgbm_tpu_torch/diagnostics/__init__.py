@@ -1,4 +1,5 @@
-"""Diagnostics of the serving plane: the deterministic fault-injection
-registry (`faults`), the runtime lock sanitizer (`locksan`) and the
-names of its counters (`sanitize`).  All three are standard library
-only, copies of lightgbm_tpu/diagnostics/."""
+"""Diagnostics: the deterministic fault-injection registry (`faults`),
+the runtime lock sanitizer (`locksan`), the hot-path and divergence
+sanitizers with their counter names (`sanitize`), and the static
+checks (`lint`, torchlint; `threadlint`).  `faults`, `locksan`, `lint`
+and `threadlint` are standard library only."""

@@ -44,9 +44,11 @@ Sites wired into the port:
   sidecar flush (the publish-intent recovery case)
 - ``online.state_write`` — daemon state sidecar torn mid-write, crash
 - ``traffic.append`` — traffic-log record torn mid-append, crash
-
-The JAX package's training seams (``train.checkpoint``,
-``train.after_checkpoint``) come with ROADMAP.md §A item 15.
+- ``train.checkpoint`` — training checkpoint torn mid-write, crash: the
+  restart logs the torn file and trains from scratch
+  (boosting/gbdt.py `save_checkpoint`)
+- ``train.after_checkpoint`` — crash right after a checkpoint landed:
+  the restart resumes from it to the uninterrupted model
 """
 from __future__ import annotations
 

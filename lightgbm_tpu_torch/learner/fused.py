@@ -124,6 +124,9 @@ def tree_arrays_to_host(arrs, dataset: Dataset, max_leaves: int,
         # the tree's one deliberate read: legal under the sync guard
         packed = pack_tree_arrays(arrs)
         with explicit_transfer():
+            # the callers count this fetch: RoundsTreeLearner.train (+1),
+            # FusedTreeLearner.train (1), GBDT._train_device_tree (+1)
+            # torchlint: allow(host-sync) — counted in last_host_syncs
             vec = packed.cpu().numpy()
         a = unpack_tree_arrays(vec, max_leaves)
         check_tree_divergence(mesh, name, vec, a.leaf_count)
@@ -808,6 +811,8 @@ class FusedTreeLearner:
             self.num_bins_dev, self.is_cat_dev, self._feature_mask(),
             self.ftbl, self.unb, **self._kw)
         if self.dd > 1:
+            # rank_rows is set on every rank of a pre-partitioned world
+            # torchlint: allow(divergent-collective) — and on none otherwise
             if self.rank_rows is None:
                 leaf_id = self.mesh.all_gather(leaf_id, "data").reshape(-1)
             leaf_id = leaf_id[:self.N]

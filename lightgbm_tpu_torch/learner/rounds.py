@@ -54,6 +54,7 @@ import torch
 from ..config import Config
 from .. import log, profiling
 from ..dataset import Dataset
+from ..diagnostics.sanitize import explicit_transfer
 from ..ops.histogram import (RowBins, hist_multileaf_gathered,
                              hist_multileaf_masked, hist_sparse_gathered,
                              hist_sparse_multileaf)
@@ -355,8 +356,10 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
             leaf_cnt2 = leaf_cnt.clone()
             leaf_cnt2[nii] = leaf_cnt[pl_] - ns_p
             leaf_cnt2[pii] = ns_p
-            leaf_off2[L] = 0
-            leaf_cnt2[L] = 0
+            # fill_, not `t[L] = 0`: a Python number assigned into a
+            # CUDA tensor is a blocking host-to-device copy
+            leaf_off2[L].fill_(0)
+            leaf_cnt2[L].fill_(0)
 
         # ---- smaller / larger children --------------------------------------
         small_is_left = l_sums[:, 2] <= r_sums[:, 2]
@@ -376,7 +379,10 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
                 return torch.nn.functional.pad(cnt, (0, pad)).view(
                     n_chunks, K).sum(1)
             payload += [chunk_totals(small_leaf), chunk_totals(large_leaf)]
-        host = torch.cat(payload).tolist()
+        # the round's one read: the split count and the pass totals
+        with explicit_transfer():
+            # torchlint: allow(host-sync) — counted in last_host_syncs
+            host = torch.cat(payload).tolist()
         syncs += 1
         m = int(host[0])
         if m == 0:
@@ -416,8 +422,8 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
         leaf_depth[newm] = child_depth
         leaf_parent[plm] = nodem
         leaf_parent[newm] = nodem
-        leaf_side[plm] = 0
-        leaf_side[newm] = 1
+        leaf_side.index_fill_(0, plm.long(), 0)
+        leaf_side.index_fill_(0, newm.long(), 1)
 
         # ---- batched child histograms and their best splits ----------------
         for c in range((m + K - 1) // K):
@@ -458,7 +464,7 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
         internal_count=icnt[:L - 1],
         leaf_value=lval, leaf_count=lcnt,
         leaf_depth=leaf_depth.to(torch.int32),
-        num_leaves=torch.tensor(n_leaves, dtype=torch.int32, device=dev))
+        num_leaves=torch.full((), n_leaves, dtype=torch.int32, device=dev))
     profiling.count(profiling.HIST_ROWS_TOUCHED, touched[0])
     if exchange is not None:
         exchange.mesh.record_tree_exchange(xbytes0)
@@ -702,6 +708,8 @@ class RoundsTreeLearner:
             self.bins_dev, grad, hess, mask, self.num_bins_dev,
             self.is_cat_dev, fmask, **self._kw)
         if self.mesh is not None:
+            # rank_rows is set on every rank of a pre-partitioned world
+            # torchlint: allow(divergent-collective) — and on none otherwise
             if self.rank_rows is None:
                 leaf_id = self.mesh.all_gather(
                     leaf_id, row_shard_axes(*self.mesh.shape)).reshape(-1)

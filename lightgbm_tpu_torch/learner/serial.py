@@ -185,6 +185,8 @@ class SerialTreeLearner:
             self.num_bins_dev, self.is_cat_dev, self._fmask, self.unb,
             num_bins_padded=self.B, split_kw=self.split_kw,
             count=self._live(count), num_store_bins=self.num_store_bins)
+        # the root's split record (the serial learner reads once a split)
+        # torchlint: allow(host-sync) — counted in last_host_syncs
         host = torch.cat([rec, sums]).cpu().numpy()
         self.last_host_syncs += 1
         return hist, host[:11], host[11:].astype(np.float64)
@@ -312,6 +314,8 @@ class SerialTreeLearner:
                         maybe_unbundle(hist_large, self.unb, ls),
                         self.num_bins_dev, self.is_cat_dev, self._fmask,
                         ls[0], ls[1], ls[2], **self.split_kw))
+                # the split's children's records
+                # torchlint: allow(host-sync) — counted in last_host_syncs
                 recs = torch.stack(recs).cpu().numpy()
                 self.last_host_syncs += 1
                 if need_small:

@@ -212,7 +212,10 @@ def labeled(name: str, **labels) -> str:
 @contextmanager
 def phase(name: str, force: bool = False) -> Iterator[None]:
     """Accumulate wall-clock under `name`.  No-op unless enabled, except
-    `force=True` (serving phases) which always accumulates."""
+    `force=True` (serving phases) which always accumulates.  It never
+    synchronises the device: it takes the host clock around launches
+    that may still be running, which is also what the JAX package's
+    phases measure around its asynchronous dispatches."""
     if not (ENABLED or force or _PHASES_FORCED):
         yield
         return

@@ -123,13 +123,20 @@ class QuantileSketch:
         self._absorb(other.vals, other.counts)
 
     def _absorb(self, v2: np.ndarray, c2: np.ndarray) -> None:
+        """Merge sorted distinct values `v2` with counts `c2` into the
+        summary.  Both sides are sorted runs, so a stable sort of their
+        concatenation is a linear merge (a re-sort of the whole summary
+        for every chunk made a stream of many chunks quadratic); equal
+        values then add their counts (whole numbers, exact in f64)."""
         v = np.concatenate([self.vals, v2])
         c = np.concatenate([self.counts, c2])
-        uv, inv = np.unique(v, return_inverse=True)
-        uc = np.zeros(uv.size, np.float64)
-        np.add.at(uc, inv, c)
-        self.vals, self.counts = uv, uc
-        if uv.size > self.capacity:
+        order = np.argsort(v, kind="stable")
+        v, c = v[order], c[order]
+        first = np.ones(v.size, bool)
+        np.not_equal(v[1:], v[:-1], out=first[1:])
+        starts = np.flatnonzero(first)
+        self.vals, self.counts = v[starts], np.add.reduceat(c, starts)
+        if self.vals.size > self.capacity:
             self._compact()
 
     def _compact(self) -> None:

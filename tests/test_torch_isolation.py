@@ -31,6 +31,8 @@ for want in ("lightgbm_tpu_torch.application",
              "lightgbm_tpu_torch.serving.server",
              "lightgbm_tpu_torch.diagnostics.faults",
              "lightgbm_tpu_torch.diagnostics.sanitize",
+             "lightgbm_tpu_torch.diagnostics.lint",
+             "lightgbm_tpu_torch.diagnostics.threadlint",
              "lightgbm_tpu_torch.learner.fused",
              "lightgbm_tpu_torch.online",
              "lightgbm_tpu_torch.online.refit",
@@ -79,6 +81,65 @@ def test_import_without_sklearn_loads_no_jax():
              'sys.modules["pandas"] = None\n' + _PROBE)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == ""
+
+
+# the port's static checks and its ingest bench: none may import JAX or
+# the JAX package (the linters and the checks import nothing but the
+# standard library, not even torch)
+_STANDALONE = {
+    "lightgbm_tpu_torch/diagnostics/lint.py": True,
+    "lightgbm_tpu_torch/diagnostics/threadlint.py": True,
+    "scripts/run_torch_lint.py": True,
+    "scripts/check_torch_config_coverage.py": True,
+    "scripts/check_torch_counter_names.py": True,
+    "scripts/bench_torch_ingest.py": False,
+}
+
+
+def _imported_modules(path):
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("rel", sorted(_STANDALONE))
+def test_static_checks_and_ingest_bench_import_no_jax(rel):
+    names = _imported_modules(os.path.join(ROOT, rel))
+    bad = {n for n in names if n.split(".")[0] in ("jax", "jaxlib")
+           or n == "lightgbm_tpu" or n.startswith("lightgbm_tpu.")}
+    assert not bad, bad
+    if _STANDALONE[rel]:
+        third_party = {n.split(".")[0] for n in names} - set(
+            sys.stdlib_module_names) - {"__future__"}
+        assert not third_party, third_party
+
+
+@pytest.mark.parametrize("script", ["run_torch_lint.py",
+                                    "check_torch_config_coverage.py",
+                                    "check_torch_counter_names.py"])
+def test_static_check_scripts_load_neither_jax_nor_torch(script):
+    code = f"""
+import runpy, sys
+sys.argv = [{script!r}]
+try:
+    runpy.run_path({os.path.join(ROOT, "scripts", script)!r},
+                   run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "torch", "lightgbm_tpu", "lightgbm_tpu_torch"))
+print("LOADED:" + ",".join(bad))
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "LOADED:", r.stdout
 
 
 def test_default_device_raises_without_gpu():

@@ -768,3 +768,59 @@ def test_two_ranks_on_one_card_train_the_one_rank_model(dev, tmp_path):
             assert st["launches"][k] > 0, k
         assert body(st["model"]) == body(one)
     assert res[0]["model"] == res[1]["model"]
+
+
+def test_telemetry_changes_neither_the_model_nor_the_host_reads(dev,
+                                                                tmp_path):
+    """chip_smoke.py phase 20a at a small size: the rounds learner (K1,
+    K3, K4) trained with telemetry off, with telemetry_path and
+    checkpoints in params, and with telemetry on under
+    HotPathSanitizer(warmup=2) gives one model string and the same host
+    reads a tree; the records are written; the sanitizer counts no
+    implicit transfer (the learner's declared reads are explicit)."""
+    import contextlib
+    import json
+
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import telemetry
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.diagnostics.sanitize import HotPathSanitizer
+    rng = np.random.RandomState(3)
+    X = rng.randn(20_000, 12)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] > 0).astype(np.float64)
+    p = {"objective": "binary", "num_leaves": 63, "max_bin": 255,
+         "histogram_dtype": "int8", "tree_growth": "rounds",
+         "verbose": -1, "device_type": "cuda"}
+    ds = lt.Dataset(X, y, params=p).construct()
+    runs = []
+    san = HotPathSanitizer(warmup=2, label="telemetry")
+    real = GBDT.train_one_iter
+
+    def stepped(self, *a, **k):
+        with san.step():
+            return real(self, *a, **k)
+    for i, extra in enumerate(({}, {"checkpoint_path": str(tmp_path / "ck"),
+                                    "checkpoint_interval": 2}, {})):
+        sink = str(tmp_path / f"t{i}.jsonl")
+        if i:
+            extra = dict(extra, telemetry_path=sink)
+        if i == 2:
+            GBDT.train_one_iter = stepped
+        try:
+            with san if i == 2 else contextlib.nullcontext():
+                bst = lt.train(dict(p, **extra), ds, 6, verbose_eval=False)
+        finally:
+            GBDT.train_one_iter = real
+            telemetry.reset()
+        runs.append((bst.model_to_string(),
+                     list(bst._gbdt.host_syncs_per_tree), sink))
+    assert runs[0][0] == runs[1][0] == runs[2][0]
+    assert runs[0][1] == runs[1][1] == runs[2][1]
+    with open(runs[1][2]) as f:
+        names = [json.loads(line)["name"] for line in f]
+    assert names.count("train.iteration") == 6
+    assert names.count("train.checkpoint") == 4
+    rep = san.report()
+    assert rep["steps"] == 6 and rep["implicit_transfers"] == 0, rep
+    assert rep["retraces_after_warmup"] == 0, rep
+
