@@ -75,6 +75,10 @@ call is the host f64 walk of every tree (LIGHTGBM_TPU_DEVICE_PREDICT=0,
              hist_sparse_xla over the ELL arrays, bitwise; times of
              kernel, plain version and one index_add_ over the flattened
              (slot, column, channel, bin) indices of the stored entries.
+             The slot-totals kernels of each pass (the zero-bin anchors;
+             csrc/hist_sparse.cu) against their plain version: int32
+             bitwise, float32 within n * 2^-23 * sum|x| a total; timed
+             beside one index_add_, their row in the {"kernels"} line.
              Then K7 at K=84, B=256 the same way (alone and through the
              whole pass, bitwise), once at the module's shared-memory
              budget and block length and once with slot tiles and
@@ -86,8 +90,9 @@ call is the host f64 walk of every tree (LIGHTGBM_TPU_DEVICE_PREDICT=0,
              datasets, float32 then int8 histograms (2 warm-up and 10
              timed iterations each, timed as in phase 3), NDCG@1..5 on
              the valid set every iteration; fails unless hist_sparse_f32,
-             hist_sparse_int8 and table_lookup launched, no sparse store
-             was densified (train or valid), NDCG@5 is finite and no lower
+             hist_sparse_int8, slot_totals and table_lookup launched, no
+             sparse store was densified (train or valid), NDCG@5 is
+             finite and no lower
              after the last iteration than after the first, and the
              device-scored valid set agrees with Booster.predict(
              raw_score=True) within 1e-4.
@@ -404,6 +409,21 @@ call is the host f64 walk of every tree (LIGHTGBM_TPU_DEVICE_PREDICT=0,
              valid AUC > 0.70); on a 100,000-row cut of each (streamed),
              card and CPU first trees as phase 7 and valid AUCs within
              1e-4.
+21. run to run (its parts run beside the phases whose data they share,
+             and print "[phase 21...]"; the ctr store is not rebuilt):
+             21a (phase 5 and 18a) — K8 twice on the real-valued K=31 pass
+             of the ctr store and of the bundled ctr store: bitwise.
+             21b (phase 5) — the slot totals of that float32 pass twice:
+             bitwise.  21c (phase 6) — its float32 training (12
+             iterations) once more: one model string and NDCG@1..5 equal
+             at every iteration.  21d
+             (phase 6) — AUC, NDCG@1..5 and MAP@1..5 of that model's
+             training scores, three calls each on the card: bitwise.
+             21e (at the end) — the native bulk binner must run on this
+             host, and must have binned every numerical column of the
+             uint8 stores of phase 17's file load and phase 20b's
+             monolithic set-up; their seconds are printed.  Fails on any
+             difference; prints the phase's seconds.
 
 Every kernel's ms is timed by CUDA events around each call, the method
 of earlier versions of this script; it includes the wrapper's host
@@ -1113,6 +1133,47 @@ def whole_pass_check(torch, H, sp, lid, gh, sl, Cp, B) -> None:
     torch.cuda.empty_cache()
 
 
+def slot_totals_check(torch, SS, srow, vals, K: int) -> dict:
+    """The slot-totals kernels against their plain version on one pass's
+    inputs (phase 5): int32 bitwise, float32 within n * 2^-23 * sum|x|
+    of each total (both sides reorder n additions, each within
+    n * 2^-24 * sum|x| of the exact sum); timed, with the bound (the slot
+    and three values of every row read once, [K, 3] written) and one
+    index_add_, which computes the same function.  Returns its
+    {"kernels"} row."""
+    quant = not vals.is_floating_point()
+    got = SS._slot_totals_cuda(srow, vals, K)
+    ref = SS.slot_totals_plain(srow, vals, K)
+    torch.cuda.synchronize()
+    err = (got.double() - ref.double()).abs().max().item()
+    if quant:
+        if not torch.equal(got, ref):
+            fail(f"slot totals (int32) differ from their plain version: "
+                 f"max |diff| {err}")
+    else:
+        ta = SS.slot_totals_plain(srow, vals.abs(), K).double()
+        tol = ta[:, 2:3] * 2.0 ** -23 * ta
+        if ((got.double() - ref.double()).abs() > tol).any():
+            fail(f"slot totals (float32) beyond n*2^-23*sum|x|: max |diff| "
+                 f"{err}")
+    N = srow.shape[0]
+    ms = time_ms(torch, lambda: SS._slot_totals_cuda(srow, vals, K), 20)
+    plain = time_ms(torch, lambda: SS.slot_totals_plain(srow, vals, K), 20)
+    out = torch.zeros((K + 1, 3), dtype=vals.dtype, device=srow.device)
+    idx, vt = srow.long(), vals.t()
+    lib = time_ms(torch, lambda: out.zero_().index_add_(0, idx, vt), 20)
+    bms, by = bound_ms(N * 16 + K * 12, 3.0 * N)
+    dtype = "int32" if quant else "float32"
+    print(f"[sparse kernels] slot_totals ({dtype}): N={N} K={K} "
+          f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain:.4f} "
+          f"library_ms={lib:.4f} bound_ms={bms:.4f} ({by})", flush=True)
+    return dict(name="slot_totals", route="cuda",
+                source="lightgbm_tpu_torch/csrc/hist_sparse.cu",
+                replaces="lightgbm_tpu/ops/histogram.py:963",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
 def phase_sparse_kernels(torch, H, SS, ds, sp):
     """K7 / K8 against their plain version on the ctr store (phase 5)."""
     dev = torch.device(GPU)
@@ -1129,6 +1190,9 @@ def phase_sparse_kernels(torch, H, SS, ds, sp):
              "lightgbm_tpu/ops/histogram.py:1133")):
         quant = input_dtype == "int8"
         srow, vals, tot, scale = H._sparse_pass(lid, gh, sl, input_dtype)
+        tot_row = slot_totals_check(torch, SS, srow, vals, K)
+        if not quant:
+            rows.append(tot_row)
         errs = [sparse_check(torch, H, SS, name, streams, zb, srow, vals,
                              tot, scale, K, Cp, B, quant)]
         if not quant:
@@ -1137,6 +1201,15 @@ def phase_sparse_kernels(torch, H, SS, ds, sp):
             errs.append(sparse_check(torch, H, SS, name, streams, zb, dsrow,
                                      dvals, dtot, None, K, Cp, B, True))
             del dsrow, dvals, dtot
+            gc.collect()
+            torch.cuda.empty_cache()
+            # phase 21a/21b: K8 and the slot totals on the real-valued
+            # gradients, twice each on the same inputs
+            run_to_run(torch, "a", f"{name} K={K} real-valued pass",
+                       lambda: SS._hist_streams_cuda(
+                           streams, zb, srow, vals, tot, None, K, Cp, B))
+            run_to_run(torch, "b", f"slot totals (float32, K={K}, {N:,} "
+                       "rows)", lambda: H._slot_totals(srow, vals, K))
         gc.collect()
         torch.cuda.empty_cache()
         if quant:
@@ -1266,16 +1339,92 @@ def phase_learner_passes(torch, lt, H, SS, params, ds, sp):
               flush=True)
 
 
+# phase 21's parts, run beside the phases whose data they share: seconds
+# by part, and the set-up seconds and binners of phases 17 and 20b
+P21 = {"s": {}, "setup": {}}
+
+
+def run_to_run(torch, part: str, label: str, fn, calls: int = 2) -> None:
+    """Phase 21: `calls` calls of fn on the same inputs, each result (a
+    tensor or a tuple of them) bitwise the first call's."""
+    t0 = time.perf_counter()
+    first = fn()
+    first = first if isinstance(first, tuple) else (first,)
+    for _ in range(calls - 1):
+        again = fn()
+        again = again if isinstance(again, tuple) else (again,)
+        for a, b in zip(first, again):
+            if not torch.equal(a, b):
+                n = int((a != b).sum()) if a.shape == b.shape else -1
+                fail(f"[phase 21{part}] {label}: {n} of {a.numel()} values "
+                     "differ between two calls on the same inputs")
+        del again
+    del first
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    P21["s"][part] = P21["s"].get(part, 0.0) + took
+    print(f"[phase 21{part}] {label}: {calls} calls bitwise equal "
+          f"({took:.2f} s)", flush=True)
+
+
+def ctr_train_twice(torch, lt, params, ds, vs, bst, res) -> None:
+    """Phase 21c: phase 6's float32 training again, the same 12
+    iterations: one model string and the same NDCG@1..5 at every
+    iteration, bit for bit."""
+    n = bst.num_trees()
+    ref = bst.model_to_string()
+    t0 = time.perf_counter()
+    res2 = {}
+    again = lt.train(params, ds, n, valid_sets=[vs], evals_result=res2,
+                     verbose_eval=False)
+    got = again.model_to_string()
+    if got != ref:
+        a, b = ref.splitlines(), got.splitlines()
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        fail(f"[phase 21c] ctr float32, {n} iterations: two trainings give "
+             f"two models; first differing line {i}: "
+             f"{a[i][:120] if i < len(a) else None!r} vs "
+             f"{b[i][:120] if i < len(b) else None!r}")
+    if res2 != res:
+        fail("[phase 21c] ctr float32: the valid NDCG differs between two "
+             "trainings of one model")
+    took = time.perf_counter() - t0
+    P21["s"]["c"] = took
+    print(f"[phase 21c] ctr float32, {n} iterations, trained twice: one "
+          f"model string ({len(ref)} chars), NDCG@1..5 equal at every "
+          f"iteration ({took:.2f} s)", flush=True)
+    del again
+
+
+def ctr_metrics_twice(torch, lt, ds, bst) -> None:
+    """Phase 21d: AUC (labels > 0), NDCG@1..5 and MAP@1..5 of the ctr
+    training scores (500,000 rows, 25,000 queries) on the card, three
+    calls each: bitwise."""
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.metrics import create_metric
+    dev = torch.device(GPU)
+    md = ds._inner.metadata
+    score = bst._gbdt.train_score.score
+    for name in ("ndcg", "map", "auc"):
+        m = create_metric(name, config_from_params({"device_type": GPU}))
+        m.init(md, ds._inner.num_data, dev)
+        run_to_run(torch, "d", f"{name} of the ctr training scores",
+                   lambda: torch.stack([v for _, v in m.eval(score)]), 3)
+
+
 def drive_ctr(torch, lt, kernels, dataset_mod, params, ds, vs, Xv,
-              warmup, timed, rows_ok=None):
+              warmup, timed, rows_ok=None, res=None):
     """lightgbm_tpu_torch.train on the built ctr Datasets, NDCG@1..5 of
-    the valid set every iteration; counts zeroed before, read after.
-    s/iter as in `drive`.  `rows_ok` (a bool mask) limits the comparison
-    of the device valid scores with the host walk to those rows."""
+    the valid set every iteration (into `res` when given); counts zeroed
+    before, read after.  s/iter as in `drive`.  `rows_ok` (a bool mask)
+    limits the comparison of the device valid scores with the host walk
+    to those rows."""
     gc.collect()
     kernels.reset_launches()
     dataset_mod.reset_sparse_fallbacks()
-    n, res, marks = warmup + timed, {}, []
+    n, marks = warmup + timed, []
+    res = {} if res is None else res
     torch.cuda.synchronize()
     t = time.perf_counter()
     bst = lt.train(params, ds, n, valid_sets=[vs], evals_result=res,
@@ -1319,14 +1468,20 @@ def phase_ctr_main(torch, lt, kernels, dataset_mod, params, ds, vs, Xv):
     for dtype, name in (("float32", "hist_sparse_f32"),
                         ("int8", "hist_sparse_int8")):
         torch.cuda.reset_peak_memory_stats()
-        _, st = drive_ctr(torch, lt, kernels, dataset_mod,
-                          dict(params, histogram_dtype=dtype), ds, vs, Xv,
-                          2, 10)
+        res = {}
+        bst, st = drive_ctr(torch, lt, kernels, dataset_mod,
+                            dict(params, histogram_dtype=dtype), ds, vs, Xv,
+                            2, 10, res=res)
         print(f"[ctr main] {dtype}: {json.dumps(st)}", flush=True)
-        for k in (name, "table_lookup"):
+        for k in (name, "table_lookup", "slot_totals"):
             if st["launches"][k] <= 0:
                 fail(f"ctr main path ({dtype}) never launched {k}")
         out[dtype] = st
+        if dtype == "float32":
+            ctr_train_twice(torch, lt, dict(params, histogram_dtype=dtype),
+                            ds, vs, bst, res)
+            ctr_metrics_twice(torch, lt, ds, bst)
+        del bst
     return out
 
 
@@ -3430,6 +3585,7 @@ def files_train(torch, lt, kernels, paths, st):
     from lightgbm_tpu_torch.dataset import parse_text_file
     conf, model = paths["conf"], paths["model"]
     parses = dict(native.PARSES)
+    binned = dict(native.BINNED)
     kernels.reset_launches()
     out, st["cli_s"] = run_app(torch, [f"config={conf}"])
     launches = dict(kernels.LAUNCHES)
@@ -3443,6 +3599,9 @@ def files_train(torch, lt, kernels, paths, st):
         fail("train.csv was not read by the native parser")
     st["cli_load_s"] = float(out.split("finished loading data in ")[1]
                              .split(" seconds")[0])
+    P21["setup"]["17_file_load_s"] = st["cli_load_s"]
+    P21["setup"]["17_binned"] = {k: native.BINNED[k] - binned[k]
+                                 for k in binned}
     if not os.path.exists(paths["train"] + ".bin"):
         fail("is_save_binary_file wrote no train.csv.bin")
     ref = read_text(model)
@@ -4059,6 +4218,9 @@ def bundled_k8_row(torch, H, SS, ds, launches):
     errs.append(sparse_check(torch, H, SS, name, streams, zb, dsrow, dvals,
                              dtot, None, K, Cp, B, True))
     del dsrow, dvals, dtot
+    run_to_run(torch, "a", f"{name} K={K} real-valued pass",
+               lambda: SS._hist_streams_cuda(streams, zb, srow, vals, tot,
+                                             None, K, Cp, B))
     ms = time_ms(torch, lambda: SS._hist_streams_cuda(
         streams, zb, srow, vals, tot, None, K, Cp, B), 10)
     plain = time_ms(torch, lambda: SS.hist_streams_plain(
@@ -4617,6 +4779,7 @@ def ingest_train(torch, lt, kernels, params, inner, Xv, yv, iters, label):
 def phase_ingest(torch, lt, kernels, base_params):
     """Phase 20b: streamed and sketch-binned datasets on the card."""
     import hashlib
+    from lightgbm_tpu_torch import native
     from lightgbm_tpu_torch.config import config_from_params
     from lightgbm_tpu_torch.dataset import Dataset as RawDataset
     from lightgbm_tpu_torch.sharded.ingest import array_stream
@@ -4631,8 +4794,14 @@ def phase_ingest(torch, lt, kernels, base_params):
         array_stream(X, y, chunk_rows=INGEST_CHUNK),
         config_from_params(p)).compacted()
     t1 = time.perf_counter()
+    binned = dict(native.BINNED)
     mono = RawDataset(X, y32, config_from_params(p))
     t2 = time.perf_counter()
+    P21["setup"]["20b_monolithic_s"] = t2 - t1
+    P21["setup"]["20b_monolithic_store_s"] = mono.setup_seconds["store"]
+    P21["setup"]["20b_stream_s"] = t1 - t0
+    P21["setup"]["20b_binned"] = {k: native.BINNED[k] - binned[k]
+                                  for k in binned}
     ps = dict(p, bin_find="sketch")
     sketch = RawDataset(X, y32, config_from_params(ps))
     t3 = time.perf_counter()
@@ -4750,14 +4919,18 @@ def phase_multigpu(torch, lt, kernels, card: str):
     env = dict(os.environ, BENCH_SANITIZE="1")
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
         env.pop(k, None)
+    # the CPU world's two ranks share the host's cores instead of each
+    # starting a thread a core
+    cpu_env = dict(env, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2)
+                                                // 2)))
     me = os.path.abspath(__file__)
     all_names = ",".join(n for n, _, _ in MG_WORKLOADS)
     res = {}
     with tmp_dir:
         # the card world, then the CPU world of the voting subset
-        for key, w, bk, dev, names in (
-                ("card", world, backend, GPU, all_names),
-                ("cpu", 2, "gloo", "cpu", MG_SUBSET)):
+        for key, w, bk, dev, names, wenv in (
+                ("card", world, backend, GPU, all_names, env),
+                ("cpu", 2, "gloo", "cpu", MG_SUBSET, cpu_env)):
             t0 = time.perf_counter()
             d = os.path.join(tmp, key)
             os.makedirs(d, exist_ok=True)
@@ -4765,7 +4938,7 @@ def phase_multigpu(torch, lt, kernels, card: str):
                       os.path.join(d, "store"), d, bk, dev, names]
                      for r in range(w)]
             try:
-                run_world(argvs, timeout=MG_TIMEOUT_S, env=env, log_dir=d,
+                run_world(argvs, timeout=MG_TIMEOUT_S, env=wenv, log_dir=d,
                           name=f"phase19_{key}", tail=4000)
             except WorldFailed as e:
                 fail(f"phase 19: {e}")
@@ -4857,6 +5030,32 @@ def phase_multigpu(torch, lt, kernels, card: str):
     return out
 
 
+def phase_run_to_run_summary(card: str) -> None:
+    """Phase 21e and the phase's total: the native binner must be built
+    on this host and must have binned the uint8 stores of phases 17 and
+    20b; their set-up seconds are printed beside which binner ran."""
+    import lightgbm_tpu_torch.native as native
+    probe = native.bin_numerical_native(
+        np.array([[-np.inf], [-0.0], [0.5], [np.nan], [np.inf]]), [0],
+        [np.array([0.0, 1.0, np.inf])])
+    if probe is None or probe[0].tolist() != [0, 0, 1, 0, 2]:
+        fail(f"[phase 21e] the native bulk binner did not run here: "
+             f"{probe}")
+    for key in ("17_binned", "20b_binned"):
+        got = P21["setup"].get(key)
+        if not got or not got["native"] or got["numpy"]:
+            fail(f"[phase 21e] {key}: the numerical columns did not all "
+                 f"bin through the native binner: {got}")
+    for part in "abcd":
+        if part not in P21["s"]:
+            fail(f"[phase 21{part}] did not run")
+    print(f"[phase 21e] set-up with the native binner: "
+          f"{json.dumps(P21['setup'])}", flush=True)
+    print(f"[phase 21] {sum(P21['s'].values()):.1f} s ("
+          + ", ".join(f"21{k} {v:.1f}" for k, v in sorted(P21["s"].items()))
+          + f") on {card}", flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4902,6 +5101,7 @@ def main() -> None:
     ctr = phase_ctr_main(torch, lt, kernels, dataset_mod, params, ds, vs,
                          Xv)
     for r in sparse_rows:
+        # K8 and the slot totals: from the float32 run
         src = ctr["int8" if r["name"] == "hist_sparse_int8" else "float32"]
         r["launches"] = src["launches"][r["name"]]
     rows += sparse_rows
@@ -4968,6 +5168,7 @@ def main() -> None:
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
     phase_multigpu(torch, lt, kernels, card)
     print(f"[time] {time.perf_counter() - t_start:.1f} s", flush=True)
+    phase_run_to_run_summary(card)
     print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",

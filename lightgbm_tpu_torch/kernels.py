@@ -48,6 +48,8 @@ SIGNATURES = {
                     [_P, _P, _P, _I, _P, _P, _I, _L, _P, _P, _P, _P, _L,
                      _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                      _P]),
+    "slot_totals": ("hist_sparse", "lgbt_slot_totals",
+                    [_P, _P, _L, _I, _I, _L, _P, _P, _P]),
     "hist_gathered": ("hist_gathered", "lgbt_hist_gathered",
                       [_P, _I, _L, _L, _I, _I, _I, _P, _L, _L, _I, _P, _P,
                        _P, _L, _I, _I, _I, _P, _P, _P, _P, _P]),
@@ -62,7 +64,8 @@ SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 LAUNCHES: Dict[str, int] = {"hist_masked_int8": 0, "hist_masked_f32": 0,
                             "table_lookup": 0, "partition_rows": 0,
                             "hist_sparse_int8": 0, "hist_sparse_f32": 0,
-                            "hist_gathered": 0, "hist_multirow": 0}
+                            "hist_gathered": 0, "hist_multirow": 0,
+                            "slot_totals": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

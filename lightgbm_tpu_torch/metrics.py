@@ -176,6 +176,7 @@ class NDCGMetric(Metric):
         self._disc = torch.as_tensor(discount.astype(np.float32),
                                      device=device)
         self._num_queries = len(sizes)
+        self._max_len = int(sizes.max(initial=1))
         self._qw = None if qw is None else torch.as_tensor(qw, device=device)
         self._label_int = torch.as_tensor(
             np.asarray(metadata.label).astype(np.int32), device=device)
@@ -187,7 +188,8 @@ class NDCGMetric(Metric):
         ks = tuple(int(k) for k in self.config.ndcg_eval_at)
         vals = deval.ndcg_at_k(score.reshape(-1), self._label_int,
                                self._qid, self._qstart, self._gain,
-                               self._disc, self._qw, ks, self._num_queries)
+                               self._disc, self._qw, ks, self._num_queries,
+                               self._max_len)
         return [(f"{self.name}@{k}", vals[i]) for i, k in enumerate(ks)]
 
 
@@ -204,7 +206,8 @@ class MAPMetric(NDCGMetric):
     def eval(self, score):
         ks = tuple(int(k) for k in self.config.ndcg_eval_at)
         vals = deval.map_at_k(score.reshape(-1), self._label_pos, self._qid,
-                              self._qstart, self._qw, ks, self._num_queries)
+                              self._qstart, self._qw, ks, self._num_queries,
+                              self._max_len)
         return [(f"{self.name}@{k}", vals[i]) for i, k in enumerate(ks)]
 
 

@@ -7,7 +7,10 @@ ctypes.
   (`src/native/c_api.cpp`: a model file and `LGBM_BoosterPredictForMat`
   with no Python).  `dataset.parse_text_file` takes the loader for files
   without a header.  Without g++ it is not built, and parsing takes the
-  NumPy parser (the same values) after one log line.
+  NumPy parser (the same values) after one log line.  The same library
+  holds the bulk binner (`lgbt_bin_numerical`, `bin_numerical_native`):
+  quantize.py bins the numerical columns of a uint8 store, and of a
+  serving request, through it, and through NumPy where it is not built.
 - `liblgbt_train_torch` — the training `LGBM_*` C ABI
   (`csrc/native/c_api_train.cpp`), which embeds CPython and delegates to
   `lightgbm_tpu_torch.capi`; built against the running interpreter's
@@ -46,6 +49,9 @@ TRAIN_SOURCE = PACKAGE_DIR / "csrc" / "native" / "c_api_train.cpp"
 # text files parsed, by parser ("native" or "numpy"), counted by
 # dataset.parse_text_file
 PARSES: Dict[str, int] = {"native": 0, "numpy": 0}
+# columns binned by quantize.py's row binning and serving quantizer, by
+# binner ("native": bin_numerical_native, "numpy": the NumPy searches)
+BINNED: Dict[str, int] = {"native": 0, "numpy": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
@@ -116,6 +122,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
         np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")]
     lib.lgbt_free_matrix.restype = None
     lib.lgbt_free_matrix.argtypes = [ctypes.c_void_p]
+    lib.lgbt_bin_numerical.restype = None
+    lib.lgbt_bin_numerical.argtypes = [
+        np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+        ctypes.c_int64, ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")]
     lib.LGBM_GetLastError.restype = ctypes.c_char_p
     _LIB = lib
     return _LIB
@@ -142,6 +157,30 @@ def parse_text_native(path: str, has_header: bool, label_idx: int
         return X, y
     finally:
         lib.lgbt_free_matrix(h)
+
+
+def bin_numerical_native(X: np.ndarray, cols: List[int],
+                         uppers_list: List[np.ndarray]
+                         ) -> Optional[np.ndarray]:
+    """Column-major [len(cols), n] uint8 bins of the numerical columns
+    `cols` of X [n, stride] against their bin upper bounds: the first
+    bound >= the value (searchsorted side='left'; a value above every
+    bound takes the last bin), NaN binned as 0.0.  None where the library
+    is not built or a feature has more than 256 bins."""
+    lib = get_lib()
+    if lib is None or any(len(u) > 256 for u in uppers_list):
+        return None
+    X = np.ascontiguousarray(X, np.float64)
+    n, stride = X.shape
+    cols_a = np.asarray(cols, np.int32)
+    offsets = np.zeros(len(uppers_list) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(u) for u in uppers_list])
+    uppers = (np.concatenate(uppers_list).astype(np.float64)
+              if len(uppers_list) else np.zeros(0, np.float64))
+    out = np.empty((len(cols), n), np.uint8)
+    lib.lgbt_bin_numerical(X, n, stride, cols_a, len(cols), uppers, offsets,
+                           out)
+    return out
 
 
 def python_flags() -> List[str]:

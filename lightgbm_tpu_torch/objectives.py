@@ -372,7 +372,8 @@ class LambdarankNDCG(Objective):
         dev = score.device
         s1 = score[0]
         s_pad = torch.cat([s1, torch.zeros(1, dtype=s1.dtype, device=dev)])
-        # one slot past the sentinel doc N collects the pad slots' adds
+        # each real document lies in one query, so it is written once;
+        # the pad slots all write the sentinel doc N, which is dropped
         g_flat = torch.zeros(N + 1, dtype=s1.dtype, device=dev)
         h_flat = torch.zeros(N + 1, dtype=s1.dtype, device=dev)
         neg_inf = torch.full((), -np.inf, dtype=s1.dtype, device=dev)
@@ -414,8 +415,10 @@ class LambdarankNDCG(Objective):
             lam_s = p_lambda.sum(dim=2) - p_lambda.sum(dim=1)
             hes_s = p_hess.sum(dim=2) + p_hess.sum(dim=1)
             docs = torch.gather(didx, 1, order).reshape(-1)
-            g_flat.index_add_(0, docs, lam_s.reshape(-1))
-            h_flat.index_add_(0, docs, hes_s.reshape(-1))
+            # + 0.0: the 0.0 + x of an add into the zeroed slot (-0.0 is
+            # written as +0.0)
+            g_flat[docs] = lam_s.reshape(-1) + 0.0
+            h_flat[docs] = hes_s.reshape(-1) + 0.0
         g, h = g_flat[:N], h_flat[:N]
         if self.weights is not None:
             g = g * self.weights

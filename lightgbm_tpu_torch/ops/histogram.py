@@ -42,7 +42,10 @@ Over the sparse store `hist_sparse_multileaf` runs the CUDA kernels K7
 column-sorted entry streams (ops/sparse_streams.py, the GPU form of the
 JAX package's `sparse_window_streams`): each block owns one column's
 histogram in shared memory and writes it once, with the column's zero
-bin and the int8 dequantize applied.  On the CPU it takes
+bin and the int8 dequantize applied; K8's float sums, like K7's integer
+ones, are the same bits on every run.  The slot totals that anchor the
+zero bins (`_slot_totals`) come from the slot-totals kernels there,
+summed in an order fixed by the inputs.  On the CPU it takes
 `hist_sparse_xla`, the JAX function's formulation over the ELL arrays
 (stored-entry sums, then the zero bins from each slot's totals).
 
@@ -60,8 +63,9 @@ import numpy as np
 import torch
 
 from .. import kernels, log
-from .sparse_streams import (build_sparse_streams, finish_sparse_hist,
-                             hist_streams)
+from .sparse_streams import (_slot_totals_cuda, build_sparse_streams,
+                             finish_sparse_hist, hist_streams,
+                             slot_totals_plain)
 
 # int32-accumulator bound: with constant hessians every row quantizes to
 # 127, so one bin can reach 127 * C; above 16M rows per pass the int8
@@ -996,9 +1000,11 @@ def _slot_totals(srow: torch.Tensor, vals: torch.Tensor,
                  K: int) -> torch.Tensor:
     """[K, 3] per-slot (sum_grad, sum_hess, count) over all rows of each
     slot — the zero-bin anchor; dtype follows vals [3, N] (int32 for the
-    quantized lanes, where the residual must stay an exact integer)."""
-    tot = torch.zeros((K + 1, 3), dtype=vals.dtype, device=vals.device)
-    return tot.index_add_(0, srow.long(), vals[:3].t())[:K]
+    quantized lanes, where the residual must stay an exact integer).
+    CUDA tensors take the slot-totals kernels (the same bits on every
+    run), CPU tensors their plain version (index_add_ in row order)."""
+    fn = _slot_totals_cuda if srow.is_cuda else slot_totals_plain
+    return fn(srow, vals, K)
 
 
 def _sparse_quant_ok(input_dtype: str, num_rows: int) -> bool:

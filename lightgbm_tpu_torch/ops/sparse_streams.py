@@ -18,6 +18,11 @@ totals minus the column's stored sums, and, for int8, one dequantize.
 A CUDA tensor launches K7 (int32 values) or K8 (float32) and raises if
 the launch is refused; a CPU tensor takes the plain version,
 `hist_streams_plain`, which computes the same function with index_add_.
+The per-pass set-up's slot totals have a kernel pair of the same source
+(`_slot_totals_cuda`, sums in an order fixed by the inputs) and a plain
+version (`slot_totals_plain`, index_add_); ops/histogram.py
+`_slot_totals` dispatches between them.  K7, K8 and the slot totals give
+the same bits on every run.
 """
 from __future__ import annotations
 
@@ -35,8 +40,15 @@ SPARSE_BLOCK_ENTRIES = 1 << 20
 # shared memory a block's histogram of k_tile slots may take; K is cut
 # into slot tiles above it (two blocks of this size fit on an SM)
 SPARSE_SMEM_BUDGET = 96 * 1024
+# the same for K8, whose block also stages a step's entries in shared
+# memory (csrc/hist_sparse.cu kStageBytes): a K=31 ctr pass in one tile
+SPARSE_SMEM_BUDGET_F32 = 24 * 1024
 # the most dynamic shared memory an H100 block may opt in to
 _SMEM_MAX = 227 * 1024
+# rows one block of the slot-totals kernel sums: at least this many, and
+# few enough for at most _TOTALS_BLOCKS blocks
+_TOTALS_MIN_ROWS = 2048
+_TOTALS_BLOCKS = 1024
 
 
 @dataclass
@@ -139,15 +151,22 @@ def _work_plan(col_off: torch.Tensor, order: torch.Tensor,
                     n_parts=int(nl.sum()))
 
 
-def slot_tile(K: int, nb: int, budget: int, rows: int) -> int:
+def slot_budget(quantized: bool) -> int:
+    """The shared-memory budget of a block's slot tile: K7's, or K8's."""
+    return SPARSE_SMEM_BUDGET if quantized else SPARSE_SMEM_BUDGET_F32
+
+
+def slot_tile(K: int, nb: int, budget: int, rows: int = 3) -> int:
     """Slots one block histograms: as many slots of `rows` words a bin
-    (3 for int32 sums, 4 for float32: csrc/hist_sparse.cu `Slot`; an odd
-    bin stride) as fit the shared-memory budget, at least one."""
+    (grad, hess and count: csrc/hist_sparse.cu; an odd bin stride) as
+    fit the shared-memory budget, at least one, with K cut into tiles of
+    equal size (the last one at most as large)."""
     per_slot = rows * (nb | 1) * 4
     if per_slot > _SMEM_MAX:
         raise ValueError(f"sparse histogram kernel supports up to "
                          f"{_SMEM_MAX // (4 * rows) - 1} bins, got {nb}")
-    return max(1, min(K, budget // per_slot))
+    most = max(1, min(K, budget // per_slot))
+    return -(-K // -(-K // most))
 
 
 def apply_zero_bin(hist: torch.Tensor, tot: torch.Tensor,
@@ -236,14 +255,16 @@ def _hist_streams_cuda(st: SparseStreams, zero_bin: torch.Tensor,
     if K == 0 or Cp == 0 or B == 0:
         return out
     nb = min(st.num_bins, B)
-    k_tile = slot_tile(K, nb, SPARSE_SMEM_BUDGET, 3 if quant else 4)
+    k_tile = slot_tile(K, nb, slot_budget(quant))
     n_tiles = -(-K // k_tile)
     chunk = SPARSE_BLOCK_ENTRIES
     plan = st.plan(chunk)
     # the kernel's per-pass row table (a 16-byte record a row: slot and
-    # the bits of the 3 values) and live-row bitmask, filled by the kernel
+    # the bits of the 3 values) and live-row bitmask of each slot tile,
+    # filled by the kernel
     rec = torch.empty((N, 4), dtype=torch.int32, device=dev)
-    live = torch.empty(-(-N // 32), dtype=torch.int32, device=dev)
+    live = torch.empty(n_tiles * -(-N // 32), dtype=torch.int32,
+                       device=dev)
     srow = srow.contiguous()
     vals = vals.contiguous()
     tot = tot.contiguous()
@@ -275,3 +296,42 @@ def hist_streams(st: SparseStreams, zero_bin: torch.Tensor,
     tensors."""
     fn = _hist_streams_cuda if st.e_row.is_cuda else hist_streams_plain
     return fn(st, zero_bin, srow, vals, tot, scale, K, Cp, B)
+
+
+def slot_totals_plain(srow: torch.Tensor, vals: torch.Tensor,
+                      K: int) -> torch.Tensor:
+    """Plain version of the slot-totals kernels: [K, 3] sums of vals
+    [3, N] over the rows of each slot (srow [N], K or more = none) by
+    index_add_, which adds in row order on the CPU."""
+    tot = torch.zeros((K + 1, 3), dtype=vals.dtype, device=vals.device)
+    idx = torch.clamp(srow.long(), max=K)
+    return tot.index_add_(0, idx, vals[:3].t())[:K]
+
+
+def _slot_totals_cuda(srow: torch.Tensor, vals: torch.Tensor,
+                      K: int) -> torch.Tensor:
+    """The slot-totals kernels of csrc/hist_sparse.cu: each block of
+    `rows` rows sums its rows' values per slot, then one warp per (slot,
+    channel) sums the blocks in order, with the plain version's
+    contract."""
+    N = srow.shape[0]
+    if srow.dtype != torch.int32 or srow.shape != (N,):
+        raise TypeError("slot totals take int32 srow [N]")
+    vals = vals[:3]
+    if vals.dtype not in (torch.int32, torch.float32) \
+            or vals.shape != (3, N):
+        raise TypeError("slot totals take [3, N] int32 or float32 vals")
+    dev = srow.device
+    tot = torch.empty((K, 3), dtype=vals.dtype, device=dev)
+    if K == 0:
+        return tot
+    rows = max(_TOTALS_MIN_ROWS, -(-N // (_TOTALS_BLOCKS * 256)) * 256)
+    partial = torch.empty(-(-N // rows) * K * 3, dtype=vals.dtype,
+                          device=dev)
+    srow = srow.contiguous()
+    vals = vals.contiguous()
+    kernels.call("slot_totals", srow.data_ptr(), vals.data_ptr(), N, K,
+                 int(not vals.is_floating_point()), rows, partial.data_ptr(),
+                 tot.data_ptr())
+    kernels.LAUNCHES["slot_totals"] += 1
+    return tot

@@ -5,9 +5,12 @@ Port of lightgbm_tpu/quantize.py.  The train policy (`bin_rows_into`,
 through here.  With a bundle plan (EFB), a packed
 feature folds its non-default bins into its shared store column with
 `binning.pack_bundle_column` (last writer wins on conflicting rows), and
-each function returns the conflicting rows it saw.  Every column goes
-through `BinMapper.value_to_bin`; the JAX package's native bulk binner
-gives the same bins and is not ported.
+each function returns the conflicting rows it saw.  `bin_rows_into` bins
+the numerical columns of a uint8 store that no bundle packs with the
+native bulk binner (`native.bin_numerical_native`, a binary search over
+the float64 bounds in C, NaN binned as 0.0), as the JAX package does,
+and every other column (and every column where the library is not
+built) through `BinMapper.value_to_bin`: the same bins either way.
 
 The serve policy (`FeatureQuantizer`): serving ingress under
 ``serve_quantize=binned`` quantizes each request chunk to the original
@@ -18,8 +21,10 @@ bin upper bounds, and ``bin(v) <= bin(t)`` iff ``uppers32[bin(t)] >=
 f32(v)`` iff ``f32(v) <= f32(t)``.  NaN and a category absent from the
 mapper's table quantize to the MISSING sentinel, one code past every
 real bin, so they route right everywhere, as in the raw kernel; +/-inf
-land on the last/first real bin.  The JAX package's native bulk binner
-is not ported: numeric features bin through an exact integer-keyed grid
+land on the last/first real bin.  Numeric features bin through the
+native bulk binner over the float32 bounds embedded in float64 (NaN
+staged as +inf, then overwritten by the sentinel) where the library is
+built and the store is uint8, else through an exact integer-keyed grid
 (`_NumericGrid`) or a searchsorted.
 
 The `.refbin` sidecar (`load_refbin`) is the frozen mapper set a model
@@ -35,7 +40,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from .binning import CATEGORICAL, BinMapper, pack_bundle_column
+from . import native
+from .binning import CATEGORICAL, NUMERICAL, BinMapper, pack_bundle_column
 from .log import LightGBMError
 
 
@@ -79,15 +85,34 @@ def bin_column_into(k: int, values: np.ndarray,
 def bin_rows_into(X: np.ndarray, mappers: Sequence[BinMapper],
                   used_features: Sequence[int], plan, store: np.ndarray,
                   row0: int) -> int:
-    """Bin raw rows X into store[:, row0:row0 + len(X)], feature by
-    feature in used order (so packed features fold in the JAX package's
-    order).  Returns the realized bundle conflicts."""
+    """Bin raw rows X into store[:, row0:row0 + len(X)]: the numerical
+    columns no bundle packs through the native bulk binner when the
+    store is uint8 and the library is built, the rest feature by feature
+    in used order (so packed features fold in the JAX package's order).
+    Returns the realized bundle conflicts."""
     sl = slice(row0, row0 + len(X))
     conflicts = 0
+    num_ks = [k for k, i in enumerate(used_features)
+              if mappers[i].bin_type == NUMERICAL
+              and (plan is None or not plan.feat_packed[k])]
+    done = set()
+    if store.dtype == np.uint8 and num_ks:
+        cols = [used_features[k] for k in num_ks]
+        out = native.bin_numerical_native(
+            X, cols, [mappers[i].bin_upper_bound for i in cols])
+        if out is not None:
+            for j, k in enumerate(num_ks):
+                c = k if plan is None else int(plan.feat_col[k])
+                store[c, sl] = out[j]
+            done = set(num_ks)
+            native.BINNED["native"] += len(num_ks)
     for k in range(len(used_features)):
+        if k in done:
+            continue
         c = k if plan is None else int(plan.feat_col[k])
         conflicts += bin_feature_column(k, X[:, used_features[k]], mappers,
                                         used_features, plan, store[c, sl])
+    native.BINNED["numpy"] += len(used_features) - len(done)
     return conflicts
 
 
@@ -179,7 +204,8 @@ class FeatureQuantizer:
 
     __slots__ = ("used_features", "num_total_features", "num_columns",
                  "dtype", "missing_bin", "_numeric", "_tables",
-                 "_num_ks", "_num_raw", "_grids")
+                 "_num_ks", "_num_raw", "_num_uppers64", "_grids",
+                 "_use_native")
 
     def __init__(self, mappers: Sequence[BinMapper],
                  used_features: Sequence[int]):
@@ -220,6 +246,14 @@ class FeatureQuantizer:
                     .astype(np.float32))
         self._num_ks = [k for k, isn in enumerate(self._numeric) if isn]
         self._num_raw = [self.used_features[k] for k in self._num_ks]
+        # the native binner searches the f32 bounds embedded in f64 (f64
+        # compares agree with f32 ones on f32 values): the f32 search
+        self._num_uppers64 = [self._tables[k].astype(np.float64)
+                              for k in self._num_ks]
+        # asked once whether the library is built, so quantize() stages
+        # no f64 copy of a chunk only to learn that it is not
+        self._use_native = (self.dtype == np.uint8
+                            and native.get_lib() is not None)
         # integer-keyed grid index per numeric feature (exact, with a
         # per-feature searchsorted fallback when its cell budget fails)
         self._grids = [_NumericGrid(self._tables[k])
@@ -231,19 +265,35 @@ class FeatureQuantizer:
         n = X.shape[0]
         out = np.zeros((n, self.num_columns), self.dtype)
         miss = self.missing_bin
-        # ---- numeric block: one cast, one key pass --------------------
+        # ---- numeric block: one cast, then the native binner or one
+        # key pass ------------------------------------------------------
         if self._num_ks:
             sub32 = X[:, self._num_raw].astype(np.float32)
             nanmask = np.isnan(sub32)
-            # +0.0f normalizes -0.0 so keys agree with f32 compares
-            keys = _f32_keys(sub32 + np.float32(0.0))
-            for j, k in enumerate(self._num_ks):
-                g = self._grids[j]
-                if g.ok:
-                    out[:, k] = g.lookup(keys[:, j])
-                else:
-                    out[:, k] = np.searchsorted(
-                        self._tables[k], sub32[:, j], side="left")
+            bins = None
+            if self._use_native:
+                sub64 = sub32.astype(np.float64)
+                # NaN as +inf (the last real bin): the binner's NaN -> 0.0
+                # must not fire; the sentinel overwrites these below
+                sub64[nanmask] = np.inf
+                bins = native.bin_numerical_native(
+                    sub64, list(range(len(self._num_ks))),
+                    self._num_uppers64)
+            if bins is not None:
+                for j, k in enumerate(self._num_ks):
+                    out[:, k] = bins[j]
+                native.BINNED["native"] += len(self._num_ks)
+            else:
+                # +0.0f normalizes -0.0 so keys agree with f32 compares
+                keys = _f32_keys(sub32 + np.float32(0.0))
+                for j, k in enumerate(self._num_ks):
+                    g = self._grids[j]
+                    if g.ok:
+                        out[:, k] = g.lookup(keys[:, j])
+                    else:
+                        out[:, k] = np.searchsorted(
+                            self._tables[k], sub32[:, j], side="left")
+                native.BINNED["numpy"] += len(self._num_ks)
             if nanmask.any():
                 out[:, self._num_ks] = np.where(
                     nanmask, self.dtype(miss), out[:, self._num_ks])

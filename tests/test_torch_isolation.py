@@ -83,7 +83,7 @@ def test_import_without_sklearn_loads_no_jax():
     assert r.stdout.strip() == ""
 
 
-# the port's static checks and its ingest bench: none may import JAX or
+# the port's static checks and its card scripts: none may import JAX or
 # the JAX package (the linters and the checks import nothing but the
 # standard library, not even torch)
 _STANDALONE = {
@@ -93,6 +93,8 @@ _STANDALONE = {
     "scripts/check_torch_config_coverage.py": True,
     "scripts/check_torch_counter_names.py": True,
     "scripts/bench_torch_ingest.py": False,
+    "scripts/bench_torch_k8.py": False,
+    "scripts/check_torch_run_to_run.py": False,
 }
 
 

@@ -22,7 +22,11 @@ of the exact sum, and both the kernel and its plain version reorder, so
 a stored cell agrees within n * 2^-23 * sum|x| of its own n entries; a
 zero bin (slot total minus the column's stored sums, each reordered on
 both sides) within n * 2^-22 * sum|x| of the slot's n rows.  With
-dyadic gradients every partial sum is exact and K8 is bitwise.  K5
+dyadic gradients every partial sum is exact and K8 is bitwise; on real
+ones it is bitwise from run to run, and so are the slot totals (int32
+bitwise against their plain version, float32 within n * 2^-23 * sum|x|
+of each total) and the ranking and AUC metrics (within rtol 1e-6 of the
+same metric on the CPU, where the sums run in another order).  K5
 (gathered-row histogram) sums each cell in a fixed order that differs
 from its plain version's, and so does K6 (M-row histogram, one owner
 thread a cell); both are held to the same n * 2^-23 * sum|x| per cell,
@@ -405,6 +409,7 @@ def test_hist_sparse_kernel_vs_plain(dev, monkeypatch, input_dtype, dyadic,
                                      K, B, budget, chunk):
     if budget is not None:
         monkeypatch.setattr(ss, "SPARSE_SMEM_BUDGET", budget)
+        monkeypatch.setattr(ss, "SPARSE_SMEM_BUDGET_F32", budget)
         monkeypatch.setattr(ss, "SPARSE_BLOCK_ENTRIES", chunk)
     C = 2_000
     cols, bins, zb, lid, gh, sl = _sparse_case(50_000, C, 64, 5, dyadic, K,
@@ -417,9 +422,8 @@ def test_hist_sparse_kernel_vs_plain(dev, monkeypatch, input_dtype, dyadic,
     st = ss.build_sparse_streams(cols.to(dev), bins.to(dev), C)
     plan = st.plan(ss.SPARSE_BLOCK_ENTRIES)
     if budget is not None:
-        rows = 3 if input_dtype == "int8" else 4
-        assert plan.n_long > 0 and ss.slot_tile(K, st.num_bins, budget,
-                                                rows) < K
+        assert plan.n_long > 0 and ss.slot_tile(K, st.num_bins,
+                                                budget) < K
     before = kernels.LAUNCHES[name]
     out = th.hist_sparse_multileaf(
         (cols.to(dev), bins.to(dev), zb.to(dev), st), lid.to(dev),
@@ -458,6 +462,107 @@ def _reorder_bound(cols, bins, srow, absv, zb, K, C, B):
     ok = (zb >= 0).nonzero()[:, 0]
     tol[:, ok, :, zb[ok].long()] += (tot[:, 2:3] * 2.0 ** -22 * tot)[None]
     return tol
+
+
+@pytest.mark.parametrize("K,B,budget,chunk", [
+    (7, 64, None, None),
+    # a copy of the tile a warp (K=1, the fused builder's pass)
+    (1, 64, None, 1_500),
+    # K8's slot tiles of 4 slots and columns of several chunks
+    (15, 128, 4 * 3 * 65 * 4, 1_500),
+])
+def test_hist_sparse_f32_is_the_same_from_run_to_run(dev, monkeypatch, K, B,
+                                                     budget, chunk):
+    """K8 and the slot totals called again on the same real-valued pass
+    give the same bits: no two threads add into one float cell (owner
+    warps, or a copy of a small tile a warp)."""
+    if budget is not None:
+        monkeypatch.setattr(ss, "SPARSE_SMEM_BUDGET_F32", budget)
+    if chunk is not None:
+        monkeypatch.setattr(ss, "SPARSE_BLOCK_ENTRIES", chunk)
+    C = 2_000
+    cols, bins, zb, lid, gh, sl = _sparse_case(50_000, C, 64, 9, False, K)
+    st = ss.build_sparse_streams(cols.to(dev), bins.to(dev), C)
+    if chunk is not None:
+        assert st.plan(chunk).n_long > 0
+    if budget is not None:
+        assert ss.slot_tile(K, st.num_bins, budget) < K
+    srow, vals, tot, _ = th._sparse_pass(lid.to(dev), gh.to(dev), sl.to(dev),
+                                         "float32")
+    zb = zb.to(dev)
+    first = ss._hist_streams_cuda(st, zb, srow, vals, tot, None, K, C, B)
+    first_tot = th._slot_totals(srow, vals, K)
+    for _ in range(3):
+        again = ss._hist_streams_cuda(st, zb, srow, vals, tot, None, K, C, B)
+        assert torch.equal(again, first)
+        assert torch.equal(th._slot_totals(srow, vals, K), first_tot)
+
+
+@pytest.mark.parametrize("input_dtype", ["int8", "float32"])
+@pytest.mark.parametrize("N,K", [(300_001, 31), (70_000, 300)])
+def test_slot_totals_kernel_vs_plain(dev, input_dtype, N, K):
+    """The slot-totals kernels against their plain version (int32
+    bitwise, float32 within n * 2^-23 * sum|x| a total), bitwise from run
+    to run; K=300 takes two slot tiles of the first kernel."""
+    rng = np.random.RandomState(N % 97)
+    lid = rng.randint(0, K + 5, N).astype(np.int32)
+    m = (rng.rand(N) > 0.1).astype(np.float32)
+    gh = np.stack([rng.randn(N) * m, rng.rand(N) * m, m]).astype(np.float32)
+    sl = np.arange(K, dtype=np.int32)
+    sl[3::7] = -1
+    srow, vals, _, _ = th._sparse_pass(torch.as_tensor(lid, device=dev),
+                                       torch.as_tensor(gh, device=dev),
+                                       torch.as_tensor(sl, device=dev),
+                                       input_dtype)
+    before = kernels.LAUNCHES["slot_totals"]
+    got = th._slot_totals(srow, vals, K)
+    assert kernels.LAUNCHES["slot_totals"] == before + 1
+    ref = ss.slot_totals_plain(srow.cpu(), vals.cpu(), K)
+    if input_dtype == "int8":
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
+    else:
+        ta = ss.slot_totals_plain(srow.cpu(), vals.cpu().abs(), K).double()
+        tol = ta[:, 2:3] * 2.0 ** -23 * ta
+        assert ((got.cpu().double() - ref.double()).abs() <= tol).all()
+    for _ in range(3):
+        assert torch.equal(th._slot_totals(srow, vals, K), got)
+
+
+def test_ranking_and_auc_metrics_are_the_same_from_run_to_run(dev):
+    """NDCG@k, MAP@k and AUC on the card: three calls bitwise equal, and
+    within rtol 1e-6 of the CPU."""
+    from lightgbm_tpu_torch.ops import eval as deval
+    rng = np.random.RandomState(5)
+    sizes = rng.randint(1, 60, 4_000)
+    n = int(sizes.sum())
+    qb = np.concatenate([[0], np.cumsum(sizes)])
+    qid = np.repeat(np.arange(sizes.size, dtype=np.int32), sizes)
+    qstart = np.repeat(qb[:-1].astype(np.int32), sizes)
+    label = rng.randint(0, 4, n)
+    score = rng.randn(n).astype(np.float32)
+    score[:500] = np.round(score[:500])                # tied scores
+    gain = (2.0 ** np.arange(31) - 1).astype(np.float32)
+    disc = (1.0 / np.log2(2.0 + np.arange(n))).astype(np.float32)
+    w = (rng.rand(n) + 0.5).astype(np.float32)
+    ks = (1, 3, 5, 10)
+
+    def metrics(d):
+        t = lambda a: torch.as_tensor(a, device=d)     # noqa: E731
+        return (deval.ndcg_at_k(t(score), t(label.astype(np.int32)),
+                                t(qid), t(qstart), t(gain), t(disc), None,
+                                ks, sizes.size, int(sizes.max())),
+                deval.map_at_k(t(score), t(label > 0), t(qid), t(qstart),
+                               None, ks, sizes.size, int(sizes.max())),
+                deval.auc(t(score), t((label > 0).astype(np.float32)),
+                          t(w)),
+                deval.auc(t(score), t((label > 0).astype(np.float32)),
+                          None))
+    first = metrics(dev)
+    for _ in range(2):
+        for a, b in zip(metrics(dev), first):
+            assert torch.equal(a, b)
+    for a, b in zip(first, metrics(torch.device("cpu"))):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-6)
 
 
 def test_cuda_tensor_never_takes_the_plain_version(dev, monkeypatch):

@@ -200,13 +200,15 @@ def test_work_plan_and_slot_tiles(monkeypatch, K, B):
         assert base[li] == nch[nch > 1][:li].sum()
     # slot tiles: within the budget, every slot in exactly one tile
     nb = min(st.num_bins, B)
-    for rows in (3, 4):                              # int32, float32 sums
+    for rows in (3, 6):             # grad, hess, count; twice as wide
         k_tile = ss.slot_tile(K, nb, ss.SPARSE_SMEM_BUDGET, rows)
         assert k_tile * rows * (nb | 1) * 4 <= max(ss.SPARSE_SMEM_BUDGET,
                                                    rows * (nb | 1) * 4)
         tiles = [range(k0, min(K, k0 + k_tile))
                  for k0 in range(0, K, k_tile)]
         assert sorted(k for t in tiles for k in t) == list(range(K))
+        # tiles of equal size, the last one at most as large
+        assert len(tiles[0]) - len(tiles[-1]) < len(tiles)
         if K == 84:
             assert len(tiles) > 1
         with pytest.raises(ValueError, match="bins"):
