@@ -40,10 +40,15 @@ and the synchronous path, with host trees shrunk in f64, as the JAX
 package's multi-process worlds take it.  Either way every rank's model
 string is the same.
 
-Observability, as in the JAX package: the TIMETAG phases `boosting`,
-`bagging`, `tree`, `score` and `metric` (profiling.phase: host
-wall-clock around asynchronous launches, no device synchronisation),
-one `train.iteration` record a completed iteration and one `train.eval`
+Observability, as in the JAX package: the TIMETAG phases `boosting`
+(the objective's gradients), `bagging`, `tree`, `score` and `metric`
+(profiling.phase: host seconds around asynchronous launches, no device
+synchronisation), each also a host range `lgbt::<phase>` that
+torch.profiler records, as are the rounds learner's `learner.*` ranges
+inside `tree` (profiling.range; the tree's fetch here is
+`learner.round`), so a device trace says which phase held the device
+idle or launched a kernel, which the host seconds cannot; one
+`train.iteration` record a completed iteration and one `train.eval`
 record an evaluation, once telemetry is on (`telemetry_path` or
 LIGHTGBM_TPU_TELEMETRY), with no device read of their own; the
 `train.checkpoint` and `train.resume` spans, and the fault seams
@@ -411,10 +416,11 @@ class GBDT:
         the device tree arrays."""
         with profiling.phase("tree"):
             arrs, leaf_id = self.learner.train_device(gradient, hessian, bag)
-            tree = tree_arrays_to_host(
-                arrs, self.train_set, self.config.num_leaves,
-                mesh=getattr(self.learner, "mesh", None),
-                name=self.learner.tree_name)
+            with profiling.range("learner.round"):
+                tree = tree_arrays_to_host(
+                    arrs, self.train_set, self.config.num_leaves,
+                    mesh=getattr(self.learner, "mesh", None),
+                    name=self.learner.tree_name)
         self.host_syncs_per_tree.append(self.learner.last_host_syncs + 1)
         if tree.num_leaves <= 1:
             warnings.warn("Stopped training because there are no more "

@@ -45,14 +45,13 @@ the file's rows, binned with mappers derived from every rank's sample
 from __future__ import annotations
 
 import os
-import time
 import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import log
+from . import log, profiling
 from .binning import (BinMapper, BundlePlan, CATEGORICAL, find_bin_mappers,
                       plan_bundles)
 from .config import Config
@@ -467,35 +466,39 @@ class Dataset:
                  metadata: Optional[Metadata] = None,
                  feature_names: Optional[List[str]] = None,
                  categorical_feature: Sequence[int] = ()):
-        t0 = time.perf_counter()
-        cfg = config or Config()
-        X = np.ascontiguousarray(np.asarray(X, dtype=np.float64))
-        if X.ndim != 2:
-            raise ValueError("X must be 2-dimensional")
-        n, num_raw = X.shape
-        if reference is not None:
-            # a valid set takes its reference's mappers and bundle plan,
-            # so it shares the training walk and unbundle tables
-            if num_raw != reference.num_total_features:
-                raise ValueError("validation data has different #features")
-            mappers, used = reference.mappers, reference.used_features
-            plan = reference.bundle_plan
-        else:
-            mappers, used, plan = self._find_mappers(
-                X, cfg, categorical_feature,
-                sketch=cfg.bin_find == "sketch")
-        self._init_store(cfg, mappers, used, n, num_raw, feature_names, plan)
-        t1 = time.perf_counter()
-        self._bin_rows_into(X, 0)
-        self._check_realized_conflicts()
-        # training sets by the resolver; valid sets follow their
-        # reference's layout (a csr valid set is scored from its ELL rows)
-        if ((reference is None or reference.sparse is not None)
-                and resolve_sparse_store(cfg, mappers, used, plan)):
-            self._sparsify_store()
+        with profiling.phase("dataset.binning", force=True) as binning:
+            cfg = config or Config()
+            X = np.ascontiguousarray(np.asarray(X, dtype=np.float64))
+            if X.ndim != 2:
+                raise ValueError("X must be 2-dimensional")
+            n, num_raw = X.shape
+            if reference is not None:
+                # a valid set takes its reference's mappers and bundle
+                # plan, so it shares the training walk and unbundle
+                # tables
+                if num_raw != reference.num_total_features:
+                    raise ValueError(
+                        "validation data has different #features")
+                mappers, used = reference.mappers, reference.used_features
+                plan = reference.bundle_plan
+            else:
+                mappers, used, plan = self._find_mappers(
+                    X, cfg, categorical_feature,
+                    sketch=cfg.bin_find == "sketch")
+            self._init_store(cfg, mappers, used, n, num_raw, feature_names,
+                             plan)
+        with profiling.phase("dataset.store", force=True) as store:
+            self._bin_rows_into(X, 0)
+            self._check_realized_conflicts()
+            # training sets by the resolver; valid sets follow their
+            # reference's layout (a csr valid set is scored from its ELL
+            # rows)
+            if ((reference is None or reference.sparse is not None)
+                    and resolve_sparse_store(cfg, mappers, used, plan)):
+                self._sparsify_store()
         # host seconds of the mappers and bundle plan, and of the store
-        self.setup_seconds = {"binning": t1 - t0,
-                              "store": time.perf_counter() - t1}
+        self.setup_seconds = {"binning": binning.seconds,
+                              "store": store.seconds}
         self._set_metadata(metadata, label)
 
     @staticmethod
@@ -582,48 +585,51 @@ class Dataset:
         Neither route materializes the dense [N, F] float64 matrix.
 
         `setup_seconds` records the host time of the two steps:
-        {"binning": sample + FindBin, "store": the store build}."""
-        t0 = time.perf_counter()
-        sp = sp_matrix.tocsc()
-        n, num_raw = sp.shape
-        indptr = np.asarray(sp.indptr, np.int64)
-        indices, data = sp.indices, sp.data
-        if reference is not None:
-            if num_raw != reference.num_total_features:
-                raise ValueError("validation data has different #features")
-            mappers, used = reference.mappers, reference.used_features
-            plan = reference.bundle_plan
-        else:
-            S = min(int(cfg.bin_construct_sample_cnt), n)
-            rng = np.random.RandomState(cfg.data_random_seed)
-            rows = (np.sort(rng.choice(n, S, replace=False)) if n > S
-                    else np.arange(n))
-            sample = _csc_row_sample(indptr, indices, data, rows, num_raw)
-            mappers, used, plan = cls._find_mappers(sample, cfg,
-                                                    categorical_feature)
-            del sample
-        ds = cls.__new__(cls)
-        sparse = reference is None and resolve_sparse_store(cfg, mappers,
-                                                            used, plan)
-        # the sparse build never allocates the dense store
-        ds._init_store(cfg, mappers, used, 0 if sparse else n, num_raw,
-                       feature_names, plan)
-        ds.num_data = n
-        t1 = time.perf_counter()
-        if sparse:
-            ds._build_sparse_from_csc(indptr, indices, data,
-                                      bool(sp.has_canonical_format))
-        else:
-            col = np.empty(n, np.float64)
-            for k, i in enumerate(used):
-                col[:] = 0.0
-                s, e = int(indptr[i]), int(indptr[i + 1])
-                col[indices[s:e]] = data[s:e]
-                ds.bundle_conflict_rows += bin_column_into(
-                    k, col, mappers, used, plan, ds._bins)
-            ds._check_realized_conflicts()
-        ds.setup_seconds = {"binning": t1 - t0,
-                            "store": time.perf_counter() - t1}
+        {"binning": sample + FindBin, "store": the store build}, the
+        `dataset.binning` and `dataset.store` phases."""
+        with profiling.phase("dataset.binning", force=True) as binning:
+            sp = sp_matrix.tocsc()
+            n, num_raw = sp.shape
+            indptr = np.asarray(sp.indptr, np.int64)
+            indices, data = sp.indices, sp.data
+            if reference is not None:
+                if num_raw != reference.num_total_features:
+                    raise ValueError(
+                        "validation data has different #features")
+                mappers, used = reference.mappers, reference.used_features
+                plan = reference.bundle_plan
+            else:
+                S = min(int(cfg.bin_construct_sample_cnt), n)
+                rng = np.random.RandomState(cfg.data_random_seed)
+                rows = (np.sort(rng.choice(n, S, replace=False)) if n > S
+                        else np.arange(n))
+                sample = _csc_row_sample(indptr, indices, data, rows,
+                                         num_raw)
+                mappers, used, plan = cls._find_mappers(sample, cfg,
+                                                        categorical_feature)
+                del sample
+            ds = cls.__new__(cls)
+            sparse = reference is None and resolve_sparse_store(
+                cfg, mappers, used, plan)
+            # the sparse build never allocates the dense store
+            ds._init_store(cfg, mappers, used, 0 if sparse else n, num_raw,
+                           feature_names, plan)
+            ds.num_data = n
+        with profiling.phase("dataset.store", force=True) as store:
+            if sparse:
+                ds._build_sparse_from_csc(indptr, indices, data,
+                                          bool(sp.has_canonical_format))
+            else:
+                col = np.empty(n, np.float64)
+                for k, i in enumerate(used):
+                    col[:] = 0.0
+                    s, e = int(indptr[i]), int(indptr[i + 1])
+                    col[indices[s:e]] = data[s:e]
+                    ds.bundle_conflict_rows += bin_column_into(
+                        k, col, mappers, used, plan, ds._bins)
+                ds._check_realized_conflicts()
+        ds.setup_seconds = {"binning": binning.seconds,
+                            "store": store.seconds}
         ds._set_metadata(metadata, label)
         return ds
 

@@ -215,17 +215,20 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
                                      exchange=xch)
 
     # ---- root --------------------------------------------------------------
-    gh8 = torch.stack([grad * row_mask, hess * row_mask, row_mask])
-    lid0 = torch.zeros(N, dtype=torch.int32, device=dev)
-    root_x = exchange
-    if hx:
-        root_x = HistExchange(exchange.mesh, scatter=False)
-    hist0 = hist_masked(lid0, torch.zeros(1, dtype=torch.int32, device=dev),
-                        root_x)[0]                            # [F, 3, B]
-    # summed in f64, so the card's root totals are the CPU's
-    root_sums = hist0[0].to(torch.float64).sum(dim=-1).to(torch.float32)
-    if hx:
-        hist0 = hist0[off:off + Fs].contiguous()              # [Fs, 3, B]
+    with profiling.range("learner.histogram"):
+        gh8 = torch.stack([grad * row_mask, hess * row_mask, row_mask])
+        lid0 = torch.zeros(N, dtype=torch.int32, device=dev)
+        root_x = exchange
+        if hx:
+            root_x = HistExchange(exchange.mesh, scatter=False)
+        hist0 = hist_masked(lid0,
+                            torch.zeros(1, dtype=torch.int32, device=dev),
+                            root_x)[0]                        # [F, 3, B]
+        # summed in f64, so the card's root totals are the CPU's
+        root_sums = hist0[0].to(torch.float64).sum(dim=-1).to(
+            torch.float32)
+        if hx:
+            hist0 = hist0[off:off + Fs].contiguous()          # [Fs, 3, B]
 
     leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
     if gathered:
@@ -241,15 +244,16 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
         leaf_off = torch.zeros(L + 1, **i64)           # slot L: drop slot
         leaf_cnt = torch.zeros(L + 1, **i64)
         leaf_cnt[0] = n_active
-    leaf_best = torch.full((L, 11), NEG_INF, **f32)
-    leaf_best[0] = find_best_batch(hist0[None], root_sums[None])[0]
+    with profiling.range("learner.split_search"):
+        leaf_best = torch.full((L, 11), NEG_INF, **f32)
+        leaf_best[0] = find_best_batch(hist0[None], root_sums[None])[0]
+        leaf_hist = None
+        if cache_parent_hist:
+            leaf_hist = torch.zeros((L,) + tuple(hist0.shape), **f32)
+            leaf_hist[0] = hist0
     leaf_depth = torch.zeros(L, **i64)
     leaf_parent = torch.full((L,), -1, **i64)
     leaf_side = torch.zeros(L, **i64)
-    leaf_hist = None
-    if cache_parent_hist:
-        leaf_hist = torch.zeros((L,) + tuple(hist0.shape), **f32)
-        leaf_hist[0] = hist0
 
     # tree arrays; the [L-1] node arrays carry a drop slot at L-1
     sf = torch.zeros(L, **i64)
@@ -310,56 +314,60 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
         l_sums = rec[:, 3:6]
         r_sums = rec[:, 6:9]
 
-        # ---- partition all rows in one pass -------------------------------
-        colv, Tv, lov, hi1v, dlv = bundle_predicate_params(ftbl, feat, thr,
-                                                           catf)
-        tbl_idx = torch.where(do, pl_, torch.full_like(pl_, L))
-        tbl = torch.zeros((7, L + 1), **f32)
-        tbl[:, tbl_idx] = torch.stack([
-            colv.to(torch.float32), Tv.to(torch.float32),
-            catf.to(torch.float32), new_leaf.to(torch.float32),
-            lov.to(torch.float32), hi1v.to(torch.float32),
-            dlv.to(torch.float32)])
-        # column L collects the non-splitting slots and is never read:
-        # leaf ids are < L; zero it so the table stays a pure function
-        tbl[:, L] = 0.0
-        if sparse:
-            leaf_id2 = partition_rows_sparse(sp_cols, sp_bins, sp_zb,
-                                             leaf_id, tbl)
-        else:
-            leaf_id2 = partition_rows(bins, leaf_id, tbl)
+        # ---- partition all rows in one pass, then compact ---------------
+        with profiling.range("learner.partition"):
+            colv, Tv, lov, hi1v, dlv = bundle_predicate_params(
+                ftbl, feat, thr, catf)
+            tbl_idx = torch.where(do, pl_, torch.full_like(pl_, L))
+            tbl = torch.zeros((7, L + 1), **f32)
+            tbl[:, tbl_idx] = torch.stack([
+                colv.to(torch.float32), Tv.to(torch.float32),
+                catf.to(torch.float32), new_leaf.to(torch.float32),
+                lov.to(torch.float32), hi1v.to(torch.float32),
+                dlv.to(torch.float32)])
+            # column L collects the non-splitting slots and is never
+            # read: leaf ids are < L; zero it so the table stays a pure
+            # function
+            tbl[:, L] = 0.0
+            if sparse:
+                leaf_id2 = partition_rows_sparse(sp_cols, sp_bins, sp_zb,
+                                                 leaf_id, tbl)
+            else:
+                leaf_id2 = partition_rows(bins, leaf_id, tbl)
 
-        # ---- stable row compaction (DataPartition::Split) -----------------
-        if gathered:
-            posn = torch.arange(N, **i64)
-            n_act = leaf_cnt[:L].sum()
-            ol = leaf_id[perm].to(torch.int64)
-            nl = leaf_id2[perm].to(torch.int64)
-            stay = nl == ol
-            csp = torch.cat([torch.zeros(1, **i64),
-                             torch.cumsum(stay.to(torch.int64), 0)])
-            soff = leaf_off[ol]
-            seg_stays = csp[soff]
-            rstay = csp[:N] - seg_stays
-            ns_row = csp[soff + leaf_cnt[ol]] - seg_stays
-            dest = soff + torch.where(stay, rstay,
-                                      ns_row + (posn - soff) - rstay)
-            dest = torch.where(posn >= n_act, posn, dest)
-            perm2 = torch.empty_like(perm)
-            perm2[dest] = perm
-            ns_leaf = csp[leaf_off[:L] + leaf_cnt[:L]] - csp[leaf_off[:L]]
-            ns_p = ns_leaf[pl_]
-            nii = torch.where(do, new_leaf, torch.full_like(new_leaf, L))
-            pii = torch.where(do, pl_, torch.full_like(pl_, L))
-            leaf_off2 = leaf_off.clone()
-            leaf_off2[nii] = leaf_off[pl_] + ns_p
-            leaf_cnt2 = leaf_cnt.clone()
-            leaf_cnt2[nii] = leaf_cnt[pl_] - ns_p
-            leaf_cnt2[pii] = ns_p
-            # fill_, not `t[L] = 0`: a Python number assigned into a
-            # CUDA tensor is a blocking host-to-device copy
-            leaf_off2[L].fill_(0)
-            leaf_cnt2[L].fill_(0)
+            # ---- stable row compaction (DataPartition::Split) ---------
+            if gathered:
+                posn = torch.arange(N, **i64)
+                n_act = leaf_cnt[:L].sum()
+                ol = leaf_id[perm].to(torch.int64)
+                nl = leaf_id2[perm].to(torch.int64)
+                stay = nl == ol
+                csp = torch.cat([torch.zeros(1, **i64),
+                                 torch.cumsum(stay.to(torch.int64), 0)])
+                soff = leaf_off[ol]
+                seg_stays = csp[soff]
+                rstay = csp[:N] - seg_stays
+                ns_row = csp[soff + leaf_cnt[ol]] - seg_stays
+                dest = soff + torch.where(stay, rstay,
+                                          ns_row + (posn - soff) - rstay)
+                dest = torch.where(posn >= n_act, posn, dest)
+                perm2 = torch.empty_like(perm)
+                perm2[dest] = perm
+                ns_leaf = (csp[leaf_off[:L] + leaf_cnt[:L]]
+                           - csp[leaf_off[:L]])
+                ns_p = ns_leaf[pl_]
+                nii = torch.where(do, new_leaf,
+                                  torch.full_like(new_leaf, L))
+                pii = torch.where(do, pl_, torch.full_like(pl_, L))
+                leaf_off2 = leaf_off.clone()
+                leaf_off2[nii] = leaf_off[pl_] + ns_p
+                leaf_cnt2 = leaf_cnt.clone()
+                leaf_cnt2[nii] = leaf_cnt[pl_] - ns_p
+                leaf_cnt2[pii] = ns_p
+                # fill_, not `t[L] = 0`: a Python number assigned into a
+                # CUDA tensor is a blocking host-to-device copy
+                leaf_off2[L].fill_(0)
+                leaf_cnt2[L].fill_(0)
 
         # ---- smaller / larger children --------------------------------------
         small_is_left = l_sums[:, 2] <= r_sums[:, 2]
@@ -430,27 +438,29 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
             s = c * K
             na = min(K, m - s)
             sil = small_is_left[s:s + na]
-            h_small = hist_slots(small_leaf[s:s + na],
-                                 tiers_small if gathered else None,
-                                 tot_small[c])
-            if cache_parent_hist:
-                h_large = leaf_hist[pl_[s:s + na]] - h_small
-            else:
-                h_large = hist_slots(large_leaf[s:s + na],
-                                     tiers_all if gathered else None,
-                                     tot_large[c])
-            rec_s = find_best_batch(h_small, small_sums[s:s + na])
-            rec_l = find_best_batch(h_large, large_sums[s:s + na])
-            li = pl_[s:s + na]
-            ni = new_leaf[s:s + na]
-            leaf_best[li] = torch.where(sil[:, None], rec_s, rec_l)
-            leaf_best[ni] = torch.where(sil[:, None], rec_l, rec_s)
-            if cache_parent_hist:
-                s4 = sil[:, None, None, None]
-                hL = torch.where(s4, h_small, h_large)
-                hR = torch.where(s4, h_large, h_small)
-                leaf_hist[li] = hL
-                leaf_hist[ni] = hR
+            with profiling.range("learner.histogram"):
+                h_small = hist_slots(small_leaf[s:s + na],
+                                     tiers_small if gathered else None,
+                                     tot_small[c])
+                if cache_parent_hist:
+                    h_large = leaf_hist[pl_[s:s + na]] - h_small
+                else:
+                    h_large = hist_slots(large_leaf[s:s + na],
+                                         tiers_all if gathered else None,
+                                         tot_large[c])
+            with profiling.range("learner.split_search"):
+                rec_s = find_best_batch(h_small, small_sums[s:s + na])
+                rec_l = find_best_batch(h_large, large_sums[s:s + na])
+                li = pl_[s:s + na]
+                ni = new_leaf[s:s + na]
+                leaf_best[li] = torch.where(sil[:, None], rec_s, rec_l)
+                leaf_best[ni] = torch.where(sil[:, None], rec_l, rec_s)
+                if cache_parent_hist:
+                    s4 = sil[:, None, None, None]
+                    hL = torch.where(s4, h_small, h_large)
+                    hR = torch.where(s4, h_large, h_small)
+                    leaf_hist[li] = hL
+                    leaf_hist[ni] = hR
         n_leaves += m
         rnd += 1
 
@@ -697,23 +707,28 @@ class RoundsTreeLearner:
         mesh the rank grows the tree over its row block: under the
         replicated boosting loop grad/hess are every row's, and the
         blocks' leaf ids are all_gathered; in a pre-partitioned world
-        they are the rank's rows, and so are the leaf ids."""
-        mask = self._row_mask(bag_idx)
-        fmask = self._feature_mask()
-        if self.mesh is not None:
-            r0, r1, nloc = self._block
-            grad, hess, mask = (take_rows(x, r0, r1, nloc)
-                                for x in (grad, hess, mask))
-        arrs, leaf_id, syncs = build_tree_rounds(
-            self.bins_dev, grad, hess, mask, self.num_bins_dev,
-            self.is_cat_dev, fmask, **self._kw)
-        if self.mesh is not None:
-            # rank_rows is set on every rank of a pre-partitioned world
-            # torchlint: allow(divergent-collective) — and on none otherwise
-            if self.rank_rows is None:
-                leaf_id = self.mesh.all_gather(
-                    leaf_id, row_shard_axes(*self.mesh.shape)).reshape(-1)
-            leaf_id = leaf_id[:self.N]
+        they are the rank's rows, and so are the leaf ids.  What the
+        `learner.histogram`, `learner.split_search` and
+        `learner.partition` ranges leave of it is `learner.round`."""
+        with profiling.range("learner.round"):
+            mask = self._row_mask(bag_idx)
+            fmask = self._feature_mask()
+            if self.mesh is not None:
+                r0, r1, nloc = self._block
+                grad, hess, mask = (take_rows(x, r0, r1, nloc)
+                                    for x in (grad, hess, mask))
+            arrs, leaf_id, syncs = build_tree_rounds(
+                self.bins_dev, grad, hess, mask, self.num_bins_dev,
+                self.is_cat_dev, fmask, **self._kw)
+            if self.mesh is not None:
+                # rank_rows is set on every rank of a pre-partitioned
+                # world, and on none otherwise
+                # torchlint: allow(divergent-collective) — as said above
+                if self.rank_rows is None:
+                    leaf_id = self.mesh.all_gather(
+                        leaf_id,
+                        row_shard_axes(*self.mesh.shape)).reshape(-1)
+                leaf_id = leaf_id[:self.N]
         self.last_host_syncs = syncs
         return arrs, leaf_id
 
@@ -721,7 +736,9 @@ class RoundsTreeLearner:
               bag_idx: Optional[torch.Tensor] = None
               ) -> Tuple[Tree, torch.Tensor]:
         arrs, leaf_id = self.train_device(grad, hess, bag_idx)
-        tree = tree_arrays_to_host(arrs, self.dataset, self.config.num_leaves,
-                                   mesh=self.mesh, name=self.tree_name)
+        with profiling.range("learner.round"):
+            tree = tree_arrays_to_host(arrs, self.dataset,
+                                       self.config.num_leaves,
+                                       mesh=self.mesh, name=self.tree_name)
         self.last_host_syncs += 1
         return tree, leaf_id

@@ -1,10 +1,23 @@
-"""Phase-bucketed wall-clock tracing and the always-on counters.
+"""Phase-bucketed wall-clock tracing, host ranges and the always-on
+counters.
 
 Port of lightgbm_tpu/profiling.py (the reference TIMETAG subsystem:
 std::chrono accumulators over boosting/bagging/tree/score/metric phases,
 gbdt.cpp:20-29,50-60, logged at teardown), plus the always-on counters
-and sample reservoirs the serving plane reports at /stats and /metrics,
-and a hook into torch.profiler for device traces.
+and sample reservoirs the serving plane reports at /stats and /metrics.
+
+Every `phase` and `range` opens a host range `lgbt::<name>` (names in
+RANGES) that torch.profiler records as a plain host operation, with no
+copy on the device's timeline: the boosting phases `boosting` (the
+objective's gradients), `bagging`, `tree`, `score`, `metric`; the rounds
+learner's `learner.histogram`, `learner.split_search`,
+`learner.partition` and `learner.round` (the round loop's own work and
+the tree's fetch); a Dataset construct's `dataset.binning` and
+`dataset.store`; the serving `serve/execute` and `serve/swap`.  Phase
+seconds are host seconds around asynchronous launches: which phase
+holds the device idle, or launched a kernel, comes from a device trace
+of these ranges (any `torch.profiler.profile` with CPU and CUDA
+activities), not from the accumulators.
 
 Enable the phase accumulators with LIGHTGBM_TPU_TIMETAG=1; totals print
 at interpreter exit or via `report()`.  `count_deferred` accumulates a
@@ -19,8 +32,8 @@ import os
 import threading
 import time
 from collections import defaultdict, deque
-from contextlib import contextmanager
-from typing import Deque, Dict, Iterator, Optional, Tuple
+from contextlib import nullcontext
+from typing import Deque, Dict, Tuple
 
 ENABLED = os.environ.get("LIGHTGBM_TPU_TIMETAG", "0") not in ("0", "", "false")
 
@@ -209,23 +222,75 @@ def labeled(name: str, **labels) -> str:
     return f"{name}{{{inner}}}"
 
 
-@contextmanager
-def phase(name: str, force: bool = False) -> Iterator[None]:
-    """Accumulate wall-clock under `name`.  No-op unless enabled, except
-    `force=True` (serving phases) which always accumulates.  It never
-    synchronises the device: it takes the host clock around launches
-    that may still be running, which is also what the JAX package's
-    phases measure around its asynchronous dispatches."""
-    if not (ENABLED or force or _PHASES_FORCED):
-        yield
-        return
-    t0 = time.perf_counter()
+# Every host range the program opens, as `phase` and `range` name them;
+# torch.profiler records each as `lgbt::<name>`.
+RANGES = (
+    "boosting", "bagging", "tree", "score", "metric",
+    "learner.histogram", "learner.split_search", "learner.partition",
+    "learner.round",
+    "dataset.binning", "dataset.store",
+    "serve/execute", "serve/swap",
+)
+RANGE_PREFIX = "lgbt::"
+_RANGE_LABELS = {n: RANGE_PREFIX + n for n in RANGES}
+
+
+def _host_range_type():
+    """torch's FUNCTION-scope RecordFunction guard, a private API: when a
+    profiler runs, a plain host operation of the given name (no user
+    annotation, so no copy on the device's timeline); when none runs,
+    under a microsecond.  Where this torch lacks it, ranges are no-ops."""
     try:
-        yield
-    finally:
+        from torch._C._profiler import _RecordFunctionFast
+    except ImportError:
+        return lambda _label: nullcontext()
+    return _RecordFunctionFast
+
+
+_host_range = _host_range_type()
+
+
+class _Timed:
+    """A range that also adds its host seconds to the phase totals;
+    `seconds` holds them after the block."""
+    __slots__ = ("name", "seconds", "_rng", "_t0")
+
+    def __init__(self, name: str, rng) -> None:
+        self.name, self._rng = name, rng
+
+    def __enter__(self) -> "_Timed":
+        self._rng.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.seconds = time.perf_counter() - self._t0
         with _lock:
-            _totals[name] += time.perf_counter() - t0
-            _counts[name] += 1
+            _totals[self.name] += self.seconds
+            _counts[self.name] += 1
+        self._rng.__exit__(*exc)
+        return False
+
+
+def range(name: str):
+    """The host range `lgbt::<name>` (a name of RANGES), with no
+    accumulator: the learner's inner phases, which leave the TIMETAG
+    totals, and so each `train.iteration` record's phases, as they
+    are."""
+    return _host_range(_RANGE_LABELS[name])
+
+
+def phase(name: str, force: bool = False):
+    """The host range `lgbt::<name>` (a name of RANGES), accumulating its
+    wall-clock under `name` when enabled, or always with `force=True`
+    (serving phases, a Dataset's construct).  It never synchronises the
+    device: it takes the host clock around launches that may still be
+    running, which is also what the JAX package's phases measure around
+    its asynchronous dispatches."""
+    rng = range(name)
+    if not (ENABLED or force or _PHASES_FORCED):
+        return rng
+    return _Timed(name, rng)
 
 
 def add(name: str, seconds: float, force: bool = False) -> None:
@@ -372,23 +437,3 @@ def reset() -> None:
 
 if ENABLED:
     atexit.register(report)
-
-
-@contextmanager
-def device_trace(logdir: str) -> Iterator[None]:
-    """torch.profiler trace (CPU and CUDA activities) written to `logdir`
-    as a Chrome trace, the analog of the JAX package's jax.profiler hook.
-    Also emitted as a telemetry span carrying the logdir, so the device
-    trace lines up against the host span timeline under one trace id."""
-    import torch
-
-    from . import telemetry
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
-        with telemetry.span("profiling.device_trace", logdir=logdir):
-            yield
