@@ -34,6 +34,12 @@ call is the host f64 walk of every tree (LIGHTGBM_TPU_DEVICE_PREDICT=0,
              out-of-range ids, is printed as a note).  The {"kernels"}
              line reports the gathered pass for K1/K2 and the score add
              for K3; the other shapes are printed on their own lines.
+             Last the split search (csrc/split.cu) against its plain
+             version on exact-sum histograms, bit for bit and twice the
+             same bits: both children of a chunk of the rounds learner
+             (k=84, F=28, B=256, the can-split gate on) written into a
+             per-leaf table, and a root (k=1); timed, its row in the
+             {"kernels"} line (the chunk).
 3. main    — lightgbm_tpu_torch.train on synth_higgs(2_000_000) x 28
              (255 leaves, max_bin 255, int8 histograms, a 200k-row valid
              set scored with AUC each iteration; 2 warm-up and 10 timed
@@ -1002,7 +1008,119 @@ def phase_kernels(torch, kernels, H, LK, P):
           f"graph_ms={mine['graph_ms']:.4f} plain_ms={plain:.4f} "
           f"bound_ms={bms:.4f} ({by}); by feed: {json.dumps(times)}",
           flush=True)
+    rows.append(split_kernel_row(torch))
     return rows
+
+
+def split_case(torch, k, F, B, seed, dev):
+    """Histograms [k, F, 3, B] of dyadic values (gradients in 1/64,
+    hessians in 1/256, whole counts), so that every prefix sum is exact
+    in float64 and any scan order gives the same bits: each leaf's 255
+    bins, 15% of them empty (ties across thresholds), in another order in
+    every feature, and feature 1 a copy of feature 0 (ties across
+    features); the leaves' totals [k, 3]; [F] metadata with categorical
+    features and a partial feature mask."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    u = 255
+
+    def draw(fn, *a):
+        return fn(*a, generator=gen, device=dev)
+    leaf = torch.stack([
+        torch.round(draw(torch.randn, k, u) * 256) / 64,
+        (torch.round(draw(torch.rand, k, u) * 511) + 1) / 256,
+        draw(torch.randint, 1, 40, (k, u)).float()], dim=1)
+    leaf *= (draw(torch.rand, k, 1, u) >= 0.15).float()
+    perm = torch.argsort(draw(torch.rand, k, F, u), dim=-1)
+    perm[:, 1] = perm[:, 0]
+    hist = torch.zeros(k, F, 3, B, device=dev)
+    hist[..., :u] = torch.gather(leaf[:, None].expand(k, F, 3, u), 3,
+                                 perm[:, :, None].expand(k, F, 3, u))
+    sums = leaf.double().sum(dim=-1).float()
+    is_cat = draw(torch.rand, F) < 0.1
+    fmask = draw(torch.rand, F) < 0.9
+    is_cat[:2] = False
+    fmask[:2] = True
+    return (hist, sums, torch.full((F,), u, dtype=torch.int64, device=dev),
+            is_cat, fmask)
+
+
+def split_kernel_row(torch):
+    """The split search (csrc/split.cu) against its plain version on the
+    card at the main path's shapes, bit for bit (a NaN leaf output
+    matching a NaN) and from run to run: the rounds learner's chunk
+    (both children of 84 splits, F=28, B=256, the can-split gate on,
+    written into a per-leaf table) and a root (k=1).
+    Returns the chunk's {"kernels"} row."""
+    from lightgbm_tpu_torch.ops import split as S
+    dev = torch.device(GPU)
+    k, F, B, L = 84, 28, 256, 255
+    kw = dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=20,
+              min_sum_hessian_in_leaf=1.0, min_gain_to_split=0.0,
+              can_split=(20, 1.0))
+    ha, sa, nb, ic, fm = split_case(torch, k, F, B, 11, dev)
+    hb, sb = split_case(torch, k, F, B, 12, dev)[:2]
+    sb[: k // 4, 1] = 1.5           # under twice the hessian floor: gated
+    rng = np.random.RandomState(13)
+    rows = torch.as_tensor(rng.permutation(L)[:2 * k], device=dev)
+    sel = torch.as_tensor(rng.rand(k) < 0.5, device=dev)
+    args = (sel, rows[:k], rows[k:], ha, sa, hb, sb, nb, ic, fm)
+
+    def kern(out):
+        S.split_children(out, *args, **kw)
+
+    def plain(out):
+        S.write_children(
+            out, sel, rows[:k], rows[k:],
+            S._best_split_plain(ha, nb, ic, fm, sa[:, 0], sa[:, 1],
+                                sa[:, 2], **kw),
+            S._best_split_plain(hb, nb, ic, fm, sb[:, 0], sb[:, 1],
+                                sb[:, 2], **kw))
+
+    tabs = [torch.full((L, 11), -np.inf, device=dev) for _ in range(3)]
+    plain(tabs[0])
+    kern(tabs[1])
+    kern(tabs[2])
+    root_args = (ha[:1], nb, ic, fm, sa[:1, 0], sa[:1, 1], sa[:1, 2])
+    root = [S.best_split(*root_args, **kw) for _ in range(2)]
+    root_ref = S._best_split_plain(*root_args, **kw)
+    torch.cuda.synchronize()
+    for label, got, again, ref in (("chunk", tabs[1], tabs[2], tabs[0]),
+                                   ("root", root[0], root[1], root_ref)):
+        # the same bits, but for the payload of a 0/0 leaf output's NaN,
+        # which the card's division and PyTorch's may set differently
+        nan = torch.isnan(got)
+        bits = [torch.where(nan, 0, x.view(torch.int32))
+                for x in (got, ref)]
+        bad = (bits[0] != bits[1]) | (nan != torch.isnan(ref))
+        twice = torch.equal(got.view(torch.int32), again.view(torch.int32))
+        if bool(bad.any()) or not twice:
+            r = int(bad.any(dim=-1).nonzero()[0, 0]) if bool(bad.any()) \
+                else 0
+            fail(f"split_search ({label}): {int(bad.sum())} fields differ "
+                 f"from the plain version (by field {bad.sum(0).tolist()}"
+                 f"; row {r}: {got[r].tolist()} against {ref[r].tolist()})"
+                 f", two calls the same bits: {twice}")
+    if not bool(torch.isfinite(tabs[0][rows, 0]).any()):
+        fail("split_search check: no leaf of the chunk found a split")
+    out = tabs[1]
+    ms = time_ms(torch, lambda: kern(out), 50)
+    gms = graph_ms(torch, lambda: kern(out))
+    pms = time_ms(torch, lambda: plain(out), 10)
+    rms = time_ms(torch, lambda: S.best_split(*root_args, **kw), 50)
+    rplain = time_ms(torch, lambda: S._best_split_plain(*root_args, **kw),
+                     10)
+    bms, by = bound_ms(2 * k * F * 3 * B * 4, 0)
+    print(f"[kernels] split_search: chunk k={k} F={F} B={B} both sides "
+          f"ms={ms:.4f} graph_ms={gms:.4f} plain_ms={pms:.4f} "
+          f"bound_ms={bms:.5f} ({by}); root k=1 ms={rms:.4f} "
+          f"plain_ms={rplain:.4f}; bitwise equal to the plain version",
+          flush=True)
+    return dict(name="split_search", route="cuda",
+                source="lightgbm_tpu_torch/csrc/split.cu",
+                replaces="lightgbm_tpu/ops/split.py:best_split",
+                max_abs_err=0.0, ms=ms, graph_ms=gms, plain_ms=pms,
+                bound_ms=bms, bound_by=by, library_ms=None)
 
 
 def partition_feeds(torch, bins):
@@ -1473,7 +1591,7 @@ def phase_ctr_main(torch, lt, kernels, dataset_mod, params, ds, vs, Xv):
                             dict(params, histogram_dtype=dtype), ds, vs, Xv,
                             2, 10, res=res)
         print(f"[ctr main] {dtype}: {json.dumps(st)}", flush=True)
-        for k in (name, "table_lookup", "slot_totals"):
+        for k in (name, "table_lookup", "slot_totals", "split_search"):
             if st["launches"][k] <= 0:
                 fail(f"ctr main path ({dtype}) never launched {k}")
         out[dtype] = st
@@ -1527,7 +1645,8 @@ def phase_main(torch, lt, kernels):
     bst, st, pred, (ds, vs) = drive(torch, lt, kernels, params, X, y, Xv,
                                     yv, 2, 10)
     print(f"[main] int8: {json.dumps(st)}", flush=True)
-    for k in ("hist_masked_int8", "table_lookup", "partition_rows"):
+    for k in ("hist_masked_int8", "table_lookup", "partition_rows",
+              "split_search"):
         if st["launches"][k] <= 0:
             fail(f"main path (int8) never launched {k}")
     if not (pred.shape == (VALID_ROWS,) and np.all(np.isfinite(pred))
@@ -1548,7 +1667,8 @@ def phase_main(torch, lt, kernels):
     print(f"[main] float32: {json.dumps(st32)}", flush=True)
     print(f"[main] float32: s/iter {st32['s_per_iter']:.4f} valid AUC "
           f"{st32['auc']:.6f}", flush=True)
-    for k in ("hist_masked_f32", "table_lookup", "partition_rows"):
+    for k in ("hist_masked_f32", "table_lookup", "partition_rows",
+              "split_search"):
         if st32["launches"][k] <= 0:
             fail(f"main path (float32) never launched {k}")
     if not (math.isfinite(st32["auc"]) and st32["auc"] > 0.75):
@@ -3063,8 +3183,9 @@ ONLINE_TREES, ONLINE_REPS, ONLINE_CHUNKS = 60, 5, 5
 REFIT_RTOL, REFIT_ATOL = 1e-4, 1e-6
 # continue mode: trees appended; the router's closed-loop rounds
 CONTINUE_TREES, ROUTE_SECONDS = 5, 2.0
-# the float32 path's kernels of one tree: K2, K4, K3
-F32_TREE_KERNELS = ("hist_masked_f32", "partition_rows", "table_lookup")
+# the float32 path's kernels of one tree: K2, K4, K3, the split search
+F32_TREE_KERNELS = ("hist_masked_f32", "partition_rows", "table_lookup",
+                    "split_search")
 
 
 def online_params(**kw) -> dict:
@@ -3294,11 +3415,12 @@ def online_continue(torch, lt, kernels, path, traffic, tmp, st):
                           per_tree=per_tree)
     print(f"[online] continue mode: {n0} -> {n1} trees in {secs:.2f} s "
           f"(parse, bin, replay, grow); launches {json.dumps(launches)}; "
-          f"per tree [K2, K4, K3] {per_tree}", flush=True)
+          f"per tree [K2, K4, K3, split] {per_tree}", flush=True)
     if not done or n1 != n0 + CONTINUE_TREES:
         fail(f"continue mode: published {done}, {n0} -> {n1} trees")
     if len(per_tree) != CONTINUE_TREES or any(min(c) < 1 for c in per_tree):
-        fail(f"continue mode: a tree launched no K2, K4 or K3: {per_tree}")
+        fail(f"continue mode: a tree launched no K2, K4, K3 or split "
+             f"search: {per_tree}")
 
 
 def online_router(torch, lt, path, Xe, tmp, st):
@@ -5079,7 +5201,8 @@ def main() -> None:
     st, st32, ns_params, ns_ds, ns_vs, ns_Xv, ns_bst = phase_main(
         torch, lt, kernels)
     for r in rows:
-        src = st32 if r["name"] == "hist_masked_f32" else st
+        src = (st32 if r["name"] in ("hist_masked_f32", "split_search")
+               else st)
         r["launches"] = src["launches"][r["name"]]
     phase_rounds_tree(torch, lt, H, ns_params, ns_ds, "north-star")
     phase_partition_tree(torch, lt, P, ns_params, ns_ds, "north-star")

@@ -33,6 +33,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 # entry name -> (source name, C function, argtypes, the stream last);
 # every function returns the cudaError_t of its launch (0 = success)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 SIGNATURES = {
     "hist_q": ("histogram", "lgbt_hist_q",
                [_P, _I, _L, _I, _I, _I, _I, _P, _P, _L, _P, _L, _P, _P, _I,
@@ -56,6 +57,10 @@ SIGNATURES = {
     "hist_multirow": ("hist_gathered", "lgbt_hist_multirow",
                       [_P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I,
                        _P, _P, _P, _P, _P]),
+    "split_search": ("split", "lgbt_split_search",
+                     [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                      _I, _F, _F, _F, _F, _F, _I, _F, _F, _P, _P, _P, _P, _P,
+                      _P, _P]),
 }
 # the sources of csrc/, one library each
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
@@ -65,7 +70,7 @@ LAUNCHES: Dict[str, int] = {"hist_masked_int8": 0, "hist_masked_f32": 0,
                             "table_lookup": 0, "partition_rows": 0,
                             "hist_sparse_int8": 0, "hist_sparse_f32": 0,
                             "hist_gathered": 0, "hist_multirow": 0,
-                            "slot_totals": 0}
+                            "slot_totals": 0, "split_search": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -62,7 +62,8 @@ from ..ops.partition import partition_rows, partition_rows_sparse
 from ..ops.sparse_streams import build_sparse_streams
 from ..ops.split import (best_split, bundle_predicate_params,
                          combine_sharded_records, maybe_unbundle,
-                         sharded_slice_search)
+                         sharded_slice_search, split_children,
+                         write_children)
 from ..sharded.mesh import (HistExchange, Mesh, RankRows, pad_cols_to_ndev,
                             resolve_hist_exchange, row_block,
                             row_shard_axes, take_rows)
@@ -156,7 +157,11 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
             tiers_small = tuple(sorted(set(tiers_small + tiers_all)))
     # any round splits >= 1 leaf, so L-1 rounds bound even a chain
     R = L - 1
-    skw = dict(split_kw)
+    # the can-split gate rides in the search (depth gates at selection
+    # time); under psum_scatter it comes before the combine, as the JAX
+    # learner orders them
+    skw = dict(split_kw, can_split=(min_data_in_leaf,
+                                    min_sum_hessian_in_leaf))
     syncs = 0
     # rows and stored entries the histogram passes read (host counts)
     touched = [0, 0]
@@ -179,26 +184,17 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
     def find_best_batch(hists, sums):
         """hists [k, F, 3, B] (this rank's [k, Fs, 3, B] slice under
         psum_scatter), sums [k, 3] -> packed records [k, 11] with the
-        can-split gate applied (depth gates at selection time)."""
+        can-split gate applied."""
         if hx:
             rec = sharded_slice_search(
                 hists, sums, off=off, nb_s=nb_s, ic_s=ic_s, fm_s=fm_s,
                 num_bins=num_bins, is_cat=is_cat, fmask=fmask, unb=unb,
                 skw=skw)
-        else:
-            rec = best_split(maybe_unbundle(hists, unb, sums), num_bins,
-                             is_cat, fmask, sums[:, 0], sums[:, 1],
-                             sums[:, 2], **skw)
-        # the gate before the combine, as the JAX learner orders them
-        can = ((sums[:, 2] >= 2 * min_data_in_leaf)
-               & (sums[:, 1] >= 2 * min_sum_hessian_in_leaf))
-        g = rec[:, 0]
-        rec[:, 0] = torch.where(can & torch.isfinite(g) & (g > 0), g,
-                                torch.full_like(g, NEG_INF))
-        if hx:
-            rec = combine_sharded_records(rec, exchange.mesh,
-                                          exchange.scatter_axis)
-        return rec
+            return combine_sharded_records(rec, exchange.mesh,
+                                           exchange.scatter_axis)
+        return best_split(maybe_unbundle(hists, unb, sums), num_bins,
+                          is_cat, fmask, sums[:, 0], sums[:, 1], sums[:, 2],
+                          **skw)
 
     def hist_masked(lid_, sl_, xch=exchange):
         """One masked multi-leaf pass over the whole store, dense or
@@ -449,12 +445,23 @@ def build_tree_rounds(bins, grad, hess, row_mask, num_bins, is_cat, fmask,
                                          tiers_all if gathered else None,
                                          tot_large[c])
             with profiling.range("learner.split_search"):
-                rec_s = find_best_batch(h_small, small_sums[s:s + na])
-                rec_l = find_best_batch(h_large, large_sums[s:s + na])
+                # the smaller child's record to its parent's row where it
+                # is the left child, else to the new leaf's; the larger's
+                # to the other row
                 li = pl_[s:s + na]
                 ni = new_leaf[s:s + na]
-                leaf_best[li] = torch.where(sil[:, None], rec_s, rec_l)
-                leaf_best[ni] = torch.where(sil[:, None], rec_l, rec_s)
+                ss, sl = small_sums[s:s + na], large_sums[s:s + na]
+                if hx:
+                    # the ranks' records are combined before the writes
+                    write_children(leaf_best, sil, li, ni,
+                                   find_best_batch(h_small, ss),
+                                   find_best_batch(h_large, sl))
+                else:
+                    # both children in one launch on the card
+                    split_children(leaf_best, sil, li, ni,
+                                   maybe_unbundle(h_small, unb, ss), ss,
+                                   maybe_unbundle(h_large, unb, sl), sl,
+                                   num_bins, is_cat, fmask, **skw)
                 if cache_parent_hist:
                     s4 = sil[:, None, None, None]
                     hL = torch.where(s4, h_small, h_large)

@@ -8,7 +8,12 @@ between original features (split search, trees) and bundled store
 columns (histograms, partition), and the psum_scatter exchange's split
 search over one rank's column slice (`unbundle_hist_local`,
 `sharded_slice_search`, `combine_sharded_records`).
-Plain torch on any device; the f32 operation order follows JAX.
+The f32 operation order follows JAX.  `best_split` on a CUDA tensor
+launches the hand-written kernel csrc/split.cu (one launch a call, the
+learners' can-split gate fused when asked); a CPU tensor takes the plain
+torch version.  `split_children` searches both children of k splits in
+one launch and writes their records straight into the learner's
+per-leaf table.
 
 Every function takes leading batch dimensions on the histogram (the JAX
 learner vmaps one leaf at a time): hist [..., F, 3, B] with per-leaf
@@ -21,8 +26,11 @@ maximum); invalid cells hold -inf, never NaN.
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
+
+from .. import kernels
 
 K_MIN_SCORE = -math.inf
 
@@ -88,15 +96,10 @@ def split_gain_matrix(hist: torch.Tensor, num_bins: torch.Tensor,
     return total, GL, HL, CL
 
 
-def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
-               is_cat: torch.Tensor, feature_mask: torch.Tensor,
-               sum_grad: torch.Tensor, sum_hess: torch.Tensor,
-               num_data: torch.Tensor, *, lambda_l1: float = 0.0,
-               lambda_l2: float = 0.0, min_data_in_leaf: int = 20,
-               min_sum_hessian_in_leaf: float = 1e-3,
-               min_gain_to_split: float = 0.0) -> torch.Tensor:
-    """Best split of each leaf from its histogram hist [..., F, 3, B].
-    Returns the packed records [..., 11] f32 (see RECORD_LEN)."""
+def _best_split_plain(hist, num_bins, is_cat, feature_mask, sum_grad,
+                      sum_hess, num_data, *, lambda_l1=0.0, lambda_l2=0.0,
+                      min_data_in_leaf=20, min_sum_hessian_in_leaf=1e-3,
+                      min_gain_to_split=0.0, can_split=None):
     F, B = hist.shape[-3], hist.shape[-1]
     l1, l2 = lambda_l1, lambda_l2
     total, GL, HL, CL = split_gain_matrix(
@@ -116,11 +119,178 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
     best = best[..., 0]
     gain = torch.where(torch.isfinite(bg), bg - gain_shift,
                        torch.full_like(bg, K_MIN_SCORE))
+    if can_split is not None:
+        # the learners' can-split gate (serial_tree_learner.cpp
+        # _can_split; the depth gate applies at leaf selection)
+        can = ((num_data >= 2 * can_split[0])
+               & (sum_hess >= 2 * can_split[1]))
+        gain = torch.where(can & torch.isfinite(gain) & (gain > 0), gain,
+                           torch.full_like(gain, K_MIN_SCORE))
     return torch.stack([
         gain, (best // B).to(torch.float32), (best % B).to(torch.float32),
         glb, hlb, clb, grb, hrb, crb,
         leaf_output(glb, hlb, l1, l2), leaf_output(grb, hrb, l1, l2)],
         dim=-1)
+
+
+def _meta(x, dtype, k, F, name):
+    """A per-feature metadata tensor as the kernel reads it, with its
+    leaf stride: [F] (0) or one row a leaf (F)."""
+    if x.dtype != dtype:
+        x = x.to(dtype)
+    x = x.contiguous()
+    if x.numel() == F:
+        return x, 0
+    if x.numel() == k * F:
+        return x, F
+    raise ValueError(f"split search: {name} is neither [F] nor [k, F]")
+
+
+# shared memory of a block's feature tile (csrc/split.cu kSmemBudget: two
+# blocks an SM) and the features a tile holds at most (one scan thread a
+# feature and channel of a 256-thread block)
+SPLIT_SMEM_BUDGET = 96 * 1024
+_SPLIT_TILE_FEATURES = 256 // 3
+
+
+def split_tile(F: int, B: int) -> Tuple[int, int, int]:
+    """(features, bins, tiles) of csrc/split.cu's feature tile: a bin tile
+    of whole warps up to 256 bins (longer rows are scanned in turns); as
+    many features of three padded rows as fit the budget, spread evenly
+    over the tiles.  Each tile of a leaf is a block of its own."""
+    bt = min(-(-B // 32) * 32, 256)
+    most = min(SPLIT_SMEM_BUDGET // (12 * (bt + 1)), _SPLIT_TILE_FEATURES, F)
+    ft = -(-F // -(-F // most))
+    return ft, bt, -(-F // ft)
+
+
+def _split_search_cuda(hists, sums, num_bins, is_cat, feature_mask, out,
+                       dest, *, lambda_l1=0.0, lambda_l2=0.0,
+                       min_data_in_leaf=20, min_sum_hessian_in_leaf=1e-3,
+                       min_gain_to_split=0.0, can_split=None):
+    """One launch of csrc/split.cu over one or two sides of k leaves.
+
+    hists: one or two [k, F, 3, B] float32 histograms; sums: for each, a
+    [k, 3] (grad, hess, count) table; out: float32 records with rows of
+    11; dest: None (side s of leaf i to row s * k + i) or (sel, rows_a,
+    rows_b) as split_children takes them."""
+    h0 = hists[0]
+    k, F, B = h0.shape[0], h0.shape[1], h0.shape[3]
+    for h in hists:
+        if h.dtype != torch.float32 or h.dim() != 4 or h.shape[2] != 3:
+            raise TypeError("split kernel takes float32 [k, F, 3, B] "
+                            "histograms")
+        if h.shape != h0.shape:
+            raise ValueError("split kernel: both sides take one shape")
+    if out.dtype != torch.float32 or not out.is_contiguous() \
+            or out.shape[-1] != RECORD_LEN:
+        raise TypeError("split kernel writes contiguous float32 records")
+    if any(s.shape != (k, 3) for s in sums):
+        raise ValueError("split search takes one (grad, hess, count) a leaf")
+    hs = [h.contiguous() for h in hists]
+    ss = [s.to(torch.float32).contiguous() for s in sums]
+    nb, nbs = _meta(num_bins, torch.int64, k, F, "num_bins")
+    ic, ics = _meta(is_cat, torch.bool, k, F, "is_cat")
+    fm, fms = _meta(feature_mask, torch.bool, k, F, "feature_mask")
+    sel = ra = rb = None
+    if dest is not None:
+        sel, ra, rb = dest
+        sel = sel.to(torch.bool).contiguous()
+        ra = ra.to(torch.int64).contiguous()
+        rb = rb.to(torch.int64).contiguous()
+    ft, bt, tiles = split_tile(F, B)
+    part = tickets = None
+    if tiles > 1:
+        part, tickets = kernels.combine_buffers(
+            h0.device, len(hs) * k * tiles * 8, len(hs) * k)
+    gate = can_split is not None
+    kernels.call("split_search", hs[0].data_ptr(),
+                 hs[1].data_ptr() if len(hs) > 1 else None,
+                 ss[0].data_ptr(), ss[1].data_ptr() if len(ss) > 1 else None,
+                 nb.data_ptr(), nbs, ic.data_ptr(), ics, fm.data_ptr(), fms,
+                 k, F, B, ft, bt, float(lambda_l1), float(lambda_l2),
+                 float(min_data_in_leaf), float(min_sum_hessian_in_leaf),
+                 float(min_gain_to_split), int(gate),
+                 float(2 * can_split[0]) if gate else 0.0,
+                 float(2 * can_split[1]) if gate else 0.0,
+                 kernels.ptr(sel), kernels.ptr(ra), kernels.ptr(rb),
+                 out.data_ptr(), kernels.ptr(part), kernels.ptr(tickets))
+    kernels.LAUNCHES["split_search"] += 1
+
+
+def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
+               is_cat: torch.Tensor, feature_mask: torch.Tensor,
+               sum_grad: torch.Tensor, sum_hess: torch.Tensor,
+               num_data: torch.Tensor, *, lambda_l1: float = 0.0,
+               lambda_l2: float = 0.0, min_data_in_leaf: int = 20,
+               min_sum_hessian_in_leaf: float = 1e-3,
+               min_gain_to_split: float = 0.0,
+               can_split: Optional[Tuple[int, float]] = None
+               ) -> torch.Tensor:
+    """Best split of each leaf from its histogram hist [..., F, 3, B].
+    Returns the packed records [..., 11] f32 (see RECORD_LEN).
+
+    can_split=(min_data_in_leaf, min_sum_hessian_in_leaf) applies the
+    learners' can-split gate: a leaf with fewer than twice either
+    keeps -inf, and so does a gain that is not finite and > 0.  A CUDA
+    tensor launches csrc/split.cu once; a CPU tensor takes the plain
+    version."""
+    kw = dict(lambda_l1=lambda_l1, lambda_l2=lambda_l2,
+              min_data_in_leaf=min_data_in_leaf,
+              min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
+              min_gain_to_split=min_gain_to_split, can_split=can_split)
+    if not hist.is_cuda:
+        return _best_split_plain(hist, num_bins, is_cat, feature_mask,
+                                 sum_grad, sum_hess, num_data, **kw)
+    F, B = hist.shape[-3], hist.shape[-1]
+    lead = tuple(hist.shape[:-3])
+    k = math.prod(lead)
+    out = torch.empty(lead + (RECORD_LEN,), dtype=torch.float32,
+                      device=hist.device)
+    if k == 0:
+        return out
+    sums = torch.stack([v.reshape(k).to(torch.float32)
+                        for v in (sum_grad, sum_hess, num_data)], dim=-1)
+    _split_search_cuda((hist.reshape(k, F, 3, B),), (sums,), num_bins,
+                       is_cat, feature_mask, out, None, **kw)
+    return out
+
+
+def split_children(out: torch.Tensor, sel: torch.Tensor,
+                   rows_a: torch.Tensor, rows_b: torch.Tensor,
+                   hist_a: torch.Tensor, sums_a: torch.Tensor,
+                   hist_b: torch.Tensor, sums_b: torch.Tensor,
+                   num_bins: torch.Tensor, is_cat: torch.Tensor,
+                   feature_mask: torch.Tensor, **kw) -> None:
+    """The best splits of both children of k splits, written into the
+    per-leaf record table `out` [L, 11].
+
+    hist_a/hist_b [k, F, 3, B] and sums_a/sums_b [k, 3] (grad, hess,
+    count) are the two children of each split (the rounds learner's
+    smaller and larger); where sel[i] a's record goes to
+    out[rows_a[i]] and b's to out[rows_b[i]], else the other way
+    round.  kw as for best_split.  A CUDA tensor searches both sides in
+    one launch of csrc/split.cu that writes the rows itself; a CPU
+    tensor takes two best_split calls and two row writes."""
+    k = hist_a.shape[0]
+    if k == 0:
+        return
+    if not hist_a.is_cuda:
+        rec_a = best_split(hist_a, num_bins, is_cat, feature_mask,
+                           sums_a[:, 0], sums_a[:, 1], sums_a[:, 2], **kw)
+        rec_b = best_split(hist_b, num_bins, is_cat, feature_mask,
+                           sums_b[:, 0], sums_b[:, 1], sums_b[:, 2], **kw)
+        write_children(out, sel, rows_a, rows_b, rec_a, rec_b)
+        return
+    _split_search_cuda((hist_a, hist_b), (sums_a, sums_b), num_bins, is_cat,
+                       feature_mask, out, (sel, rows_a, rows_b), **kw)
+
+
+def write_children(out, sel, rows_a, rows_b, rec_a, rec_b) -> None:
+    """out[rows_a] and out[rows_b] take the records rec_a and rec_b,
+    swapped where sel is false (split_children's destinations)."""
+    out[rows_a] = torch.where(sel[:, None], rec_a, rec_b)
+    out[rows_b] = torch.where(sel[:, None], rec_b, rec_a)
 
 
 def identity_feat_table(num_bins) -> torch.Tensor:

@@ -568,7 +568,7 @@ def test_ranking_and_auc_metrics_are_the_same_from_run_to_run(dev):
 def test_cuda_tensor_never_takes_the_plain_version(dev, monkeypatch):
     """A CUDA tensor launches the kernel or raises: with the library
     call failing, the wrappers raise instead of falling back (K1, K2,
-    K3, K5, K7/K8)."""
+    K3, K5, K7/K8, the split search)."""
     def refuse(*a, **k):
         raise RuntimeError("launch refused")
     monkeypatch.setattr(kernels, "call", refuse)
@@ -613,6 +613,19 @@ def test_cuda_tensor_never_takes_the_plain_version(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="launch refused"):
         th.histogram_from_indices(bt, g, h, idx, num_bins_padded=128,
                                   count=900, num_store_bins=7)
+    # the split search, one leaf and both children of k splits
+    from lightgbm_tpu_torch.ops import split as ts
+    hist, nb, ic, fm, sums = [x.to(dev) for x in _split_case(
+        4, 28, 256, 1, per_leaf=False)]
+    with pytest.raises(RuntimeError, match="launch refused"):
+        ts.best_split(hist[0], nb, ic, fm, sums[0, 0], sums[0, 1],
+                      sums[0, 2])
+    rows = torch.arange(8, device=dev)
+    with pytest.raises(RuntimeError, match="launch refused"):
+        ts.split_children(torch.zeros((8, 11), device=dev),
+                          torch.ones(4, dtype=torch.bool, device=dev),
+                          rows[:4], rows[4:], hist, sums, hist, sums, nb,
+                          ic, fm, can_split=(20, 1e-3))
 
 
 def _gathered_case(N, F, nb, cap, live, seed, dyadic, dtype=np.int32):
@@ -757,6 +770,183 @@ def test_exact_learner_on_the_card_matches_the_cpu(dev):
                                   tc.threshold_in_bin[:n - 1])
     np.testing.assert_array_equal(tg.leaf_value[:n], tc.leaf_value[:n])
     np.testing.assert_array_equal(lg, lc)
+
+
+def _split_case(k, F, B, seed, per_leaf):
+    """Histograms [k, F, 3, B] of dyadic values (gradients in 1/64,
+    hessians in 1/256, whole counts), so that every prefix sum and
+    every leaf total is exact in float64 and any scan order gives the
+    same bits; per-leaf totals from feature 0, as the learners take
+    them.  Empty bins (zero in all three channels) make exact gain ties
+    across thresholds; feature 1 copies feature 0, and in leaf 2 (leaf 0
+    when k is 1) every feature holds the same bins (ties across
+    features); leaf 1 holds no rows (no valid split); leading bins
+    of zero hessian give the 0/0 gains of a zero hessian floor.
+    Metadata: categorical features, a partial feature mask, and with
+    per_leaf one row of each a leaf ([k, F])."""
+    rng = np.random.RandomState(seed)
+    shape = (k, F) if per_leaf else (F,)
+    nb = rng.randint(2, B + 1, size=shape)
+    g = np.round(rng.randn(k, F, B) * 256) / 64
+    h = (np.round(rng.rand(k, F, B) * 511) + 1) / 256
+    c = rng.randint(1, 40, size=(k, F, B)).astype(np.float64)
+    empty = rng.rand(k, F, B) < 0.15
+    g[:, :, :2] = 0.0
+    h[:, :, :2] = 0.0
+    nbb = np.broadcast_to(nb[..., None] if per_leaf else nb[None, :, None],
+                          (k, F, B))
+    empty |= np.arange(B)[None, None, :] >= nbb
+    for x in (g, h, c):
+        x[empty] = 0.0
+        x[:, 1] = x[:, 0]
+        x[min(2, k - 1)] = x[min(2, k - 1), 0]   # one leaf, one column
+        if k > 1:
+            x[1] = 0.0
+    hist = np.stack([g, h, c], axis=2).astype(np.float32)
+    sums = hist[:, 0].astype(np.float64).sum(axis=-1).astype(np.float32)
+    is_cat = rng.rand(*shape) < 0.2
+    fmask = rng.rand(*shape) < 0.85
+    for m in (nb, is_cat, fmask):
+        m[..., 1] = m[..., 0]
+    fmask[..., :2] = True
+    return [torch.as_tensor(x) for x in (hist, nb.astype(np.int64), is_cat,
+                                         fmask, sums)]
+
+
+def _same_records(a, b):
+    """The same bits in all 11 fields (so a -0.0 leaf output is not a
+    +0.0), NaN (a 0/0 leaf output, whatever its payload) where the other
+    has NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0, a.view(torch.int32)),
+        torch.where(nb, 0, b.view(torch.int32)))
+
+
+_SPLIT_KW = [dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=1,
+                  min_sum_hessian_in_leaf=0.0, min_gain_to_split=0.0),
+             dict(lambda_l1=0.5, lambda_l2=1.0, min_data_in_leaf=20,
+                  min_sum_hessian_in_leaf=1e-3, min_gain_to_split=0.25)]
+
+
+@pytest.mark.parametrize("k", [1, 84])
+@pytest.mark.parametrize("F", [28, 137])
+@pytest.mark.parametrize("B", [128, 256, 384, 1024])
+def test_split_kernel_vs_plain(dev, k, F, B):
+    """csrc/split.cu against the plain best_split on the card: the same
+    11 fields, and the same bits from run to run (one launch a call).
+    The cases alternate [F] and [k, F] metadata and the two sets of
+    split parameters: no regularisation and a zero hessian floor (the
+    0/0 gains), then l1, l2, min_data_in_leaf and min_gain_to_split."""
+    from lightgbm_tpu_torch.ops import split as ts
+    i = [128, 256, 384, 1024].index(B) + (F == 137)
+    hist, nb, ic, fm, sums = [x.to(dev) for x in _split_case(
+        k, F, B, 7 * B + F + k, per_leaf=i % 2 == 1)]
+    kw = _SPLIT_KW[i // 2 % 2]
+    args = (hist, nb, ic, fm, sums[:, 0], sums[:, 1], sums[:, 2])
+    ref = ts._best_split_plain(*args, **kw)
+    before = kernels.LAUNCHES["split_search"]
+    out = [ts.best_split(*args, **kw) for _ in range(2)]
+    assert kernels.LAUNCHES["split_search"] == before + 2
+    assert out[0].shape == (k, 11)
+    assert _same_records(out[0], ref)
+    assert torch.equal(out[0].view(torch.int32), out[1].view(torch.int32))
+    if k > 1:
+        assert bool(torch.isinf(out[0][1, 0]))          # no valid split
+        assert bool(torch.isfinite(out[0][:, 0]).any())
+    # one leaf with no leading dimension, as the exact learner asks
+    one = ts.best_split(hist[0], nb if nb.dim() == 1 else nb[0],
+                        ic if ic.dim() == 1 else ic[0],
+                        fm if fm.dim() == 1 else fm[0], sums[0, 0],
+                        sums[0, 1], sums[0, 2], **kw)
+    assert one.shape == (11,) and _same_records(one, ref[0])
+
+
+@pytest.mark.parametrize("k", [1, 84, 15])
+def test_split_children_kernel_vs_plain(dev, k):
+    """Both children of k splits in one launch, with the can-split gate
+    fused, writing their rows of a per-leaf table: the same table as
+    two gated plain searches and two row writes, the same bits from run
+    to run.  k=15 searches a wide store (F=3,000, B=128: 48 feature
+    tiles a leaf, each a block, the last to finish picking the leaf's
+    first maximum)."""
+    from lightgbm_tpu_torch.ops import split as ts
+    F, B, L = (3_000, 128, 255) if k == 15 else (28, 256, 255)
+    assert (ts.split_tile(F, B)[2] > 1) == (k == 15)
+    ha, nb, ic, fm, sa = _split_case(k, F, B, 3, per_leaf=False)
+    hb, _, _, _, sb = _split_case(k, F, B, 4, per_leaf=False)
+    sb[: k // 2, 1] = 1.0       # under twice the hessian floor: gated
+    rng = np.random.RandomState(5)
+    rows = torch.as_tensor(rng.permutation(L)[:2 * k])
+    sel = torch.as_tensor(rng.rand(k) < 0.5)
+    kw = dict(_SPLIT_KW[1], min_sum_hessian_in_leaf=1.0, can_split=(20, 1.0))
+    args = [x.to(dev) for x in (sel, rows[:k], rows[k:], ha, sa, hb, sb, nb,
+                                ic, fm)]
+    ref = torch.full((L, 11), -np.inf, device=dev)
+    ts.write_children(ref, args[0], args[1], args[2],
+                      ts._best_split_plain(args[3], *args[7:], args[4][:, 0],
+                                           args[4][:, 1], args[4][:, 2],
+                                           **kw),
+                      ts._best_split_plain(args[5], *args[7:], args[6][:, 0],
+                                           args[6][:, 1], args[6][:, 2],
+                                           **kw))
+    outs = []
+    for _ in range(2):
+        out = torch.full((L, 11), -np.inf, device=dev)
+        before = kernels.LAUNCHES["split_search"]
+        ts.split_children(out, *args, **kw)
+        assert kernels.LAUNCHES["split_search"] == before + 1
+        outs.append(out)
+    assert _same_records(outs[0], ref)
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    if k > 1:
+        assert bool(torch.isinf(ref[rows[1], 0]))
+        assert bool(torch.isfinite(ref[rows, 0]).any())
+
+
+def test_rounds_learner_on_the_card_matches_the_cpu(dev):
+    """Three trees of the rounds learner (float32 histograms, kernel K2
+    and the split kernel) on 50,000 rows, card and CPU: dyadic gradients
+    make every histogram exact, so the trees and leaf ids agree bitwise,
+    and the card searches each chunk's two children in one launch (a
+    root and at most one chunk a round at 63 leaves)."""
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.dataset import Dataset
+    from lightgbm_tpu_torch.learner.rounds import RoundsTreeLearner
+    from lightgbm_tpu_torch.synth import synth_higgs
+    X, y = synth_higgs(50_000)
+    rng = np.random.RandomState(3)
+    gh = [((np.round(rng.randn(50_000) * 16) / 16).astype(np.float32),
+           (np.round(rng.rand(50_000) * 64) / 256).astype(np.float32))
+          for _ in range(3)]
+    out = {}
+    for d in ("cpu", "cuda"):
+        cfg = config_from_params({"device_type": d, "num_leaves": 63,
+                                  "min_sum_hessian_in_leaf": 1.0,
+                                  "tree_growth": "rounds",
+                                  "histogram_dtype": "float32"})
+        learner = RoundsTreeLearner(Dataset(X, y, cfg), cfg)
+        trees = []
+        for g, h in gh:
+            before = kernels.LAUNCHES["split_search"]
+            tree, lid = learner.train(torch.as_tensor(g, device=d),
+                                      torch.as_tensor(h, device=d))
+            trees.append((tree, lid.cpu().numpy(),
+                          kernels.LAUNCHES["split_search"] - before,
+                          learner.last_host_syncs))
+        out[d] = trees
+    for (tc, lc, nc, _), (tg, lg, ng, syncs) in zip(out["cpu"], out["cuda"]):
+        n = tc.num_leaves
+        assert tg.num_leaves == n and n > 2
+        for name in ("split_feature", "threshold_in_bin", "left_child",
+                     "right_child"):
+            np.testing.assert_array_equal(getattr(tg, name)[:n - 1],
+                                          getattr(tc, name)[:n - 1])
+        np.testing.assert_array_equal(tg.leaf_value[:n], tc.leaf_value[:n])
+        np.testing.assert_array_equal(tg.split_gain[:n - 1],
+                                      tc.split_gain[:n - 1])
+        np.testing.assert_array_equal(lg, lc)
+        assert nc == 0 and 2 <= ng <= syncs
 
 
 def test_sanitizer_catches_a_sync_inside_a_step(dev):

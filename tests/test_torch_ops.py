@@ -297,6 +297,114 @@ def test_best_split_records_vs_jax(l1, l2, min_data, min_hess):
         np.testing.assert_allclose(out[k], ref, rtol=1e-4, atol=1e-6)
 
 
+def _two_call_children(out, sel, rows_a, rows_b, hist_a, sums_a, hist_b,
+                       sums_b, num_bins, is_cat, fmask, *, can_split,
+                       **kw):
+    """The rounds learner's chunk search as it was before the merged
+    call: a best_split per side, the can-split gate on each, two
+    `torch.where`s and two row writes."""
+    def gated(h, s):
+        rec = ts.best_split(h, num_bins, is_cat, fmask, s[:, 0], s[:, 1],
+                            s[:, 2], **kw)
+        can = ((s[:, 2] >= 2 * can_split[0])
+               & (s[:, 1] >= 2 * can_split[1]))
+        g = rec[:, 0]
+        rec[:, 0] = torch.where(can & torch.isfinite(g) & (g > 0), g,
+                                torch.full_like(g, -np.inf))
+        return rec
+    rec_a, rec_b = gated(hist_a, sums_a), gated(hist_b, sums_b)
+    out[rows_a] = torch.where(sel[:, None], rec_a, rec_b)
+    out[rows_b] = torch.where(sel[:, None], rec_b, rec_a)
+
+
+@pytest.mark.parametrize("F,B,tiles", [(28, 256, 1), (137, 256, 5),
+                                       (137, 128, 3), (3_000, 128, 48),
+                                       (50_000, 128, 794), (7, 1_024, 1),
+                                       (1, 60, 1)])
+def test_split_tile_covers_every_feature_within_the_budget(F, B, tiles):
+    """The split kernel's feature tile (ops/split.py `split_tile`): whole
+    warps of bins up to 256, at most 85 features (one scan thread a
+    feature and channel), three padded rows a feature within the
+    shared-memory budget, and tiles of even size that cover F."""
+    ft, bt, t = ts.split_tile(F, B)
+    assert t == tiles == -(-F // ft)
+    assert bt % 32 == 0 and bt <= 256 and (bt >= B or bt == 256)
+    assert ft <= 85 and ft * 3 * (bt + 1) * 4 <= ts.SPLIT_SMEM_BUDGET
+    assert (t - 1) * ft < F <= t * ft
+
+
+@pytest.mark.parametrize("case", ["records", "rounds_tree"])
+def test_split_children_matches_the_two_call_form(case, monkeypatch):
+    """The rounds learner's merged chunk search (ops/split.py
+    `split_children`: both children in one call, the gate fused, the
+    records written into leaf_best) against the two-call form it
+    replaced, on the CPU: the same leaf_best bit for bit, with leaves
+    the gate refuses and a leaf with no valid split; and the same tree
+    from the learner with either form."""
+    if case == "records":
+        rng = np.random.RandomState(5)
+        k, F, B, L = 6, 7, 128, 16
+        nb = rng.randint(2, 120, size=F)
+        hists, sums = [], []
+        for _ in range(2):
+            h = np.zeros((k, F, 3, B), np.float32)
+            for i in range(k):
+                for f in range(F):
+                    h[i, f, 0, :nb[f]] = rng.randn(nb[f]) * 4
+                    h[i, f, 1, :nb[f]] = rng.rand(nb[f]) * 8
+                    h[i, f, 2, :nb[f]] = rng.randint(0, 9, size=nb[f])
+            h[1, :, 1] = 0.0          # no hessian: no valid split
+            h[2, :, 2, :] = 0.0       # no rows: refused by the gate
+            hists.append(torch.as_tensor(h))
+            sums.append(torch.as_tensor(
+                h[:, 0].astype(np.float64).sum(axis=-1).astype(np.float32)))
+        is_cat = torch.as_tensor(np.arange(F) == 3)
+        fmask = torch.as_tensor(np.arange(F) != 5)
+        sel = torch.as_tensor(rng.rand(k) < 0.5)
+        rows = torch.as_tensor(rng.permutation(L)[:2 * k])
+        kw = dict(lambda_l1=0.5, lambda_l2=1.0, min_data_in_leaf=3,
+                  min_sum_hessian_in_leaf=1.0, min_gain_to_split=0.0,
+                  can_split=(3, 1.0))
+        got = torch.full((L, 11), -np.inf)
+        want = got.clone()
+        args = (sel, rows[:k], rows[k:], hists[0], sums[0], hists[1],
+                sums[1], torch.as_tensor(nb), is_cat, fmask)
+        ts.split_children(got, *args, **kw)
+        _two_call_children(want, *args, **kw)
+        assert torch.equal(got, want)
+        assert bool(torch.isinf(got[rows[[1, 2, k + 1, k + 2]], 0]).all())
+        assert bool(torch.isfinite(got[rows, 0]).any())
+        return
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.dataset import Dataset
+    from lightgbm_tpu_torch.learner import rounds
+    from lightgbm_tpu_torch.synth import synth_higgs
+    X, y = synth_higgs(3000)
+    cfg = config_from_params({"device_type": "cpu", "num_leaves": 31,
+                              "tree_growth": "rounds",
+                              "min_sum_hessian_in_leaf": 1.0,
+                              "min_data_in_leaf": 5})
+    ds = Dataset(X, y, cfg)
+    rng = np.random.RandomState(2)
+    p = 1.0 / (1.0 + np.exp(-rng.randn(3000)))
+    g = torch.as_tensor((p - y).astype(np.float32))
+    h = torch.as_tensor((p * (1 - p)).astype(np.float32))
+    trees = []
+    for form in (rounds.split_children, _two_call_children):
+        monkeypatch.setattr(rounds, "split_children", form)
+        tree, lid = rounds.RoundsTreeLearner(ds, cfg).train(g, h)
+        trees.append((tree, lid.numpy()))
+    (ta, la), (tb, lb) = trees
+    n = ta.num_leaves
+    assert n == tb.num_leaves == 31
+    for name in ("split_feature", "threshold_in_bin", "left_child",
+                 "right_child", "split_gain", "internal_value"):
+        np.testing.assert_array_equal(getattr(ta, name)[:n - 1],
+                                      getattr(tb, name)[:n - 1])
+    np.testing.assert_array_equal(ta.leaf_value[:n], tb.leaf_value[:n])
+    np.testing.assert_array_equal(la, lb)
+
+
 def test_kernel_signatures_match_the_sources():
     """Every C entry point's argument types (kernels.SIGNATURES, the
     stream last) name as many arguments as its definition in csrc/ has:
